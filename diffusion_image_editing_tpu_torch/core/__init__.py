@@ -1,0 +1,15 @@
+from .device import resolve_device  # noqa: F401
+from .presets import SCHEDULE_PRESETS, schedule_for_model  # noqa: F401
+from .schedule import (  # noqa: F401
+    Schedule,
+    add_noise,
+    alpha_bar,
+    ddim_step,
+    forward_step,
+    make_schedule,
+    posterior_mean_from_eps,
+    pred_original_sample,
+    prev_timestep,
+    reverse_step,
+    variance,
+)

@@ -1,0 +1,65 @@
+"""Guided editing loop: the port of `engine/edit.py::edit_split`.
+
+Each step runs the (CFG) UNet without gradient, takes a `reverse_step`
+("ddpm", the DDPM + t_skip branch) or `ddim_step` ("ddim") update, then the
+attribute function's nudge: a gradient through decode and loss."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core import schedule as S
+from ..guidance.attr_functions import AttrFunc, DecodeFn
+from .denoise import DecodeClosure, EpsFn
+
+
+class EditResult(NamedTuple):
+    x0: torch.Tensor  # final latent
+    xts: Optional[torch.Tensor] = None
+    model_outputs: Optional[torch.Tensor] = None
+    pred_original_samples: Optional[torch.Tensor] = None
+
+
+def edit_split(
+    sched: S.Schedule,
+    eps_fn: EpsFn,
+    xt: torch.Tensor,
+    eta: float = 0.0,
+    zs: Optional[torch.Tensor] = None,
+    attr_func: Optional[AttrFunc] = None,
+    decode_fn: Optional[DecodeFn] = None,
+    mask: Optional[torch.Tensor] = None,
+    x0_ref: Optional[torch.Tensor] = None,
+    step_rule: str = "ddim",
+    collect: bool = False,
+) -> EditResult:
+    """Guided denoising over the last len(zs) (or all) timesteps, one host
+    step at a time. t_skip is applied by the caller slicing xt = xts[t_skip]
+    and zs = zs[t_skip:]."""
+    if eta > 0 and zs is None:
+        raise ValueError("eta > 0 requires zs")
+    if step_rule not in ("ddim", "ddpm"):
+        raise ValueError(f"Unknown step rule {step_rule!r}")
+    n = zs.shape[0] if zs is not None else sched.num_inference_steps
+    step = S.reverse_step if step_rule == "ddpm" else S.ddim_step
+    if decode_fn is None:
+        decode_fn = DecodeClosure()  # identity codec
+    x = xt
+    xts_out, eps_out, px0_out = [], [], []
+    for i, t in enumerate(sched.timesteps[-n:]):
+        t = int(t)
+        z = zs[i] if zs is not None else torch.zeros_like(x)
+        eps = eps_fn(x, t).detach()
+        x, px0 = step(sched, x, eps, t, eta=eta, noise=z if eta > 0 else None)
+        if attr_func is not None:
+            x, z = attr_func.apply_batched(x, z, eps, t, i, sched, decode_fn,
+                                           mask=mask, x0=x0_ref)
+        if collect:
+            xts_out.append(x)
+            eps_out.append(eps)
+            px0_out.append(px0)
+    if collect:
+        return EditResult(x, torch.stack(xts_out), torch.stack(eps_out), torch.stack(px0_out))
+    return EditResult(x)

@@ -1,0 +1,262 @@
+"""Text-conditional UNet (Stable Diffusion 1.x) in torch, NCHW: the port of
+`models/unet2d_cond.py` with diffusers' `UNet2DConditionModel` key names.
+
+Two choices follow the JAX package, not diffusers, so the port reproduces it:
+LayerNorm eps 1e-6 (Flax's default) and the tanh form of GELU in GEGLU
+(Flax's `nn.gelu` default)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from ..ops.attention import attention
+from ..ops.conv import Conv3x3
+from .layers import (
+    Downsample2D,
+    GroupNormLayer,
+    ResnetBlock2D,
+    TimeEmbedding,
+    Upsample2D,
+    timestep_embedding,
+)
+
+LAYER_NORM_EPS = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConditionConfig:
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+    )
+    layers_per_block: int = 2
+    attention_head_dim: int = 8  # number of heads (diffusers naming quirk)
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    @property
+    def num_transformers(self) -> int:
+        """Transformer2D blocks in one forward (each runs two attentions)."""
+        down = sum(t == "CrossAttnDownBlock2D" for t in self.down_block_types)
+        up = sum(t == "CrossAttnUpBlock2D" for t in self.up_block_types)
+        return down * self.layers_per_block + 1 + up * (self.layers_per_block + 1)
+
+
+SD15_UNET = UNet2DConditionConfig()  # CompVis SD-1.4 / runwayml SD-1.5
+
+TINY_SD_UNET = UNet2DConditionConfig(
+    sample_size=8,
+    block_out_channels=(32, 64),
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+    layers_per_block=1,
+    attention_head_dim=2,
+    cross_attention_dim=32,
+    norm_num_groups=8,
+)
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention, cross when `context` is given. q/k/v
+    projections without bias, output projection with (diffusers Attention)."""
+
+    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None, **factory):
+        super().__init__()
+        self.heads = heads
+        ctx = context_dim or dim
+        self.to_q = nn.Linear(dim, dim, bias=False, **factory)
+        self.to_k = nn.Linear(ctx, dim, bias=False, **factory)
+        self.to_v = nn.Linear(ctx, dim, bias=False, **factory)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim, **factory)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        b, s, dim = x.shape
+        hd = dim // self.heads
+        q = self.to_q(x).reshape(b, s, self.heads, hd)
+        k = self.to_k(ctx).reshape(b, ctx.shape[1], self.heads, hd)
+        v = self.to_v(ctx).reshape(b, ctx.shape[1], self.heads, hd)
+        out = attention(q, k, v, scale=hd ** -0.5).reshape(b, s, dim)
+        return self.to_out[0](out)
+
+
+class _GEGLUProj(nn.Module):
+    def __init__(self, dim: int, inner: int, **factory):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2, **factory)
+
+
+class FeedForwardGEGLU(nn.Module):
+    """GEGLU feed-forward; keys `net.0.proj` and `net.2` as in diffusers."""
+
+    def __init__(self, dim: int, mult: int = 4, **factory):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([_GEGLUProj(dim, inner, **factory), nn.Identity(),
+                                  nn.Linear(inner, dim, **factory)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.net[0].proj(x).chunk(2, dim=-1)
+        return self.net[2](h * F.gelu(gate, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, context_dim: int, **factory):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS, **factory)
+        self.attn1 = CrossAttention(dim, heads, **factory)
+        self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS, **factory)
+        self.attn2 = CrossAttention(dim, heads, context_dim, **factory)
+        self.norm3 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS, **factory)
+        self.ff = FeedForwardGEGLU(dim, **factory)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """GroupNorm -> 1x1 proj_in -> transformer block(s) -> 1x1 proj_out + residual."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int, norm_num_groups: int = 32,
+                 depth: int = 1, **factory):
+        super().__init__()
+        self.norm = GroupNormLayer(channels, norm_num_groups, 1e-6, None, **factory)
+        self.proj_in = nn.Conv2d(channels, channels, 1, **factory)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(channels, heads, context_dim, **factory) for _ in range(depth)])
+        self.proj_out = nn.Conv2d(channels, channels, 1, **factory)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        hid = self.proj_in(self.norm(x)).reshape(n, c, h * w).transpose(1, 2).contiguous()
+        for block in self.transformer_blocks:
+            hid = block(hid, context)
+        hid = hid.transpose(1, 2).reshape(n, c, h, w)
+        return self.proj_out(hid) + x
+
+
+class _Block(nn.Module):
+    """A down/mid/up stage: `resnets`, optional `attentions`, and optional
+    `downsamplers`/`upsamplers` (diffusers' container names)."""
+
+    def __init__(self, resnets, attentions=None, downsamplers=None, upsamplers=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions:
+            self.attentions = nn.ModuleList(attentions)
+        if downsamplers:
+            self.downsamplers = nn.ModuleList(downsamplers)
+        if upsamplers:
+            self.upsamplers = nn.ModuleList(upsamplers)
+
+
+class UNet2DCondition(nn.Module):
+    """SD UNet, NCHW. Built on `device` (None = CUDA, raising without it)
+    with parameters in `dtype`; `forward` returns f32 eps."""
+
+    def __init__(self, config: UNet2DConditionConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = cfg = config
+        fk = dict(device=resolve_device(device), dtype=dtype)
+        g, eps = cfg.norm_num_groups, cfg.norm_eps
+        heads, ctx, temb = cfg.attention_head_dim, cfg.cross_attention_dim, cfg.time_embed_dim
+        c0 = cfg.block_out_channels[0]
+        self.time_embedding = TimeEmbedding(c0, temb, **fk)
+        self.conv_in = Conv3x3(cfg.in_channels, c0, **fk)
+
+        skips, ch, downs = [c0], c0, []
+        for i, btype in enumerate(cfg.down_block_types):
+            out_ch = cfg.block_out_channels[i]
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock2D(ch, out_ch, temb, g, eps, **fk))
+                ch = out_ch
+                if btype == "CrossAttnDownBlock2D":
+                    attns.append(Transformer2D(ch, heads, ctx, g, **fk))
+                skips.append(ch)
+            down = None
+            if i < len(cfg.down_block_types) - 1:
+                down = [Downsample2D(ch, ch, padding=1, **fk)]
+                skips.append(ch)
+            downs.append(_Block(resnets, attns, downsamplers=down))
+        self.down_blocks = nn.ModuleList(downs)
+
+        self.mid_block = _Block(
+            [ResnetBlock2D(ch, ch, temb, g, eps, **fk), ResnetBlock2D(ch, ch, temb, g, eps, **fk)],
+            [Transformer2D(ch, heads, ctx, g, **fk)])
+
+        ups = []
+        for i, btype in enumerate(cfg.up_block_types):
+            out_ch = list(reversed(cfg.block_out_channels))[i]
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block + 1):
+                resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb, g, eps, **fk))
+                ch = out_ch
+                if btype == "CrossAttnUpBlock2D":
+                    attns.append(Transformer2D(ch, heads, ctx, g, **fk))
+            up = [Upsample2D(ch, ch, **fk)] if i < len(cfg.up_block_types) - 1 else None
+            ups.append(_Block(resnets, attns, upsamplers=up))
+        self.up_blocks = nn.ModuleList(ups)
+
+        self.conv_norm_out = GroupNormLayer(ch, g, eps, "silu", **fk)
+        self.conv_out = Conv3x3(ch, cfg.out_channels, **fk)
+
+    def forward(self, sample: torch.Tensor, timesteps, context: torch.Tensor) -> torch.Tensor:
+        """sample (B, C, H, W); timesteps a scalar or (B,); context (B, L, D)."""
+        cfg = self.config
+        dtype = self.conv_in.weight.dtype
+        t = torch.as_tensor(np.asarray(timesteps) if not torch.is_tensor(timesteps)
+                            else timesteps, device=sample.device)
+        if t.dim() == 0:
+            t = t.expand(sample.shape[0])
+        t_emb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+                                   cfg.freq_shift)
+        temb = self.time_embedding(t_emb)
+        context = context.to(dtype)
+
+        h = self.conv_in(sample.to(dtype))
+        skips = [h]
+        for block in self.down_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                if hasattr(block, "attentions"):
+                    h = block.attentions[j](h, context)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, context)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                if hasattr(block, "attentions"):
+                    h = block.attentions[j](h, context)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+        return self.conv_out(self.conv_norm_out(h)).float()

@@ -1,0 +1,54 @@
+"""Model-family wrappers: the port of `pipeline/wrappers.py` for Stable
+Diffusion (KL-VAE codec with the 0.18215 latent scale)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..core.device import resolve_device
+from ..core.schedule import Schedule
+from ..engine.denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClosure
+
+
+class SD:
+    """Stable Diffusion: UNet + schedule + KL-VAE codec on one device.
+
+    Text conditioning is a precomputed [uncond; cond] embedding (2, L, D),
+    `text_emb`; CLIP and the tokenizer come in a later slice, so
+    `prep_text(None)` returns that embedding. `device=None` means CUDA and
+    raises without it; the modules and the schedule are moved there."""
+
+    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
+                 text_emb: Optional[torch.Tensor] = None, device=None):
+        self.device = resolve_device(device)
+        self.unet = unet.to(self.device)
+        self.vae = vae.to(self.device)
+        self.schedule = sched.to(self.device)
+        self.text_emb = None if text_emb is None else text_emb.to(self.device)
+        scale = vae.config.scaling_factor
+        self._encode = EncodeClosure(self.vae, scale)
+        self._decode = DecodeClosure(self.vae, scale)
+
+    def decode_fn(self) -> DecodeClosure:
+        """Differentiable latent -> image callable for guidance."""
+        return self._decode
+
+    def encode(self, sample: torch.Tensor) -> torch.Tensor:
+        return self._encode(sample.to(self.device))
+
+    def decode(self, latent: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return self._decode(latent)
+
+    def prep_text(self, prompt_ids=None) -> Optional[torch.Tensor]:
+        if prompt_ids is not None:
+            raise NotImplementedError("prompt ids need the CLIP text encoder (a later slice)")
+        return self.text_emb
+
+    def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
+        if text_emb is None:
+            return EpsClosure(self.unet)
+        return CfgEpsClosure(self.unet, text_emb, cfg_scale)
