@@ -8,27 +8,45 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   - compiles the CUDA kernels from the checkout (one nvcc per
              source, in parallel) and prints the seconds and ptxas usage.
 3. kernels - at the main path's shapes on the card, holds each kernel
-             against its plain torch version on the same inputs (the
-             forward through the public `attention()`, the backward kernels
-             on the forward's lse and delta, then the whole gradient through
-             `attention()`'s autograd; tolerances below), then times the
-             kernel, the plain version and `scaled_dot_product_attention`
-             (a yardstick only; the port never calls it).
+             against its plain torch version on the same inputs, then times
+             the kernel, the plain version and a library call that computes
+             the same function (a yardstick only; the port never calls it):
+             * attention (K1-K3): the forward through the public
+               `attention()`, the backward kernels on the forward's lse and
+               delta, then the whole gradient through `attention()`'s
+               autograd; yardstick `scaled_dot_product_attention`;
+             * GroupNorm (K4, or K5 + K6 by slab size) at the UNet's
+               64 x 64 x 320 and 8 x 8 x 1280 (batch 2) and the VAE's
+               512 x 512 x 128 (batch 1), each activation; yardstick
+               `F.group_norm` on bf16 (+ `F.silu`);
+             * the fused GroupNorm+SiLU -> conv3x3 (K7) at the UNet's
+               64 x 64 320 -> 320 and 16 x 16 2560 -> 1280 (batch 2) and the
+               VAE's 64 x 64 512 -> 512 (batch 1); yardstick `F.conv2d`
+               (cuDNN) on the pre-activated input.
 4. tiny    - the model-level pieces of the path at the TINY configs (CFG
              eps, encode, decode, the decode's gradient), bf16 on the card
-             against f32 on the CPU with the same weights and inputs.
+             against f32 on the CPU with the same weights and inputs, in the
+             default and the fused-conv configuration.
 5. main    - SD-1.5 UNet + SD VAE at full width with seeded random weights,
              bf16: 512 px image -> VAE encode -> edit-friendly DDPM inversion
              (batched, chunk 10, t_skip 10) -> 40 colour-guided steps, each
              with a gradient through the full VAE decoder -> decode. Checks
-             each kernel's launch count against what the path implies and
-             that the image is finite.
+             each kernel's launch count against what the path implies (every
+             GroupNorm of the path through K4 or K5 + K6, and no plain
+             GroupNorm on the card) and that the image is finite.
+6. fused   - the same weights in the fused-conv configuration
+             (`fused_conv=True` on the UNet's and the VAE's configs): one
+             CFG UNet call, one decode and its latent gradient against the
+             default configuration, then the whole path, with the fused conv's
+             and the remaining GroupNorms' launch counts checked and a finite
+             image.
 
 The last two lines are the `kernels` JSON object and the result JSON object.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -66,11 +84,41 @@ BWD_CASES = [
     ("vae mid 64x64", (1, 4096, 1, 512)),
     ("unet self 32x32", (2, 1024, 8, 80)),
 ]
+# GroupNorm: max |kernel - plain| / max |plain|; both round the same f32 value
+# to bf16, so they differ by at most one bf16 step (2^-7 relative) where the
+# f32 values straddle a rounding boundary. Statistics in f32: mean within
+# 1e-5 * (|mean| + 1), rstd within 1e-4 relative (sums in another order).
+GN_TOL, MEAN_TOL, RSTD_TOL = 1e-2, 1e-5, 1e-4
+GN_GROUPS, GN_EPS = 32, 1e-6
+GN_CASES = [  # (label, (N, C, H, W))
+    ("unet 64x64x320 b2", (2, 320, 64, 64)),
+    ("unet 8x8x1280 b2", (2, 1280, 8, 8)),
+    ("vae 512x512x128 b1", (1, 128, 512, 512)),
+]
+# Fused conv: max |kernel - plain| / max |plain|. f32 accumulation in another
+# order; the kernel rounds conv + bias once, the plain version rounds the
+# conv and then the bias add.
+CONV_TOL = 2e-2
+CONV_CASES = [  # (label, N, Cin, Cout, H, W)
+    ("unet 64x64 320->320 b2", 2, 320, 320, 64, 64),
+    ("unet 16x16 2560->1280 b2", 2, 2560, 1280, 16, 16),
+    ("vae 64x64 512->512 b1", 1, 512, 512, 64, 64),
+]
+# The same full-width computations in the default and the fused-conv
+# configuration, both bf16, max |fused - default| / max |default|: about the
+# bf16-vs-f32 spread of the tiny phase (TINY_TOL), since the two differ only
+# in where and in what order they round.
+FUSED_TOL = {"eps": 0.1, "decode": 0.05, "decode_vjp": 0.1}
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 REPLACES = {
     "flash_attn_fwd": "diffusion_image_editing_tpu/ops/attention.py:157 _resident_kernel, "
                       ":197 _streaming_kernel",
     "flash_attn_bwd_dq": "diffusion_image_editing_tpu/ops/attention.py:321 _bwd_dq_kernel",
     "flash_attn_bwd_dkv": "diffusion_image_editing_tpu/ops/attention.py:359 _bwd_dkv_kernel",
+    "group_norm_fused": "diffusion_image_editing_tpu/ops/groupnorm.py:98 _single_block_kernel",
+    "group_norm_stats": "diffusion_image_editing_tpu/ops/groupnorm.py:64 _stats_kernel",
+    "group_norm_apply": "diffusion_image_editing_tpu/ops/groupnorm.py:86 _apply_kernel",
+    "affine_silu_conv3x3": "diffusion_image_editing_tpu/ops/fused_conv.py:171 _fused_kernel",
 }
 SOURCES = {
     name: f"diffusion_image_editing_tpu_torch/ops/csrc/{name}.cu" for name in REPLACES
@@ -81,14 +129,21 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+SLEEP_CYCLES = 20_000_000  # about 11 ms at the H100's 1.755 GHz boost clock
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Mean device milliseconds per call, from CUDA events around `reps`
-    back-to-back calls after `warmup` calls."""
+    back-to-back calls after `warmup` calls. The timed calls queue up behind
+    a sleep kernel while the host launches them, so that a call whose launch
+    takes longer on the host than its kernels take on the card is timed by
+    its kernels, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -97,8 +152,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -156,8 +211,9 @@ def _randn(shape, gen, dev):
     return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
 
-def _entry(name, shape, err, ms, plain_ms, flops, nbytes, library_ms):
-    b_ms, by = bound_ms(flops, nbytes)
+def _entry(name, shape, err, ms, plain_ms, flops, nbytes, library_ms,
+           peak_flops=PEAK_BF16_FLOPS):
+    b_ms, by = bound_ms(flops, nbytes, peak_flops)
     return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "shape": shape, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
@@ -266,9 +322,131 @@ def phase_kernels() -> dict:
         del q, k, v, dout, args, leaves, grads, ref_grads, lib_out
         torch.cuda.empty_cache()
 
+    _groupnorm_kernels(gen, dev, entries, failures)
+    _conv_kernels(gen, dev, entries, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with the plain version: {failures}")
     return entries
+
+
+def _groupnorm_kernels(gen, dev, entries, failures) -> None:
+    """K4, K5 and K6 at the path's GroupNorm shapes, each activation. Bound:
+    bytes (x read once, the output written once; K5 reads x alone), against
+    f32 operations counted as 10 an element for K4, 3 for K5 and 7 for K6."""
+    from diffusion_image_editing_tpu_torch.ops import groupnorm as GN
+
+    for label, shape in GN_CASES:
+        n, c = shape[:2]
+        x = _randn(shape, gen, dev)
+        scale = (1 + 0.2 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        bias = (0.2 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        fused = GN.uses_fused_kernel(shape, GN_GROUPS)
+        route = "K4" if fused else "K5+K6"
+        args = (x, scale, bias, GN_GROUPS, GN_EPS)
+        with torch.no_grad():
+            ref_mean, ref_rstd = GN.group_norm_moments(x, GN_GROUPS, GN_EPS)
+            for act in GN.ACTS:
+                out, mean, rstd = GN.group_norm_kernels(*args, act)
+                ref = GN.group_norm_reference(*args, act)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = err / ref.float().abs().max().item()
+                mean_err = ((mean - ref_mean).abs() / (ref_mean.abs() + 1)).max().item()
+                rstd_err = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+                ok = (rel <= GN_TOL and mean_err <= MEAN_TOL and rstd_err <= RSTD_TOL
+                      and math.isfinite(rel))
+                line = (f"[kernels] group_norm {label} {shape} act={act} ({route}): "
+                        f"max_abs_err {err:.3e}, relative {rel:.3e} (tol {GN_TOL}), mean "
+                        f"{mean_err:.2e} (tol {MEAN_TOL}), rstd {rstd_err:.2e} (tol {RSTD_TOL}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"group_norm {label} act={act}")
+                if act not in ("silu", None):
+                    log(line)
+                    continue
+                ms = time_ms(lambda: GN.group_norm_kernels(*args, act))
+                plain_ms = time_ms(lambda: GN.group_norm_reference(*args, act), reps=5)
+                if act == "silu":
+                    lib_ms = time_ms(lambda: F.silu(F.group_norm(x, GN_GROUPS, scale, bias,
+                                                                 GN_EPS)))
+                else:
+                    lib_ms = time_ms(lambda: F.group_norm(x, GN_GROUPS, scale, bias, GN_EPS))
+                nx = 2.0 * x.numel()
+                b_ms, by = bound_ms(10.0 * x.numel(), 2 * nx, PEAK_F32_FLOPS)
+                line += (f" | kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, F.group_norm"
+                         f"{'+silu' if act else ''} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+                if fused:
+                    two_pass_ms = time_ms(lambda: GN.group_norm_apply(
+                        x, *GN.group_norm_stats(x, GN_GROUPS, GN_EPS), scale, bias, act))
+                    line += f"; K5+K6 at this shape {two_pass_ms:.4f} ms"
+                log(line)
+                if act != "silu":
+                    continue
+                stats = 8.0 * n * GN_GROUPS  # the (N, G) f32 mean and rstd
+                if fused:
+                    entries.setdefault("group_norm_fused", _entry(
+                        "group_norm_fused", list(shape), err, ms, plain_ms, 10.0 * x.numel(),
+                        2 * nx + 4 * c + stats, lib_ms, PEAK_F32_FLOPS))
+                else:
+                    st_ms = time_ms(lambda: GN.group_norm_stats(x, GN_GROUPS, GN_EPS))
+                    st_plain = time_ms(lambda: GN.group_norm_moments(x, GN_GROUPS, GN_EPS),
+                                       reps=5)
+                    ap_ms = time_ms(lambda: GN.group_norm_apply(x, mean, rstd, scale, bias, act))
+                    ap_plain = time_ms(lambda: GN.group_norm_apply_reference(
+                        x, mean, rstd, scale, bias, act), reps=5)
+                    stat_abs = max((mean - ref_mean).abs().max().item(),
+                                   (rstd - ref_rstd).abs().max().item())
+                    e5 = _entry("group_norm_stats", list(shape), stat_abs, st_ms, st_plain,
+                                3.0 * x.numel(), nx + stats, None, PEAK_F32_FLOPS)
+                    e6 = _entry("group_norm_apply", list(shape), err, ap_ms, ap_plain,
+                                7.0 * x.numel(), 2 * nx + 4 * c + stats, None, PEAK_F32_FLOPS)
+                    log(f"[kernels] group_norm {label} act=silu: K5 {st_ms:.4f} ms (plain "
+                        f"{st_plain:.4f}, bound {e5['bound_ms']:.4f}), K6 {ap_ms:.4f} ms (plain "
+                        f"{ap_plain:.4f}, bound {e6['bound_ms']:.4f})")
+                    entries.setdefault("group_norm_stats", e5)
+                    entries.setdefault("group_norm_apply", e6)
+        del x, ref_mean, ref_rstd
+        torch.cuda.empty_cache()
+
+
+def _conv_kernels(gen, dev, entries, failures) -> None:
+    """K7 at the path's fused-conv shapes. Bound: 2 * N * H * W * Cout * 9 * Cin
+    tensor-core operations against x, w and y read or written once."""
+    from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
+
+    for label, n, cin, cout, h, w in CONV_CASES:
+        x = _randn((n, cin, h, w), gen, dev)
+        a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device=dev)
+        b = 0.5 * torch.randn((n, cin), generator=gen, device=dev)
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5)
+        wt = wt.to(torch.bfloat16)
+        bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
+        args = (x, a, b, wt, bias)
+        with torch.no_grad():
+            y = FC.affine_silu_conv3x3_kernel(*args)
+            ref = FC.affine_silu_conv3x3_reference(*args)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ms = time_ms(lambda: FC.affine_silu_conv3x3_kernel(*args))
+            plain_ms = time_ms(lambda: FC.affine_silu_conv3x3_reference(*args), reps=5)
+            act = F.silu(x.float() * a[:, :, None, None] + b[:, :, None, None]).to(x.dtype)
+            lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=1))
+        flops = 2.0 * n * h * w * cout * 9 * cin
+        nbytes = 2.0 * (x.numel() + wt.numel() + y.numel()) + 8.0 * n * cin + 2.0 * cout
+        e = _entry("affine_silu_conv3x3", [n, cin, cout, h, w], err, ms, plain_ms, flops,
+                   nbytes, lib_ms)
+        ok = rel <= CONV_TOL and math.isfinite(rel)
+        log(f"[kernels] fused conv {label} x{(n, cin, h, w)} w{(cout, cin, 3, 3)}: max_abs_err "
+            f"{err:.3e}, relative {rel:.3e} (tol {CONV_TOL}) {'ok' if ok else 'FAIL'} | kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN conv "
+            f"on the activated input {lib_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']})")
+        if not ok:
+            failures.append(f"fused conv {label}")
+        entries.setdefault("affine_silu_conv3x3", e)
+        del x, wt, y, ref, act
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +456,7 @@ def phase_kernels() -> dict:
 
 def phase_tiny() -> None:
     import copy
+    import dataclasses
 
     from diffusion_image_editing_tpu_torch.models import (
         TINY_SD_UNET, TINY_VAE, AutoencoderKL, UNet2DCondition)
@@ -285,119 +464,316 @@ def phase_tiny() -> None:
 
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
-    unet = UNet2DCondition(TINY_SD_UNET, device="cpu")
-    vae = AutoencoderKL(TINY_VAE, device="cpu")
+    weights = (UNet2DCondition(TINY_SD_UNET, device="cpu").state_dict(),
+               AutoencoderKL(TINY_VAE, device="cpu").state_dict())
     text = torch.from_numpy(rng.standard_normal((2, 77, 32), dtype=np.float32))
     x = torch.from_numpy(rng.standard_normal((2, 4, 16, 16), dtype=np.float32))
     img = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 32, 32)).astype(np.float32))
     z0 = torch.from_numpy(rng.standard_normal((1, 4, 16, 16), dtype=np.float32))
     w = torch.from_numpy(rng.standard_normal((1, 3, 32, 32), dtype=np.float32))
     t = np.array([801, 41])
-
-    def pieces(dev, dtype):
-        u = copy.deepcopy(unet).to(dev, dtype)
-        v = copy.deepcopy(vae).to(dev, dtype)
-        eps = CfgEpsClosure(u, text.to(dev, dtype), 3.5)(x.to(dev), t)
-        with torch.no_grad():
-            latent = v.encode(img.to(dev))
-        z = z0.to(dev).requires_grad_(True)
-        decoded = v.decode(z)
-        (vjp,) = torch.autograd.grad((decoded.float() * w.to(dev)).sum(), z)
-        return {"eps": eps, "latent": latent, "decode": decoded.detach(), "decode_vjp": vjp}
-
-    cpu = pieces(torch.device("cpu"), torch.float32)
-    card = pieces(torch.device("cuda"), torch.bfloat16)
     failed = []
-    for name, tol in TINY_TOL.items():
-        ref = cpu[name].float()
-        err = ((card[name].float().cpu() - ref).abs().max() / ref.abs().max()).item()
-        ok = err <= tol
-        log(f"[tiny] {name}: max|card bf16 - cpu f32| / max|cpu| {err:.3e} (tol {tol}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(name)
+    for fused in (False, True):
+        unet = UNet2DCondition(dataclasses.replace(TINY_SD_UNET, fused_conv=fused), device="cpu")
+        vae = AutoencoderKL(dataclasses.replace(TINY_VAE, fused_conv=fused), device="cpu")
+        unet.load_state_dict(weights[0])
+        vae.load_state_dict(weights[1])
+
+        def pieces(dev, dtype):
+            u = copy.deepcopy(unet).to(dev, dtype)
+            v = copy.deepcopy(vae).to(dev, dtype)
+            eps = CfgEpsClosure(u, text.to(dev, dtype), 3.5)(x.to(dev), t)
+            with torch.no_grad():
+                latent = v.encode(img.to(dev))
+            z = z0.to(dev).requires_grad_(True)
+            decoded = v.decode(z)
+            (vjp,) = torch.autograd.grad((decoded.float() * w.to(dev)).sum(), z)
+            return {"eps": eps, "latent": latent, "decode": decoded.detach(), "decode_vjp": vjp}
+
+        cpu = pieces(torch.device("cpu"), torch.float32)
+        card = pieces(torch.device("cuda"), torch.bfloat16)
+        config = "fused_conv" if fused else "default"
+        for name, tol in TINY_TOL.items():
+            ref = cpu[name].float()
+            err = ((card[name].float().cpu() - ref).abs().max() / ref.abs().max()).item()
+            ok = err <= tol
+            log(f"[tiny] {config} {name}: max|card bf16 - cpu f32| / max|cpu| {err:.3e} "
+                f"(tol {tol}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{config} {name}")
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
 
 
 # ---------------------------------------------------------------------------
-# 5. main path
+# 5. main path and 6. fused
 # ---------------------------------------------------------------------------
 
 STEPS, T_SKIP, CHUNK = 50, 10, 10
+GUIDED = STEPS - T_SKIP
+UNET_CALLS = math.ceil((STEPS - T_SKIP) / CHUNK) + GUIDED  # inversion groups + guided steps
+DECODES, ENCODES = GUIDED + 1, 1  # one decode per guided step's gradient, the final decode
 
 
-def phase_main_path(smi: str) -> dict:
-    """Returns each kernel's launch count from one counted run."""
-    from diffusion_image_editing_tpu_torch.core import schedule_for_model
-    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+def build_models(dev, fused: bool = False, weights=None):
+    """SD-1.5 UNet + SD VAE, bf16, seeded random weights (or the given state
+    dicts), in the default or the fused-conv configuration."""
+    import dataclasses
+
     from diffusion_image_editing_tpu_torch.models import (
         SD15_UNET, SD_VAE, AutoencoderKL, UNet2DCondition)
-    from diffusion_image_editing_tpu_torch.ops.attention import (
-        launch_counts, reset_launch_counts)
+
+    torch.manual_seed(0)
+    unet = UNet2DCondition(dataclasses.replace(SD15_UNET, fused_conv=fused), device=dev,
+                           dtype=torch.bfloat16)
+    vae = AutoencoderKL(dataclasses.replace(SD_VAE, fused_conv=fused), device=dev,
+                        dtype=torch.bfloat16)
+    if weights is not None:
+        unet.load_state_dict(weights[0])
+        vae.load_state_dict(weights[1])
+    return unet, vae
+
+
+def make_pipeline(unet, vae, dev):
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
     from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline
 
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    torch.manual_seed(0)
-    unet = UNet2DCondition(SD15_UNET, device=dev, dtype=torch.bfloat16)
-    vae = AutoencoderKL(SD_VAE, device=dev, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     text_emb = torch.from_numpy(
-        rng.standard_normal((2, 77, SD15_UNET.cross_attention_dim), dtype=np.float32))
-    img = torch.from_numpy(
-        rng.uniform(-1.0, 1.0, (1, 3, SD_VAE.sample_size, SD_VAE.sample_size)).astype(np.float32))
+        rng.standard_normal((2, 77, unet.config.cross_attention_dim), dtype=np.float32))
+    size = vae.config.sample_size
+    img = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
     sd = SD(unet, vae, schedule_for_model("sd", STEPS), text_emb=text_emb.to(torch.bfloat16),
             device=dev)
-    pipe = EditPipeline(sd)
+    return sd, EditPipeline(sd), img
+
+
+def forward_pieces(sd, dev):
+    """One CFG UNet call, one decode and its latent gradient, one encode, on
+    fixed inputs; each returns its output."""
+    cfg = sd.vae.config
+    size, lat = cfg.sample_size, cfg.sample_size // 2 ** (len(cfg.block_out_channels) - 1)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 4, lat, lat), dtype=np.float32)).to(dev)
+    z = torch.from_numpy(rng.standard_normal((1, 4, lat, lat), dtype=np.float32)).to(dev)
+    wgt = torch.from_numpy(rng.standard_normal((1, 3, size, size), dtype=np.float32)).to(dev)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 3, size, size)).astype(np.float32)).to(dev)
+
+    def eps():
+        return sd.eps_fn(sd.prep_text(None))(x, np.array([501]))
+
+    def decode():
+        zz = z.clone().requires_grad_(True)
+        decoded = sd.decode_fn()(zz)
+        (vjp,) = torch.autograd.grad((decoded.float() * wgt).sum(), zz)
+        return decoded.detach(), vjp
+
+    def encode():
+        return sd.encode(img)
+
+    return {"eps": eps, "decode": decode, "encode": encode}
+
+
+def per_forward_launches(pieces) -> dict:
+    """Kernel launches of one UNet call, one decode (with its gradient) and
+    one encode, each counted alone."""
+    from diffusion_image_editing_tpu_torch import ops
+
+    out = {}
+    for name, fn in pieces.items():
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = ops.launch_counts()
+    return out
+
+
+def path_launches(per: dict) -> dict:
+    """What the counted run implies from the per-forward launches: UNET_CALLS
+    UNet calls, DECODES decodes (GUIDED of them with a gradient), ENCODES
+    encodes. The final decode has no gradient; it launches the same forward
+    kernels, and its backward kernels are taken off."""
+    total = {k: UNET_CALLS * per["eps"][k] + DECODES * per["decode"][k]
+             + ENCODES * per["encode"][k] for k in per["eps"]}
+    for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        total[k] -= per["decode"][k]  # the final decode runs no backward
+    return total
+
+
+def count_modules(module, cls) -> int:
+    return sum(isinstance(m, cls) for m in module.modules())
+
+
+@contextlib.contextmanager
+def plain_groupnorm_watch():
+    """Counts calls of `F.group_norm` and of the port's plain GroupNorm
+    functions on CUDA tensors while the block runs."""
+    from diffusion_image_editing_tpu_torch.ops import groupnorm as GN
+
+    targets = [(F, "group_norm"), (GN, "group_norm_reference"), (GN, "group_norm_moments"),
+               (GN, "group_norm_apply_reference")]
+    calls = {name: 0 for _, name in targets}
+    originals = [getattr(mod, name) for mod, name in targets]
+
+    def counting(name, fn):
+        def wrapper(x, *args, **kwargs):
+            if x.is_cuda:
+                calls[name] += 1
+            return fn(x, *args, **kwargs)
+        return wrapper
+
+    for (mod, name), fn in zip(targets, originals):
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(targets, originals):
+            setattr(mod, name, fn)
+
+
+def run_path(pipe, img, dev):
+    """Inversion + GUIDED colour-guided steps + final decode; returns the
+    output and the inversion's and the edit's seconds."""
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
     attr = SingleColorAttrFunc(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)
-    n_params = sum(p.numel() for m in (unet, vae) for p in m.parameters())
-    log(f"[main] SD-1.5 UNet + SD VAE, {n_params / 1e6:.1f} M parameters, bf16, seeded random "
-        f"weights; set-up {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t_start = time.perf_counter()
+    xt, zs, xts, _, _ = pipe.prepare_real_image_edit(
+        img, eta=1.0, inversion_method="ddpm", mode="batched", t_skip=T_SKIP, chunk=CHUNK,
+        generator=gen)
+    torch.cuda.synchronize()
+    t_inv = time.perf_counter()
+    out = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr,
+                          inversion_method="ddpm", t_skip=T_SKIP, mode="split")
+    torch.cuda.synchronize()
+    return out, t_inv - t_start, time.perf_counter() - t_inv
 
-    def run():
-        gen = torch.Generator(device=dev).manual_seed(5)
-        t_start = time.perf_counter()
-        xt, zs, xts, _, _ = pipe.prepare_real_image_edit(
-            img, eta=1.0, inversion_method="ddpm", mode="batched", t_skip=T_SKIP, chunk=CHUNK,
-            generator=gen)
-        torch.cuda.synchronize()
-        t_inv = time.perf_counter()
-        out = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr,
-                              inversion_method="ddpm", t_skip=T_SKIP, mode="split")
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        return out, t_inv - t_start, t_end - t_inv
 
-    run()  # warm-up: first-call library set-up stays out of the timed, counted run
+def counted_run(tag, pipe, img, dev, smi):
+    """A warm-up run, then one run with every launch count set to 0 just
+    before it and read just after; checks the image. Returns the counts and
+    the plain GroupNorm calls on the card during the counted run."""
+    from diffusion_image_editing_tpu_torch import ops
+
+    run_path(pipe, img, dev)  # warm-up: first-call library set-up stays out of the timed run
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    out, inv_s, edit_s = run()
-    counts = launch_counts()
+    with plain_groupnorm_watch() as plain_calls:
+        ops.reset_launch_counts()
+        out, inv_s, edit_s = run_path(pipe, img, dev)
+        counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-
-    guided = STEPS - T_SKIP
-    unet_calls = math.ceil((STEPS - T_SKIP) / CHUNK) + guided
-    expected = {
-        "flash_attn_fwd": 2 * SD15_UNET.num_transformers * unet_calls + 2 + guided,
-        "flash_attn_bwd_dq": guided,
-        "flash_attn_bwd_dkv": guided,
-    }
-    log(f"[main] e2e {inv_s + edit_s:.3f} s (inversion {inv_s:.3f} s, {guided} guided steps "
-        f"{edit_s:.3f} s = {guided / edit_s:.3f} steps/s), peak memory "
+    log(f"[{tag}] e2e {inv_s + edit_s:.3f} s (inversion {inv_s:.3f} s, {GUIDED} guided steps "
+        f"{edit_s:.3f} s = {GUIDED / edit_s:.3f} steps/s), peak memory "
         f"{peak / 2**30:.2f} GiB, on {smi}")
-    log(f"[main] launches {counts}, expected {expected} ({unet_calls} UNet calls x "
-        f"{2 * SD15_UNET.num_transformers} attentions, encode + final decode, "
-        f"1 fwd + 1 dq + 1 dkv per guided step)")
     imgs = out.imgs
     finite = bool(torch.isfinite(imgs).all())
-    log(f"[main] image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, "
+    log(f"[{tag}] image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, "
         f"range [{imgs.min().item():.3f}, {imgs.max().item():.3f}], "
         f"red mean {imgs[:, 0].float().mean().item():.4f}")
+    size = pipe.diffusion_wrapper.vae.config.sample_size
+    if not finite or tuple(imgs.shape) != (1, 3, size, size):
+        raise RuntimeError(f"{tag} path output is not a finite (1, 3, {size}, {size}) image")
+    return counts, dict(plain_calls)
+
+
+def check_counts(tag, counts, expected, plain_calls) -> None:
+    log(f"[{tag}] launches {counts}")
+    log(f"[{tag}] expected {expected}; plain GroupNorm calls on the card {plain_calls}")
     if counts != expected:
-        raise RuntimeError(f"launch counts {counts} differ from the path's {expected}")
-    if not finite or tuple(imgs.shape) != (1, 3, SD_VAE.sample_size, SD_VAE.sample_size):
-        raise RuntimeError("main path output is not a finite (1, 3, 512, 512) image")
+        raise RuntimeError(f"{tag}: launch counts {counts} differ from the path's {expected}")
+    if any(plain_calls.values()):
+        raise RuntimeError(f"{tag}: a plain GroupNorm ran on the card: {plain_calls}")
+
+
+def phase_main_path(smi: str, unet, vae) -> dict:
+    """Returns each kernel's launch count from one counted run."""
+    from diffusion_image_editing_tpu_torch.models.layers import GroupNormLayer
+
+    dev = next(unet.parameters()).device
+    sd, pipe, img = make_pipeline(unet, vae, dev)
+    n_params = sum(p.numel() for m in (unet, vae) for p in m.parameters())
+    log(f"[main] SD-1.5 UNet + SD VAE, {n_params / 1e6:.1f} M parameters, bf16, seeded random "
+        f"weights, default configuration")
+
+    per = per_forward_launches(forward_pieces(sd, dev))
+    expected = path_launches(per)
+    gn = {"eps": count_modules(unet, GroupNormLayer),
+          "decode": count_modules(vae.decoder, GroupNormLayer),
+          "encode": count_modules(vae.encoder, GroupNormLayer)}
+    gn_calls = UNET_CALLS * gn["eps"] + DECODES * gn["decode"] + ENCODES * gn["encode"]
+    log(f"[main] GroupNorm layers: UNet {gn['eps']}, decoder {gn['decode']}, encoder "
+        f"{gn['encode']}; the path calls them {UNET_CALLS} x {gn['eps']} + {DECODES} x "
+        f"{gn['decode']} + {ENCODES} x {gn['encode']} = {gn_calls} times")
+    for piece, n_gn in gn.items():
+        c = per[piece]
+        log(f"[main] one {piece}: {c}")
+        if c["group_norm_fused"] + c["group_norm_stats"] != n_gn or (
+                c["group_norm_stats"] != c["group_norm_apply"]):
+            raise RuntimeError(f"one {piece} ran {c} GroupNorm kernels for {n_gn} layers")
+    attn = {"flash_attn_fwd": 2 * unet.config.num_transformers * UNET_CALLS + 2 + GUIDED,
+            "flash_attn_bwd_dq": GUIDED, "flash_attn_bwd_dkv": GUIDED}
+    if any(expected[k] != v for k, v in attn.items()) or expected["affine_silu_conv3x3"]:
+        raise RuntimeError(f"per-forward launches {expected} do not give the attention "
+                           f"counts {attn} and no fused conv")
+
+    counts, plain_calls = counted_run("main", pipe, img, dev, smi)
+    check_counts("main", counts, expected, plain_calls)
+    log(f"[main] GroupNorm forwards through the kernels: K4 {counts['group_norm_fused']} + "
+        f"K5/K6 {counts['group_norm_stats']} = "
+        f"{counts['group_norm_fused'] + counts['group_norm_stats']} (path: {gn_calls})")
+    return counts
+
+
+def phase_fused(smi: str, unet, vae) -> dict:
+    """The fused-conv configuration with the default models' weights."""
+    from diffusion_image_editing_tpu_torch.models.layers import GroupNormLayer, ResnetBlock2D
+
+    dev = next(unet.parameters()).device
+    funet, fvae = build_models(dev, fused=True, weights=(unet.state_dict(), vae.state_dict()))
+    sd, _, _ = make_pipeline(unet, vae, dev)
+    fsd, fpipe, img = make_pipeline(funet, fvae, dev)
+
+    pieces, fpieces = forward_pieces(sd, dev), forward_pieces(fsd, dev)
+    eps, feps = pieces["eps"](), fpieces["eps"]()
+    (dec, vjp), (fdec, fvjp) = pieces["decode"](), fpieces["decode"]()
+    failed = []
+    for name, ref, got in (("eps", eps, feps), ("decode", dec, fdec),
+                           ("decode_vjp", vjp, fvjp)):
+        err = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        ok = err <= FUSED_TOL[name] and math.isfinite(err)
+        log(f"[fused] {name}: max|fused - default| / max|default| {err:.3e} "
+            f"(tol {FUSED_TOL[name]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"fused-conv configuration disagrees with the default: {failed}")
+    del eps, feps, dec, vjp, fdec, fvjp, sd, pieces
+
+    per = per_forward_launches(fpieces)
+    expected = path_launches(per)
+    blocks = {"eps": count_modules(funet, ResnetBlock2D),
+              "decode": count_modules(fvae.decoder, ResnetBlock2D),
+              "encode": count_modules(fvae.encoder, ResnetBlock2D)}
+    gn = {"eps": count_modules(funet, GroupNormLayer),
+          "decode": count_modules(fvae.decoder, GroupNormLayer),
+          "encode": count_modules(fvae.encoder, GroupNormLayer)}
+    for piece, c in per.items():
+        n_gn = c["group_norm_fused"] + c["group_norm_stats"]
+        log(f"[fused] one {piece}: {c['affine_silu_conv3x3']} fused convs (of "
+            f"{2 * blocks[piece]} ResnetBlock convs), {n_gn} GroupNorms (of {gn[piece]} layers)")
+        if n_gn + c["affine_silu_conv3x3"] != gn[piece]:
+            raise RuntimeError(f"one {piece}: fused convs and GroupNorms do not cover the "
+                               f"{gn[piece]} GroupNorm layers: {c}")
+    log(f"[fused] the path implies {UNET_CALLS} x {per['eps']['affine_silu_conv3x3']} + "
+        f"{DECODES} x {per['decode']['affine_silu_conv3x3']} + {ENCODES} x "
+        f"{per['encode']['affine_silu_conv3x3']} = {expected['affine_silu_conv3x3']} fused convs "
+        f"and {expected['group_norm_fused'] + expected['group_norm_stats']} GroupNorms")
+    if expected["affine_silu_conv3x3"] == 0:
+        raise RuntimeError("the fused-conv configuration fuses no conv")
+
+    counts, plain_calls = counted_run("fused", fpipe, img, dev, smi)
+    check_counts("fused", counts, expected, plain_calls)
     return counts
 
 
@@ -406,9 +782,15 @@ def main() -> int:
     phase_build()
     entries = phase_kernels()
     phase_tiny()
-    counts = phase_main_path(smi)
+    t0 = time.perf_counter()
+    unet, vae = build_models(torch.device("cuda"))
+    log(f"[main] models built in {time.perf_counter() - t0:.1f} s")
+    counts = phase_main_path(smi, unet, vae)
+    fused_counts = phase_fused(smi, unet, vae)
     for name, e in entries.items():
-        e["launches"] = counts[name]
+        # K7 runs only in the fused-conv configuration; the rest are read
+        # from the default path's counted run.
+        e["launches"] = (fused_counts if name == "affine_silu_conv3x3" else counts)[name]
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

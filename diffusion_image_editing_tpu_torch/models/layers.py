@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.conv import Conv3x3
+from ..ops.fused_conv import affine_silu_conv3x3, fused_conv_wanted, gn_affine_coeffs
 from ..ops.groupnorm import group_norm
 
 
@@ -66,14 +67,22 @@ class GroupNormLayer(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GroupNorm+SiLU -> conv -> (+temb) -> GroupNorm+SiLU -> conv, residual
-    (the unfused branch of the JAX block)."""
+    """GroupNorm+SiLU -> conv -> (+temb) -> GroupNorm+SiLU -> conv, residual.
+
+    With `fused_conv` (the JAX block under DIE_TPU_FUSED_CONV=1), a conv
+    whose input shape passes `fused_conv_wanted` takes its GroupNorm+SiLU as
+    a per-(batch, channel) prologue (`ops.fused_conv`): conv1 takes (A1, B1)
+    of norm1, conv2 (A2, B2) of norm2 with the temb projection folded in as
+    the shift, so no h + temb tensor is made. Other shapes, and the block
+    without `fused_conv`, run the unfused branch. The parameters are the
+    same either way."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
                  norm_num_groups: int = 32, norm_eps: float = 1e-6,
-                 output_scale_factor: float = 1.0, **factory):
+                 output_scale_factor: float = 1.0, fused_conv: bool = False, **factory):
         super().__init__()
         self.output_scale_factor = output_scale_factor
+        self.fused_conv = fused_conv
         self.norm1 = GroupNormLayer(in_channels, norm_num_groups, norm_eps, "silu", **factory)
         self.conv1 = Conv3x3(in_channels, out_channels, **factory)
         self.time_emb_proj = (nn.Linear(temb_dim, out_channels, **factory)
@@ -83,12 +92,20 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1, **factory)
                               if in_channels != out_channels else None)
 
+    @staticmethod
+    def _norm_conv(norm: GroupNormLayer, conv: Conv3x3, x: torch.Tensor, fused: bool,
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if fused and fused_conv_wanted(x.shape):
+            a, b = gn_affine_coeffs(x, norm.weight, norm.bias, norm.num_groups, norm.eps, shift)
+            return affine_silu_conv3x3(x, a, b, conv.weight, conv.bias)
+        if shift is not None:
+            x = x + shift[:, :, None, None].to(x.dtype)
+        return conv(norm(x))
+
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
-        if temb is not None:
-            t = self.time_emb_proj(F.silu(temb))
-            h = h + t[:, :, None, None].to(h.dtype)
-        h = self.conv2(self.norm2(h))
+        t = self.time_emb_proj(F.silu(temb)) if temb is not None else None
+        h = self._norm_conv(self.norm1, self.conv1, x, self.fused_conv)
+        h = self._norm_conv(self.norm2, self.conv2, h, self.fused_conv, t)
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return (residual + h) / self.output_scale_factor
 

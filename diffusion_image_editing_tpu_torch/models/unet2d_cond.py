@@ -49,6 +49,9 @@ class UNet2DConditionConfig:
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # Fold each ResnetBlock's GroupNorm(+temb)+SiLU into its conv where the
+    # shape allows (`ops.fused_conv`): the JAX package's DIE_TPU_FUSED_CONV=1.
+    fused_conv: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -180,6 +183,7 @@ class UNet2DCondition(nn.Module):
         super().__init__()
         self.config = cfg = config
         fk = dict(device=resolve_device(device), dtype=dtype)
+        rk = dict(fk, fused_conv=cfg.fused_conv)  # ResnetBlock2D keywords
         g, eps = cfg.norm_num_groups, cfg.norm_eps
         heads, ctx, temb = cfg.attention_head_dim, cfg.cross_attention_dim, cfg.time_embed_dim
         c0 = cfg.block_out_channels[0]
@@ -191,7 +195,7 @@ class UNet2DCondition(nn.Module):
             out_ch = cfg.block_out_channels[i]
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock2D(ch, out_ch, temb, g, eps, **fk))
+                resnets.append(ResnetBlock2D(ch, out_ch, temb, g, eps, **rk))
                 ch = out_ch
                 if btype == "CrossAttnDownBlock2D":
                     attns.append(Transformer2D(ch, heads, ctx, g, **fk))
@@ -204,7 +208,7 @@ class UNet2DCondition(nn.Module):
         self.down_blocks = nn.ModuleList(downs)
 
         self.mid_block = _Block(
-            [ResnetBlock2D(ch, ch, temb, g, eps, **fk), ResnetBlock2D(ch, ch, temb, g, eps, **fk)],
+            [ResnetBlock2D(ch, ch, temb, g, eps, **rk), ResnetBlock2D(ch, ch, temb, g, eps, **rk)],
             [Transformer2D(ch, heads, ctx, g, **fk)])
 
         ups = []
@@ -212,7 +216,7 @@ class UNet2DCondition(nn.Module):
             out_ch = list(reversed(cfg.block_out_channels))[i]
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb, g, eps, **fk))
+                resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb, g, eps, **rk))
                 ch = out_ch
                 if btype == "CrossAttnUpBlock2D":
                     attns.append(Transformer2D(ch, heads, ctx, g, **fk))

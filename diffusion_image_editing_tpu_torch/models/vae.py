@@ -32,6 +32,9 @@ class AutoencoderConfig:
     scaling_factor: float = 0.18215
     double_z: bool = True  # KL: the encoder emits mean and log-variance
     mid_attention: bool = True
+    # Fold each ResnetBlock's GroupNorm+SiLU into its conv where the shape
+    # allows (`ops.fused_conv`): the JAX package's DIE_TPU_FUSED_CONV=1.
+    fused_conv: bool = False
 
 
 SD_VAE = AutoencoderConfig()  # CompVis/stable-diffusion-v1-4 `vae`
@@ -45,11 +48,15 @@ TINY_VAE = AutoencoderConfig(
 )
 
 
+def _resnet_kw(cfg: AutoencoderConfig, fk: dict) -> dict:
+    return dict(fk, fused_conv=cfg.fused_conv)
+
+
 def _mid_block(cfg: AutoencoderConfig, ch: int, **fk) -> _Block:
     g, eps = cfg.norm_num_groups, cfg.norm_eps
     attns = [AttentionBlock2D(ch, None, g, eps, **fk)] if cfg.mid_attention else None
-    return _Block([ResnetBlock2D(ch, ch, None, g, eps, **fk),
-                   ResnetBlock2D(ch, ch, None, g, eps, **fk)], attns)
+    return _Block([ResnetBlock2D(ch, ch, None, g, eps, **_resnet_kw(cfg, fk)),
+                   ResnetBlock2D(ch, ch, None, g, eps, **_resnet_kw(cfg, fk))], attns)
 
 
 def _run_mid(block: _Block, h: torch.Tensor) -> torch.Tensor:
@@ -69,7 +76,7 @@ class Encoder(nn.Module):
         for i, out_ch in enumerate(cfg.block_out_channels):
             resnets = []
             for _ in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps, **fk))
+                resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps, **_resnet_kw(cfg, fk)))
                 ch = out_ch
             down = ([Downsample2D(ch, ch, padding=0, **fk)]
                     if i < len(cfg.block_out_channels) - 1 else None)
@@ -102,7 +109,7 @@ class Decoder(nn.Module):
         for i, out_ch in enumerate(reversed_out):
             resnets = []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps, **fk))
+                resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps, **_resnet_kw(cfg, fk)))
                 ch = out_ch
             up = [Upsample2D(ch, ch, **fk)] if i < len(reversed_out) - 1 else None
             ups.append(_Block(resnets, upsamplers=up))

@@ -1,1 +1,20 @@
-"""Ops: attention (hand-written CUDA flash kernels), group norm, conv."""
+"""Ops: attention, GroupNorm and the fused GroupNorm+SiLU -> conv3x3, each
+with hand-written CUDA kernels and a plain torch version; plain convs go to
+cuDNN.
+
+`launch_counts()` / `reset_launch_counts()` read and zero every kernel
+wrapper's launch count, by kernel name."""
+
+from . import attention, fused_conv, groupnorm
+
+KERNEL_WRAPPERS = (attention.KERNEL_WRAPPERS + groupnorm.KERNEL_WRAPPERS
+                   + fused_conv.KERNEL_WRAPPERS)
+
+
+def launch_counts() -> dict:
+    return {w.kernel_name: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0

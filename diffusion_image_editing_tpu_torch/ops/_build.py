@@ -20,9 +20,14 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+KERNELS = (
+    "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+    "group_norm_fused", "group_norm_stats", "group_norm_apply", "affine_silu_conv3x3",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
@@ -93,11 +98,18 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`_ZN2fa16flash_fwd_kernelILi48ELi1ELi4ELi64EEEv...` -> `flash_fwd_kernel<48,1,4,64>`."""
-    m = re.match(r"_ZN\d+\w+?\d+([A-Za-z_]\w*?)I((?:Li\d+E)+)E", mangled)
-    if not m:
+    """`_ZN2fa16flash_fwd_kernelILi48ELi1ELi4ELi64EEEv...` -> `flash_fwd_kernel<48,1,4,64>`,
+    `_ZN2gn15gn_fused_kernelILb1EEEv...` -> `gn_fused_kernel<1>`."""
+    if not mangled.startswith("_ZN"):
         return mangled
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():  # <length><identifier> per scope
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    m = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', m.group(1)))}>" if m else name
 
 
 def ptxas_report(name: str) -> str:
@@ -128,3 +140,18 @@ def load(name: str, argtypes: Sequence, restype=ctypes.c_int):
         fn.restype = restype
         _FNS[name] = fn
     return fn
+
+
+def launch(name: str, argtypes: Sequence, device: torch.device, *args) -> None:
+    """Call kernel `name`'s C entry point on `device` and PyTorch's current
+    stream: `fn(device index, *args, stream)`. Raises when it returns an
+    error (a refused shape, or a launch the device refused)."""
+    fn = load(name, argtypes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(device.index, *args, stream)
+    if rc != 0:
+        try:
+            reason = str(torch.cuda.CudaError(rc))
+        except (TypeError, ValueError):
+            reason = f"cudaError_t {rc}"
+        raise RuntimeError(f"{name} launch failed: {reason}")

@@ -31,7 +31,7 @@ whole backward) and `attention_bwd_dq_reference` / `attention_bwd_dkv_reference`
 (K2 / K3, from the same lse and delta the kernels take). `attention()`
 launches the kernels for CUDA tensors and raises when it cannot; it takes
 `attention_reference` for CPU tensors only. Each kernel wrapper counts its
-launches in `.launches`.
+launches in `.launches` (read by `ops.launch_counts()`).
 """
 
 from __future__ import annotations
@@ -160,15 +160,7 @@ def _check_stats(name: str, q: torch.Tensor, b: int, h: int, s_q: int,
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    fn = _build.load(name, _ARGTYPES[name])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(device.index, *args, stream)
-    if rc != 0:
-        try:
-            reason = str(torch.cuda.CudaError(rc))
-        except (TypeError, ValueError):
-            reason = f"cudaError_t {rc}"
-        raise RuntimeError(f"{name} launch failed: {reason}")
+    _build.launch(name, _ARGTYPES[name], device, *args)
 
 
 def flash_attn_fwd(
@@ -213,15 +205,7 @@ def flash_attn_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
 KERNEL_WRAPPERS = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
-
-
-def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    _w.kernel_name = _w.__name__
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,12 @@ class SD:
     def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
                  text_emb: Optional[torch.Tensor] = None, device=None):
         self.device = resolve_device(device)
-        self.unet = unet.to(self.device)
-        self.vae = vae.to(self.device)
+        # Inference only: the guidance gradient is taken with respect to the
+        # latent, so no weight needs one (XLA drops the weights' gradients in
+        # the JAX package; here autograd then skips them, the fused conv's
+        # dw included).
+        self.unet = unet.to(self.device).requires_grad_(False)
+        self.vae = vae.to(self.device).requires_grad_(False)
         self.schedule = sched.to(self.device)
         self.text_emb = None if text_emb is None else text_emb.to(self.device)
         scale = vae.config.scaling_factor

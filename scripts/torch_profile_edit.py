@@ -14,8 +14,9 @@ Builds the port's SD-1.5 UNet and SD VAE (bf16, seeded random weights), a
     guidance nudge (decode with gradient through the VAE decoder);
   * profiles one inversion and one 5-step edit with torch.profiler (device
     activity only) and prints the kernels by device time, the
-    flash-attention kernels' share, the device's busy time (the union of
-    the kernels' intervals), and the idle share of the wall time. The idle
+    flash-attention kernels' share, the GroupNorm kernels' share and each of
+    them, the device's busy time (the union of the kernels' intervals), and
+    the idle share of the wall time. The idle
     share is given against the events wall time of the same call without
     the profiler, and against the wall time under the profiler, which
     counts the profiler's own host overhead.
@@ -41,6 +42,10 @@ from diffusion_image_editing_tpu_torch.models import (  # noqa: E402
 from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline  # noqa: E402
 
 ATTN_KERNELS = ("fa::flash_",)  # the port's flash-attention kernels (namespace fa)
+# GroupNorm: the port's forward kernels (namespace gn) and PyTorch's GroupNorm
+# kernels (its forward statistics, and the backward the port calls).
+GN_KERNELS = ("gn::", "GroupNorm", "RowwiseMoments", "ComputeInternalGradients",
+              "ComputeFusedParams")
 STEPS, T_SKIP, CHUNK, SHORT = 50, 10, 10, 5
 
 
@@ -81,6 +86,8 @@ def profile(label, fn, events_wall_ms, top=12):
         by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
     busy_ms = busy_us / 1e3
     attn_ms = sum(t for n, (t, _) in by_name.items() if any(k in n for k in ATTN_KERNELS)) / 1e3
+    gn = {n: tc for n, tc in by_name.items() if any(k in n for k in GN_KERNELS)}
+    gn_ms = sum(t for t, _ in gn.values()) / 1e3
     print(f"[{label}] device busy {busy_ms:.2f} ms, {len(kernels)} kernels; idle share "
           f"{max(0.0, 1 - busy_ms / events_wall_ms):.3f} of the events wall {events_wall_ms:.2f} "
           f"ms without the profiler ({max(0.0, 1 - busy_ms / wall_ms):.3f} of the wall "
@@ -88,6 +95,10 @@ def profile(label, fn, events_wall_ms, top=12):
           f"{attn_ms / max(busy_ms, 1e-9):.3f} of busy time")
     for name, (t, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[{label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:110]}")
+    print(f"[{label}] GroupNorm kernels {gn_ms:.2f} ms = {gn_ms / max(busy_ms, 1e-9):.3f} of "
+          f"busy time (the f32 casts around the backward are not counted):")
+    for name, (t, count) in sorted(gn.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:160]}")
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-"""The port's CUDA attention kernels against the plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips without a card. Run
 on the card with
@@ -7,27 +7,48 @@ on the card with
 
 (`--noconftest`: the suite's conftest sets JAX up, which these tests do not
 use). chip_smoke.py holds the kernels at the main path's shapes; these
-cases add what the path does not reach: ragged query and key lengths that
-are no multiple of any tile, a single row, and head dims padded inside the
-kernel to each built width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on
-both designs: narrow heads (padded width up to 160) with one warp per 16
-rows, and wider heads cut into four slices, one warp each.
+cases add what the path does not reach.
 
-Tolerances, bf16 in and out as on the main path, each as max |kernel -
-plain| / max |plain|: forward 2e-2, a few times the readings that
-chip_smoke.py prints at the main path's shapes (PERF.md); gradients 2e-2
-(P and dS are rounded to bf16 in the kernels' products). Log-sum-exp max |kernel - plain| 1e-3
-(f32 sums of bf16 products in another order).
+Attention (K1-K3): ragged query and key lengths that are no multiple of any
+tile, a single row, and head dims padded inside the kernel to each built
+width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on both designs: narrow
+heads (padded width up to 160) with one warp per 16 rows, and wider heads
+cut into four slices, one warp each. Tolerances, bf16 in and out as on the
+main path, each as max |kernel - plain| / max |plain|: forward 2e-2, a few
+times the readings that chip_smoke.py prints at the main path's shapes
+(PERF.md); gradients 2e-2 (P and dS are rounded to bf16 in the kernels'
+products). Log-sum-exp max |kernel - plain| 1e-3 (f32 sums of bf16 products
+in another order).
+
+GroupNorm (K4-K6): H * W not a multiple of 8 (the scalar paths) nor of the
+stats chunk, C / G = 1 and 2, batch 20, slabs at and just above K4's limit,
+and large-mean input. Output tolerance 1e-2 of max |plain|: both round the
+same f32 value to bf16, so they differ by at most one bf16 step (2^-7
+relative) where the f32 values straddle a rounding boundary. Statistics:
+mean within 1e-5 * (|mean| + 1), rstd within 1e-4 relative (f32 sums in
+another order).
+
+Fused conv (K7): H, W = 4, 12 x 20, 7 x 9 (no 16-byte output rows) and 64,
+Cin and Cout of 16, 24 and 960, bf16 and f32 bias; tolerance 2e-2 of
+max |plain| (f32 accumulation in another order, one rounding of the
+output where the plain version rounds the conv and the bias add apart).
+Gradients through the autograd function 2e-2 (the same backward ops on
+both sides, fed by outputs that differ by the forward's rounding).
 """
 
 import pytest
 import torch
 
+import diffusion_image_editing_tpu_torch.ops as OPS
 from diffusion_image_editing_tpu_torch.ops import attention as A
+from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
+from diffusion_image_editing_tpu_torch.ops import groupnorm as GN
 
 pytestmark = pytest.mark.cuda
 
 FWD_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
+GN_TOL, MEAN_TOL, RSTD_TOL = 1e-2, 1e-5, 1e-4
+CONV_TOL = 2e-2
 
 
 @pytest.fixture
@@ -36,6 +57,18 @@ def gen():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _launched(fn):
+    before = OPS.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = OPS.launch_counts()
+    return out, {n: after[n] - before[n] for n in after if after[n] != before[n]}
 
 
 def _rand(shape, gen):
@@ -80,15 +113,13 @@ def test_backward_matches_plain(gen, b, s_q, s_k, h, d):
     v = _rand((b, s_k, h, d), gen).requires_grad_()
     dout = _rand((b, s_q, h, d), gen)
     scale = d ** -0.5
-    before = A.launch_counts()
-    grads = torch.autograd.grad(A.attention(q, k, v, scale), (q, k, v), dout)
-    after = A.launch_counts()
+    grads, launched = _launched(
+        lambda: torch.autograd.grad(A.attention(q, k, v, scale), (q, k, v), dout))
     ref = torch.autograd.grad(A.attention_reference(q, k, v, scale), (q, k, v), dout)
     for g, r in zip(grads, ref):
         err = (g.float() - r.float()).abs().max() / r.float().abs().max()
         assert err.item() <= GRAD_TOL
-    assert {n: after[n] - before[n] for n in after} == {
-        "flash_attn_fwd": 1, "flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}
+    assert launched == {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}
 
 
 @pytest.mark.parametrize("d", [64, 120, 256])
@@ -96,3 +127,119 @@ def test_head_dims_not_built_are_refused(gen, d):
     q = _rand((1, 16, 1, d), gen)
     with pytest.raises(ValueError, match="not built"):
         A.attention(q, q, q)
+
+
+@pytest.mark.parametrize(
+    "n,c,h,w,g,act,mean",
+    [
+        (1, 32, 7, 9, 32, "silu", 0.0),        # C/G = 1, H*W = 63: scalar K4
+        (2, 64, 13, 13, 32, "gelu", 0.0),      # C/G = 2, H*W = 169
+        (20, 320, 8, 8, 32, "silu", 0.0),      # batch 20 (the inversion's)
+        (1, 96, 128, 128, 32, "relu", 0.0),    # slab of exactly 96 KiB: K4
+        (1, 96, 128, 130, 32, None, 0.0),      # 97.5 KiB: K5 + K6, 3.05 chunks
+        (1, 32, 250, 251, 32, "silu", 0.0),    # C/G = 1, odd slab: scalar K5 and K6
+        (1, 128, 200, 200, 32, "gelu", 0.0),   # 10 chunks a slab, the last ragged
+        (2, 320, 64, 64, 32, "silu", 50.0),    # large mean, K4
+        (1, 128, 256, 256, 32, "silu", 50.0),  # large mean, K5 + K6
+    ],
+)
+def test_group_norm_matches_plain(gen, n, c, h, w, g, act, mean):
+    x = (torch.randn((n, c, h, w), generator=gen, device="cuda") + mean).to(torch.bfloat16)
+    scale = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    fused = GN.uses_fused_kernel(x.shape, g)
+    (out, m, r), launched = _launched(lambda: GN.group_norm_kernels(x, scale, bias, g, 1e-6, act))
+    assert launched == ({"group_norm_fused": 1} if fused
+                        else {"group_norm_stats": 1, "group_norm_apply": 1})
+    ref_m, ref_r = GN.group_norm_moments(x, g, 1e-6)
+    assert ((m - ref_m).abs() / (ref_m.abs() + 1)).max().item() <= MEAN_TOL
+    assert ((r - ref_r).abs() / ref_r).max().item() <= RSTD_TOL
+    assert _rel(out, GN.group_norm_reference(x, scale, bias, g, 1e-6, act)) <= GN_TOL
+    assert torch.equal(GN.group_norm(x, scale, bias, g, 1e-6, act), out)
+
+
+@pytest.mark.parametrize("act", GN.ACTS)
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (1, 64, 128, 128)], ids=["K4", "K5+K6"])
+def test_group_norm_gradient_matches_plain(gen, shape, act):
+    """f32 scale and bias here (the kernels take both types)."""
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    scale = (1 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")).requires_grad_()
+    bias = (0.2 * torch.randn(shape[1], generator=gen, device="cuda")).requires_grad_()
+    cot = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out = GN.group_norm(x, scale, bias, 32, 1e-6, act)
+    ref = GN.group_norm_reference(x, scale, bias, 32, 1e-6, act)
+    assert _rel(out, ref) <= GN_TOL
+    grads = torch.autograd.grad(out, (x, scale, bias), cot)
+    ref_grads = torch.autograd.grad(ref, (x, scale, bias), cot)
+    for got, want in zip(grads, ref_grads):
+        assert _rel(got, want) <= GRAD_TOL
+
+
+def test_group_norm_refuses_what_no_kernel_takes(gen):
+    x = torch.randn((1, 64, 8, 8), generator=gen, device="cuda")
+    s, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="bfloat16"):
+            GN.group_norm(x.to(dtype), s, b, 32)
+    with pytest.raises(ValueError, match="groups"):
+        GN.group_norm(x.to(torch.bfloat16), s, b, 24)
+    with pytest.raises(ValueError, match=r"\(N, C, H, W\)"):
+        GN.group_norm(x.to(torch.bfloat16).reshape(1, 64, 64), s, b, 32)
+    with pytest.raises(ValueError, match="activation"):
+        GN.group_norm(x.to(torch.bfloat16), s, b, 32, act="tanh")
+
+
+def _conv_inputs(gen, n, cin, cout, h, w, bias_dtype):
+    x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device="cuda")
+    b = 0.5 * torch.randn((n, cin), generator=gen, device="cuda")
+    wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5)
+    bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    return x, a, b, wt.to(torch.bfloat16), bias.to(bias_dtype)
+
+
+@pytest.mark.parametrize(
+    "n,cin,cout,h,w,bias_dtype",
+    [
+        (2, 16, 24, 4, 4, torch.bfloat16),
+        (1, 24, 16, 12, 20, torch.float32),
+        (1, 16, 16, 7, 9, torch.bfloat16),
+        (2, 24, 960, 64, 64, torch.bfloat16),
+        (1, 960, 24, 12, 20, torch.float32),
+        (2, 960, 960, 8, 8, torch.bfloat16),
+    ],
+)
+def test_fused_conv_matches_plain(gen, n, cin, cout, h, w, bias_dtype):
+    args = _conv_inputs(gen, n, cin, cout, h, w, bias_dtype)
+    y, launched = _launched(lambda: FC.affine_silu_conv3x3(*args))
+    assert launched == {"affine_silu_conv3x3": 1}
+    assert y.shape == (n, cout, h, w) and y.dtype == torch.bfloat16
+    assert _rel(y, FC.affine_silu_conv3x3_reference(*args)) <= CONV_TOL
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 12, 20), (1, 64, 32, 64, 64)])
+def test_fused_conv_gradients_match_plain(gen, shape):
+    n, cin, cout, h, w = shape
+    leaves = [t.requires_grad_() for t in _conv_inputs(gen, n, cin, cout, h, w, torch.bfloat16)]
+    cot = torch.randn((n, cout, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    grads = torch.autograd.grad(FC.affine_silu_conv3x3(*leaves), leaves, cot)
+    ref = torch.autograd.grad(FC.affine_silu_conv3x3_reference(*leaves), leaves, cot)
+    for got, want in zip(grads, ref):
+        assert got.dtype == want.dtype and _rel(got, want) <= GRAD_TOL
+
+
+@pytest.mark.parametrize(
+    "shape,match",
+    [((1, 16, 3, 8), "H="), ((1, 16, 8, 65), "W="), ((1, 12, 8, 8), "Cin=")],
+)
+def test_fused_conv_refuses_shapes(gen, shape, match):
+    n, cin, h, w = shape
+    args = _conv_inputs(gen, n, cin, 16, h, w, torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        FC.affine_silu_conv3x3(*args)
+
+
+def test_fused_conv_refuses_dtypes(gen):
+    x, a, b, wt, bias = _conv_inputs(gen, 1, 16, 16, 8, 8, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FC.affine_silu_conv3x3(x.float(), a, b, wt.float(), bias)
