@@ -22,11 +22,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              * the fused GroupNorm+SiLU -> conv3x3 (K7) at the UNet's
                64 x 64 320 -> 320 and 16 x 16 2560 -> 1280 (batch 2) and the
                VAE's 64 x 64 512 -> 512 (batch 1); yardstick `F.conv2d`
-               (cuDNN) on the pre-activated input.
+               (cuDNN) on the pre-activated input;
+             * activated batch norm (K8) at the segmentation trainer's
+               shapes (batch 16 at 448 px): the stem's 224 x 224 x 64, layer4's
+               14 x 14 x 512, the 1 x 1 x 128 norms, one bf16 and one ELU
+               case; yardstick `F.batch_norm` (+ the activation).
 4. tiny    - the model-level pieces of the path at the TINY configs (CFG
              eps, encode, decode, the decode's gradient), bf16 on the card
              against f32 on the CPU with the same weights and inputs, in the
              default and the fused-conv configuration.
+   seg-tiny - two BiSeNet train steps with norm="abn" at width 8, 64 px,
+             batch 2, f32 on the card (TF32 off) against the same on the CPU
+             from the same weights and batches: losses, weights, running
+             statistics.
 5. main    - SD-1.5 UNet + SD VAE at full width with seeded random weights,
              bf16: 512 px image -> VAE encode -> edit-friendly DDPM inversion
              (batched, chunk 10, t_skip 10) -> 40 colour-guided steps, each
@@ -40,6 +48,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              default configuration, then the whole path, with the fused conv's
              and the remaining GroupNorms' launch counts checked and a finite
              image.
+7. seg     - the segmentation trainer's path after the SD models are freed:
+             `seg.train_loop` (the `seg-train` CLI's entry point) at the
+             reference recipe (BiSeNet, ResNet-18, width 64, 19 classes,
+             448 px, batch 16, OHEM 3-head loss, warmup -> poly SGD) with
+             norm="abn", seeded random weights and a uint8 SyntheticFaceMask
+             feed, in f32 and in bf16 compute: a warm-up run that saves a
+             checkpoint, a counted run that resumes from it (ms/step and
+             img/s from CUDA events, peak memory, every ABN through K8 and no
+             plain ABN on the card, finite losses, weights and running
+             statistics changed), a second resume, and one eval-mode forward.
 
 The last two lines are the `kernels` JSON object and the result JSON object.
 """
@@ -47,11 +65,14 @@ The last two lines are the `kernels` JSON object and the result JSON object.
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,10 +140,38 @@ REPLACES = {
     "group_norm_stats": "diffusion_image_editing_tpu/ops/groupnorm.py:64 _stats_kernel",
     "group_norm_apply": "diffusion_image_editing_tpu/ops/groupnorm.py:86 _apply_kernel",
     "affine_silu_conv3x3": "diffusion_image_editing_tpu/ops/fused_conv.py:171 _fused_kernel",
+    "abn_apply": "diffusion_image_editing_tpu/ops/abn.py:105 _abn_apply_kernel",
 }
 SOURCES = {
     name: f"diffusion_image_editing_tpu_torch/ops/csrc/{name}.cu" for name in REPLACES
 }
+# ABN (K8): max |kernel - plain| / max |plain|. The kernel does the plain
+# version's f32 operations in its order, each rounded (no FMA contraction),
+# so f32 identity and leaky_relu agree to the bit and ELU to an ulp of
+# expm1; bf16 output may differ by one bf16 step (2^-7 relative) where the
+# f32 values straddle a rounding boundary.
+ABN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+ABN_EPS, ABN_OPS = 1e-5, 6.0  # f32 operations an element: sub, 2 mul, add, activation
+ABN_CASES = [  # (label, (N, C, H, W), dtype, activation)
+    ("stem 224x224", (16, 64, 224, 224), torch.float32, "leaky_relu"),
+    ("layer4 14x14", (16, 512, 14, 14), torch.float32, "identity"),
+    ("1x1 norms", (16, 128, 1, 1), torch.float32, "identity"),
+    ("ffm 56x56", (16, 256, 56, 56), torch.bfloat16, "leaky_relu"),
+    ("conv_head16 56x56", (16, 128, 56, 56), torch.float32, "elu"),
+]
+# The tiny trainer on the card (f32, TF32 off) against the CPU, the same
+# weights and batches, two steps at a learning rate of 1e-2 (warmup starting
+# at lr0), so each step moves the weights by about 1e-4 to 1e-2: losses
+# |card - cpu| / |cpu| <= 1e-4 (convolutions summed in another order);
+# weights max |card - cpu| <= 2e-2 of the largest update max |cpu - start|
+# (f32 rounding of the weights alone is about 1e-3 of an update, and the
+# 1 x 1 norms over N = 2 values amplify the rest); running statistics
+# max |card - cpu| / max |cpu| <= 1e-3 per tensor.
+SEG_TINY = dict(image_size=64, batch_size_per_device=2, width=8, norm="abn", lr0=1e-2,
+                warmup_start_lr=1e-2)
+SEG_TINY_TOL = {"loss": 1e-4, "weights": 2e-2, "stats": 1e-3}
+SEG_NORMS = 31  # NormAct layers of a BiSeNet forward
+SEG_WARMUP, SEG_STEPS, SEG_RESUME = 3, 12, 2  # steps of the warm-up, counted and resumed runs
 
 
 def log(*parts) -> None:
@@ -324,6 +373,7 @@ def phase_kernels() -> dict:
 
     _groupnorm_kernels(gen, dev, entries, failures)
     _conv_kernels(gen, dev, entries, failures)
+    _abn_kernels(gen, dev, entries, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with the plain version: {failures}")
     return entries
@@ -449,6 +499,51 @@ def _conv_kernels(gen, dev, entries, failures) -> None:
         torch.cuda.empty_cache()
 
 
+def _abn_kernels(gen, dev, entries, failures) -> None:
+    """K8 at the trainer's ABN shapes, against `abn_apply_reference` on the
+    same inputs. Bound: bytes (x read once, y written once, the four (C,)
+    f32 vectors), against ABN_OPS f32 operations an element."""
+    from diffusion_image_editing_tpu_torch.ops import abn as ABN
+
+    acts = {"identity": lambda t: t, "leaky_relu": lambda t: F.leaky_relu(t, 0.01),
+            "elu": F.elu}
+    for label, shape, dtype, act in ABN_CASES:
+        c = shape[1]
+        x = (2.0 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+        mean, var = ABN.mean_var(x)
+        rstd = torch.rsqrt(var + ABN_EPS)
+        w = 1.0 + 0.3 * torch.randn(c, generator=gen, device=dev)
+        w[::7] *= -1.0
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        args = (x, mean, rstd, w, b, act, 0.01)
+        with torch.no_grad():
+            y = ABN.abn_apply(*args)
+            ref = ABN.abn_apply_reference(*args)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ms = time_ms(lambda: ABN.abn_apply(*args))
+            plain_ms = time_ms(lambda: ABN.abn_apply_reference(*args), reps=5)
+            run_var, wabs = 1.0 / (rstd * rstd) - ABN_EPS, w.abs()
+            lib_ms = time_ms(lambda: acts[act](F.batch_norm(x, mean, run_var, wabs, b,
+                                                            training=False, eps=ABN_EPS)))
+        nbytes = 2.0 * x.numel() * x.element_size() + 16.0 * c
+        e = _entry("abn_apply", list(shape), err, ms, plain_ms, ABN_OPS * x.numel(), nbytes,
+                   lib_ms, PEAK_F32_FLOPS)
+        tol = ABN_TOL[dtype]
+        ok = rel <= tol and math.isfinite(rel)
+        log(f"[kernels] abn {label} {shape} {str(dtype).removeprefix('torch.')} act={act}: "
+            f"max_abs_err {err:.3e}, relative {rel:.3e} (tol {tol}) {'ok' if ok else 'FAIL'} | "
+            f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+            f"F.batch_norm{'' if act == 'identity' else '+' + act} {lib_ms:.4f} ms, bound "
+            f"{e['bound_ms']:.6f} ms ({e['bound_by']})")
+        if not ok:
+            failures.append(f"abn {label}")
+        entries.setdefault("abn_apply", e)
+        del x, y, ref
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # 4. tiny
 # ---------------------------------------------------------------------------
@@ -503,6 +598,44 @@ def phase_tiny() -> None:
                 failed.append(f"{config} {name}")
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
+
+
+def phase_seg_tiny(devices=("cpu", "cuda")) -> None:
+    """Two train steps of a tiny BiSeNet with norm="abn" on each device, from
+    the same weights (drawn on the CPU) and the same uint8 batches."""
+    from diffusion_image_editing_tpu_torch.seg import (
+        SyntheticFaceMask, TrainConfig, batch_iterator, create_train_state, make_train_step)
+
+    cfg = TrainConfig(**SEG_TINY)
+    feed = batch_iterator(SyntheticFaceMask(n=8, size=cfg.image_size, raw=True),
+                          cfg.batch_size_per_device, seed=0)
+    batches = list(itertools.islice(feed, 2))
+    runs = []
+    for dev in devices:
+        model, state = create_train_state(cfg, 0, dev)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        step = make_train_step(model, cfg)
+        losses = [float(step(state, *batch)[1]) for batch in batches]
+        runs.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (ref_losses, ref), (losses, got) = runs
+    weights = [k for k in ref if k.rsplit(".", 1)[1] in ("weight", "bias")]
+    stats = [k for k in ref if k.rsplit(".", 1)[1] in ("running_mean", "running_var")]
+    update = max((ref[k] - start[k]).abs().max().item() for k in weights)
+    errs = {
+        "loss": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+        "weights": max((got[k] - ref[k]).abs().max().item() for k in weights) / update,
+        "stats": max(((got[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+                     for k in stats),
+    }
+    ok = all(errs[k] <= SEG_TINY_TOL[k] for k in errs) and len(stats) == 2 * SEG_NORMS
+    log(f"[seg-tiny] BiSeNet abn width {cfg.width}, {cfg.image_size} px, batch "
+        f"{cfg.batch_size_per_device}, 2 steps, {devices[1]} vs {devices[0]}: losses "
+        f"{losses} vs {ref_losses}, max relative {errs['loss']:.2e} (tol {SEG_TINY_TOL['loss']}); "
+        f"weights max |diff| {errs['weights']:.2e} of the largest update {update:.3e} (tol "
+        f"{SEG_TINY_TOL['weights']}); running stats {errs['stats']:.2e} (tol "
+        f"{SEG_TINY_TOL['stats']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"the tiny trainer on {devices[1]} disagrees with {devices[0]}: {errs}")
 
 
 # ---------------------------------------------------------------------------
@@ -604,14 +737,27 @@ def count_modules(module, cls) -> int:
     return sum(isinstance(m, cls) for m in module.modules())
 
 
-@contextlib.contextmanager
 def plain_groupnorm_watch():
     """Counts calls of `F.group_norm` and of the port's plain GroupNorm
     functions on CUDA tensors while the block runs."""
     from diffusion_image_editing_tpu_torch.ops import groupnorm as GN
 
-    targets = [(F, "group_norm"), (GN, "group_norm_reference"), (GN, "group_norm_moments"),
-               (GN, "group_norm_apply_reference")]
+    return plain_watch([(F, "group_norm"), (GN, "group_norm_reference"),
+                        (GN, "group_norm_moments"), (GN, "group_norm_apply_reference")])
+
+
+def plain_abn_watch():
+    """Counts calls of K8's plain version and of `F.batch_norm` on CUDA
+    tensors while the block runs."""
+    from diffusion_image_editing_tpu_torch.ops import abn as ABN
+
+    return plain_watch([(ABN, "abn_apply_reference"), (F, "batch_norm")])
+
+
+@contextlib.contextmanager
+def plain_watch(targets):
+    """Counts the calls of each (module, function name) whose first argument
+    is a CUDA tensor while the block runs."""
     calls = {name: 0 for _, name in targets}
     originals = [getattr(mod, name) for mod, name in targets]
 
@@ -777,20 +923,154 @@ def phase_fused(smi: str, unet, vae) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 7. seg
+# ---------------------------------------------------------------------------
+
+
+class TimedFeed:
+    """Cycles the given batches and records a CUDA event each time the loop
+    asks for one; as the loop asks for batch k after it has launched step
+    k - 1, event k fires when the device has finished step k - 1."""
+
+    def __init__(self, batches):
+        self.batches, self.events = batches, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        return self.batches[len(self.events) % len(self.batches)]
+
+    def ms_per_step(self):
+        """Device ms per step over the steps between the second event and
+        the last (the first step waits for nothing before it)."""
+        return self.events[1].elapsed_time(self.events[-1]) / (len(self.events) - 2)
+
+
+def seg_run(dtype: str, batches, smi: str, dev) -> dict:
+    """The trainer's path in one compute dtype; returns the counted run's
+    launch counts."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.models.resnet import norm_layers
+    from diffusion_image_editing_tpu_torch.seg import TrainConfig, train_loop
+    from diffusion_image_editing_tpu_torch.seg.train import _prep_batch
+
+    cfg = TrainConfig(norm="abn", compute_dtype=dtype)
+    tag = f"[seg] {dtype}:"
+    with tempfile.TemporaryDirectory(prefix="seg_ckpt_") as ckpt:
+        _, warm, warm_losses = train_loop(cfg, itertools.cycle(batches), ckpt_dir=ckpt,
+                                          num_steps=SEG_WARMUP, device=dev)
+        before = {k: v.detach().clone() for k, v in warm.model.state_dict().items()}
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        feed = TimedFeed(batches)
+        with plain_abn_watch() as plain_calls:
+            ops.reset_launch_counts()
+            model, state, losses = train_loop(cfg, feed, ckpt_dir=ckpt,
+                                              num_steps=SEG_WARMUP + SEG_STEPS, device=dev)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ms = feed.ms_per_step()
+        n_norms = len(norm_layers(model, "abn"))
+        after = model.state_dict()
+        kinds = {"conv kernels": [k for k in before if before[k].dim() > 1],
+                 "norm weights and biases": [k for k in before if before[k].dim() == 1 and
+                                             k.rsplit(".", 1)[1] in ("weight", "bias")],
+                 "running stats": [k for k in before if k.rsplit(".", 1)[1] in
+                                   ("running_mean", "running_var")]}
+        changed = {kind: sum(not torch.equal(after[k], before[k]) for k in keys)
+                   for kind, keys in kinds.items()}
+        log(f"{tag} {ms:.3f} ms/step = {cfg.batch_size_per_device / ms * 1e3:.1f} img/s from "
+            f"CUDA events over {len(feed.events) - 2} steps, peak memory {peak / 2**30:.2f} GiB, "
+            f"on {smi}")
+        log(f"{tag} losses {[round(l, 4) for l in warm_losses + losses]}; steps {state.step}; "
+            f"tensors changed by the counted run: {changed} of "
+            f"{ {k: len(v) for k, v in kinds.items()} }")
+        log(f"{tag} launches {counts}; plain ABN calls on the card {plain_calls}")
+        expected = {k: (SEG_STEPS * SEG_NORMS if k == "abn_apply" else 0) for k in counts}
+        if n_norms != SEG_NORMS or counts != expected:
+            raise RuntimeError(f"{tag} launches {counts} differ from {SEG_STEPS} steps x "
+                               f"{n_norms} ABN layers")
+        if any(plain_calls.values()):
+            raise RuntimeError(f"{tag} a plain ABN ran on the card: {plain_calls}")
+        if not all(math.isfinite(l) for l in warm_losses + losses) or len(losses) != SEG_STEPS:
+            raise RuntimeError(f"{tag} losses {losses} are not {SEG_STEPS} finite values")
+        # At the warmup's learning rate (about 1e-5) a norm weight of 1 may
+        # move by less than its f32 step; every kernel and statistic moves.
+        if (changed["conv kernels"] != len(kinds["conv kernels"]) or not
+                changed["norm weights and biases"] or changed["running stats"] != 2 * SEG_NORMS):
+            raise RuntimeError(f"{tag} the counted run left tensors unchanged: {changed} of "
+                               f"{ {k: len(v) for k, v in kinds.items()} }")
+
+        _, resumed, more = train_loop(cfg, itertools.cycle(batches), ckpt_dir=ckpt,
+                                      num_steps=SEG_WARMUP + SEG_STEPS + SEG_RESUME, device=dev)
+        log(f"{tag} resumed at step {SEG_WARMUP + SEG_STEPS} for {len(more)} steps -> step "
+            f"{resumed.step}, losses {[round(l, 4) for l in more]}")
+        if resumed.step != SEG_WARMUP + SEG_STEPS + SEG_RESUME or len(more) != SEG_RESUME or not \
+                all(math.isfinite(l) for l in more):
+            raise RuntimeError(f"{tag} the resumed run did not continue from the checkpoint")
+        del resumed
+
+    model.eval()
+    x, _ = _prep_batch(*batches[0], dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = model(x)
+    torch.cuda.synchronize()
+    eval_counts = ops.launch_counts()
+    shape = (cfg.batch_size_per_device, cfg.n_classes, cfg.image_size, cfg.image_size)
+    finite = all(bool(torch.isfinite(o).all()) and tuple(o.shape) == shape for o in outs)
+    log(f"{tag} eval forward: {len(outs)} heads {shape}, finite {finite}, K8 launches "
+        f"{eval_counts['abn_apply']}")
+    if not finite or eval_counts["abn_apply"] != SEG_NORMS:
+        raise RuntimeError(f"{tag} the eval forward gave {eval_counts} or non-finite heads")
+    return counts
+
+
+def phase_seg(smi: str) -> dict:
+    """The trainer in f32 and in bf16 compute; returns the f32 counted run's
+    launch counts."""
+    from diffusion_image_editing_tpu_torch.seg import SyntheticFaceMask, TrainConfig
+    from diffusion_image_editing_tpu_torch.seg import batch_iterator
+
+    cfg = TrainConfig()
+    feed = batch_iterator(SyntheticFaceMask(n=64, size=cfg.image_size, raw=True),
+                          cfg.batch_size_per_device, seed=0)
+    batches = list(itertools.islice(feed, 2))
+    log(f"[seg] BiSeNet (ResNet-18) width {cfg.width}, {cfg.n_classes} classes, "
+        f"{cfg.image_size} px, batch {cfg.batch_size_per_device}, norm abn, seeded random "
+        f"weights, uint8 SyntheticFaceMask feed ({len(batches)} batches, cycled)")
+    dev = torch.device("cuda")
+    counts = {dtype: seg_run(dtype, batches, smi, dev) for dtype in ("float32", "bfloat16")}
+    return counts["float32"]
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     entries = phase_kernels()
     phase_tiny()
+    phase_seg_tiny()
     t0 = time.perf_counter()
     unet, vae = build_models(torch.device("cuda"))
     log(f"[main] models built in {time.perf_counter() - t0:.1f} s")
     counts = phase_main_path(smi, unet, vae)
     fused_counts = phase_fused(smi, unet, vae)
+    del unet, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg_counts = phase_seg(smi)
     for name, e in entries.items():
-        # K7 runs only in the fused-conv configuration; the rest are read
-        # from the default path's counted run.
-        e["launches"] = (fused_counts if name == "affine_silu_conv3x3" else counts)[name]
+        # K7 runs only in the fused-conv configuration, K8 only on the
+        # trainer's path; the rest are read from the default path's run.
+        e["launches"] = {"affine_silu_conv3x3": fused_counts,
+                         "abn_apply": seg_counts}.get(name, counts)[name]
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Weights carried across from the JAX package: Flax params -> torch state dict.
 
-The inverse of the JAX package's `models/port.py` (diffusers state dict ->
-Flax params) for the kinds this port has: `"unet_cond"` (UNet2DCondition)
-and `"vae"` (AutoencoderKL, modern attention names). Conv kernels go
-HWIO -> OIHW, Dense kernels (in, out) -> (out, in); scales and biases stay.
+The inverse of the JAX package's `models/port.py` (diffusers or torch
+state dict -> Flax params) for the kinds this port has: `"unet_cond"`
+(UNet2DCondition), `"vae"` (AutoencoderKL, modern attention names) and
+`"bisenet"` (BiSeNet, from Flax `{"params", "batch_stats"}`, to the
+face-parsing checkpoint's keys). Conv kernels go HWIO -> OIHW, Dense kernels
+(in, out) -> (out, in); scales and biases stay.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-KINDS = ("unet_cond", "vae")
+KINDS = ("unet_cond", "vae", "bisenet")
 
 # (pattern, replacement) applied in order to the '/'-joined Flax path.
 _PREFIX_RULES = (
@@ -64,11 +66,56 @@ def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {w.ndim} at {'/'.join(path)}")
 
 
+_NORM_LEAVES = {"scale": "weight", "weight": "weight", "bias": "bias",
+                "mean": "running_mean", "var": "running_var"}
+
+
+def _bisenet_module(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """`layer1_0` -> `layer1.0`; `downsample_conv`/`_bn` -> `downsample.0`/`.1`."""
+    out = []
+    for name in path:
+        layer = re.fullmatch(r"(layer\d+)_(\d+)", name)
+        if layer:
+            out += layer.groups()
+        elif name in ("downsample_conv", "downsample_bn"):
+            out += ["downsample", "0" if name == "downsample_conv" else "1"]
+        else:
+            out.append(name)
+    return tuple(out)
+
+
+def _bisenet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax BiSeNet `{"params", "batch_stats"}` -> the port's BiSeNet keys.
+    A NormAct's inner `bn` (BatchNorm) or `abn` (FusedABNorm) level drops:
+    `.../bn1/bn/scale` and `.../bn1/abn/weight` -> `...bn1.weight`,
+    `mean`/`var` -> `running_mean`/`running_var`; a BatchNorm also gets the
+    `num_batches_tracked` buffer (0) that torch's checkpoint keys carry."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})):
+            w = np.asarray(value, dtype=np.float32)
+            *mod, leaf = path
+            if mod and mod[-1] in ("bn", "abn") and leaf in _NORM_LEAVES:
+                if mod[-1] == "bn" and leaf == "mean":
+                    key = ".".join(_bisenet_module(tuple(mod[:-1])) + ("num_batches_tracked",))
+                    out[key] = torch.zeros((), dtype=torch.long)
+                mod, name = mod[:-1], _NORM_LEAVES[leaf]
+            elif leaf == "kernel":
+                w, name = _to_torch_layout(path, w), "weight"
+            else:
+                raise ValueError(f"unexpected BiSeNet variable {coll}/{'/'.join(path)}")
+            out[".".join(_bisenet_module(tuple(mod)) + (name,))] = torch.tensor(w)
+    return out
+
+
 def state_dict_from_jax(params: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor]:
     """Flax params (nested dict of arrays, with or without the top-level
-    'params' key) -> the port's state dict for `kind` in KINDS."""
+    'params' key; for "bisenet" the variables with their 'batch_stats')
+    -> the port's state dict for `kind` in KINDS."""
     if kind not in KINDS:
         raise ValueError(f"Unknown kind {kind!r}; choose from {KINDS}")
+    if kind == "bisenet":
+        return _bisenet_state_dict(params)
     if "params" in params:
         params = params["params"]
     out = {}

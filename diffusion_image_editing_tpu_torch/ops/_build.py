@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / ".build"
 KERNELS = (
     "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
     "group_norm_fused", "group_norm_stats", "group_norm_apply", "affine_silu_conv3x3",
+    "abn_apply",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -34,12 +34,23 @@ max |plain| (f32 accumulation in another order, one rounding of the
 output where the plain version rounds the conv and the bias add apart).
 Gradients through the autograd function 2e-2 (the same backward ops on
 both sides, fed by outputs that differ by the forward's rounding).
+
+ABN (K8): the trainer's shapes (the stem's 224 x 224 x 64 at batch 16,
+layer4's 14 x 14 x 512, the 1 x 1 norms), H * W not a multiple of the
+vector width (7 x 9; 14 x 14 in bf16), a tensor that is not 16-byte
+aligned, each activation, f32 and bf16. The kernel repeats the plain
+version's f32 operations in order, each rounded: f32 within 1e-5 of
+max |plain| (bit-equal for identity and leaky_relu; expm1 may differ by an
+ulp), bf16 within 1e-2 (one bf16 step where the f32 values straddle a
+rounding boundary). The training autograd function on the card against the
+same on the CPU: rtol 1e-4 (per-channel sums in another order).
 """
 
 import pytest
 import torch
 
 import diffusion_image_editing_tpu_torch.ops as OPS
+from diffusion_image_editing_tpu_torch.ops import abn as ABN
 from diffusion_image_editing_tpu_torch.ops import attention as A
 from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
 from diffusion_image_editing_tpu_torch.ops import groupnorm as GN
@@ -49,6 +60,7 @@ pytestmark = pytest.mark.cuda
 FWD_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
 GN_TOL, MEAN_TOL, RSTD_TOL = 1e-2, 1e-5, 1e-4
 CONV_TOL = 2e-2
+ABN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -243,3 +255,78 @@ def test_fused_conv_refuses_dtypes(gen):
     x, a, b, wt, bias = _conv_inputs(gen, 1, 16, 16, 8, 8, torch.bfloat16)
     with pytest.raises(TypeError, match="bfloat16"):
         FC.affine_silu_conv3x3(x.float(), a, b, wt.float(), bias)
+
+
+def _abn_inputs(gen, shape, dtype):
+    c = shape[1]
+    x = (2.0 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dtype)
+    mean, var = ABN.mean_var(x)
+    w = 1.0 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+    w[::3] *= -1.0
+    b = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x, mean, torch.rsqrt(var + 1e-5), w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ABN.ACTS)
+@pytest.mark.parametrize(
+    "shape",
+    [(16, 64, 224, 224), (16, 512, 14, 14), (16, 128, 1, 1), (2, 64, 56, 56), (3, 5, 7, 9),
+     (2, 3, 1, 1)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+def test_abn_apply_matches_plain(gen, shape, act, dtype):
+    x, mean, rstd, w, b = _abn_inputs(gen, shape, dtype)
+    y, launched = _launched(lambda: ABN.abn_apply(x, mean, rstd, w, b, act, 0.01))
+    assert launched == {"abn_apply": 1}
+    assert y.shape == x.shape and y.dtype == dtype
+    ref = ABN.abn_apply_reference(x, mean, rstd, w, b, act, 0.01)
+    assert _rel(y, ref) <= ABN_TOL[dtype]
+    if dtype == torch.float32 and act != "elu":
+        assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_abn_apply_unaligned_input(gen, dtype):
+    """A contiguous x that starts 4 bytes past a 16-byte boundary takes the
+    scalar path."""
+    shape = (2, 8, 16, 16)
+    n = 2 * 8 * 16 * 16
+    buf = torch.randn(n + 8, generator=gen, device="cuda").to(dtype)
+    x = buf[2:2 + n].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _, mean, rstd, w, b = _abn_inputs(gen, shape, dtype)
+    y = ABN.abn_apply(x, mean, rstd, w, b, "leaky_relu", 0.01)
+    ref = ABN.abn_apply_reference(x, mean, rstd, w, b, "leaky_relu", 0.01)
+    assert _rel(y, ref) <= ABN_TOL[dtype]
+
+
+def test_abn_apply_refuses(gen):
+    x, mean, rstd, w, b = _abn_inputs(gen, (2, 8, 4, 4), torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ABN.abn_apply(x.half(), mean, rstd, w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ABN.abn_apply(x.transpose(2, 3), mean, rstd, w, b)
+    with pytest.raises(ValueError, match="weight"):
+        ABN.abn_apply(x, mean, rstd, w.double(), b)
+    with pytest.raises(ValueError, match="Unknown activation|activation"):
+        ABN.abn_apply(x, mean, rstd, w, b, "tanh")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ABN.fused_abn(x.half(), w, b)
+
+
+@pytest.mark.parametrize("act", ABN.ACTS)
+def test_fused_abn_train_on_card_matches_cpu(gen, act):
+    x, _, _, w, b = _abn_inputs(gen, (4, 24, 14, 14), torch.float32)
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    rm, rv = torch.zeros(24, device="cuda"), torch.ones(24, device="cuda")
+    results = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (x, w, b)]
+        (y, new_mean, new_var), launched = _launched(lambda: ABN.fused_abn(
+            *leaves, activation=act, running_mean=rm.to(dev), running_var=rv.to(dev)))
+        assert launched == ({"abn_apply": 1} if dev == "cuda" else {})
+        grads = torch.autograd.grad((y * cot.to(dev)).sum(), leaves)
+        results.append([t.detach().cpu() for t in (y, new_mean, new_var, *grads)])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
