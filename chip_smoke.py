@@ -20,8 +20,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                512 x 512 x 128 (batch 1), each activation; yardstick
                `F.group_norm` on bf16 (+ `F.silu`);
              * the fused GroupNorm+SiLU -> conv3x3 (K7) at the UNet's
-               64 x 64 320 -> 320 and 16 x 16 2560 -> 1280 (batch 2) and the
-               VAE's 64 x 64 512 -> 512 (batch 1); yardstick `F.conv2d`
+               64 x 64 320 -> 320, 32 x 32 1920 -> 640, 16 x 16 2560 -> 1280
+               and 8 x 8 1280 -> 1280 (batch 2), the VAE's 64 x 64 512 -> 512
+               (batch 1) and a 4 x 4 map of 8 channels; yardstick `F.conv2d`
                (cuDNN) on the pre-activated input;
              * activated batch norm (K8) at the segmentation trainer's
                shapes (batch 16 at 448 px): the stem's 224 x 224 x 64, layer4's
@@ -124,6 +125,9 @@ CONV_CASES = [  # (label, N, Cin, Cout, H, W)
     ("unet 64x64 320->320 b2", 2, 320, 320, 64, 64),
     ("unet 16x16 2560->1280 b2", 2, 2560, 1280, 16, 16),
     ("vae 64x64 512->512 b1", 1, 512, 512, 64, 64),
+    ("unet 8x8 1280->1280 b2", 2, 1280, 1280, 8, 8),
+    ("unet 32x32 1920->640 b2", 2, 1920, 640, 32, 32),
+    ("4x4 8->24 b2", 2, 8, 24, 4, 4),
 ]
 # The same full-width computations in the default and the fused-conv
 # configuration, both bf16, max |fused - default| / max |default|: about the
@@ -459,43 +463,51 @@ def _groupnorm_kernels(gen, dev, entries, failures) -> None:
         torch.cuda.empty_cache()
 
 
-def _conv_kernels(gen, dev, entries, failures) -> None:
-    """K7 at the path's fused-conv shapes. Bound: 2 * N * H * W * Cout * 9 * Cin
-    tensor-core operations against x, w and y read or written once."""
+def conv_case(label, n, cin, cout, h, w, gen, dev):
+    """K7 at one shape against its plain version on the same inputs, then
+    the kernel's, the plain version's and cuDNN's time (`F.conv2d` on the
+    pre-activated input). Bound: 2 * N * H * W * Cout * 9 * Cin tensor-core
+    operations against x, w and y read or written once. Returns the JSON
+    entry and whether the kernel is within CONV_TOL."""
     from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
 
+    x = _randn((n, cin, h, w), gen, dev)
+    a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device=dev)
+    b = 0.5 * torch.randn((n, cin), generator=gen, device=dev)
+    wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5)
+    wt = wt.to(torch.bfloat16)
+    bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
+    args = (x, a, b, wt, bias)
+    with torch.no_grad():
+        y = FC.affine_silu_conv3x3_kernel(*args)
+        ref = FC.affine_silu_conv3x3_reference(*args)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        ms = time_ms(lambda: FC.affine_silu_conv3x3_kernel(*args))
+        plain_ms = time_ms(lambda: FC.affine_silu_conv3x3_reference(*args), reps=5)
+        act = F.silu(x.float() * a[:, :, None, None] + b[:, :, None, None]).to(x.dtype)
+        lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=1))
+    flops = 2.0 * n * h * w * cout * 9 * cin
+    nbytes = 2.0 * (x.numel() + wt.numel() + y.numel()) + 8.0 * n * cin + 2.0 * cout
+    e = _entry("affine_silu_conv3x3", [n, cin, cout, h, w], err, ms, plain_ms, flops,
+               nbytes, lib_ms)
+    ok = rel <= CONV_TOL and math.isfinite(rel)
+    log(f"[kernels] fused conv {label} x{(n, cin, h, w)} w{(cout, cin, 3, 3)}: max_abs_err "
+        f"{err:.3e}, relative {rel:.3e} (tol {CONV_TOL}) {'ok' if ok else 'FAIL'} | kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN conv "
+        f"on the activated input {lib_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_by']})")
+    return e, ok
+
+
+def _conv_kernels(gen, dev, entries, failures) -> None:
+    """K7 at the path's fused-conv shapes (`conv_case`)."""
     for label, n, cin, cout, h, w in CONV_CASES:
-        x = _randn((n, cin, h, w), gen, dev)
-        a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device=dev)
-        b = 0.5 * torch.randn((n, cin), generator=gen, device=dev)
-        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5)
-        wt = wt.to(torch.bfloat16)
-        bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
-        args = (x, a, b, wt, bias)
-        with torch.no_grad():
-            y = FC.affine_silu_conv3x3_kernel(*args)
-            ref = FC.affine_silu_conv3x3_reference(*args)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            ms = time_ms(lambda: FC.affine_silu_conv3x3_kernel(*args))
-            plain_ms = time_ms(lambda: FC.affine_silu_conv3x3_reference(*args), reps=5)
-            act = F.silu(x.float() * a[:, :, None, None] + b[:, :, None, None]).to(x.dtype)
-            lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=1))
-        flops = 2.0 * n * h * w * cout * 9 * cin
-        nbytes = 2.0 * (x.numel() + wt.numel() + y.numel()) + 8.0 * n * cin + 2.0 * cout
-        e = _entry("affine_silu_conv3x3", [n, cin, cout, h, w], err, ms, plain_ms, flops,
-                   nbytes, lib_ms)
-        ok = rel <= CONV_TOL and math.isfinite(rel)
-        log(f"[kernels] fused conv {label} x{(n, cin, h, w)} w{(cout, cin, 3, 3)}: max_abs_err "
-            f"{err:.3e}, relative {rel:.3e} (tol {CONV_TOL}) {'ok' if ok else 'FAIL'} | kernel "
-            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN conv "
-            f"on the activated input {lib_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']})")
+        e, ok = conv_case(label, n, cin, cout, h, w, gen, dev)
         if not ok:
             failures.append(f"fused conv {label}")
         entries.setdefault("affine_silu_conv3x3", e)
-        del x, wt, y, ref, act
         torch.cuda.empty_cache()
 
 
@@ -920,6 +932,18 @@ def phase_fused(smi: str, unet, vae) -> dict:
 
     counts, plain_calls = counted_run("fused", fpipe, img, dev, smi)
     check_counts("fused", counts, expected, plain_calls)
+    # K7 reads packed copies of the frozen weights: each is packed once, in
+    # the warm-up run, and served from the cache from then on.
+    from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
+
+    packed = FC.packed_weight
+    log(f"[fused] packed weights: {len(FC._PACKED)} tensors, "
+        f"{FC.packed_weight_bytes() / 2**20:.1f} MiB beside the models' own, packed "
+        f"{packed.misses} times and served {packed.hits} times since the program began")
+    misses = packed.misses
+    fpieces["eps"]()
+    if packed.misses != misses:
+        raise RuntimeError("a frozen weight was packed again after the warm-up run")
     return counts
 
 

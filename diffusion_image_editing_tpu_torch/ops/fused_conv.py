@@ -14,12 +14,15 @@ Kernel (`csrc/affine_silu_conv3x3.cu`, built by `ops._build`):
 
 * `affine_silu_conv3x3` (K7) replaces `_fused_kernel`
   (diffusion_image_editing_tpu/ops/fused_conv.py): an implicit GEMM over
-  NCHW bf16 on the tensor cores (mma.sync, f32 accumulators) that applies
-  the prologue on the way into shared memory, zeroes the halo after the
-  activation, and adds bias in the epilogue; where the grid would not fill
-  the card, Cin is split (`cin_splits`) and a second pass adds the splits'
-  f32 sums in a fixed order. Bound: tensor-core operations at most SD
-  shapes, weight bytes at 8 x 8.
+  NCHW bf16 on the tensor cores (wgmma with the activated pixels from
+  registers, f32 accumulators) that applies the prologue on the way into
+  shared memory, zeroes the halo after the activation, and adds bias in the
+  epilogue. The batch is folded into the pixel tiles; the weights are
+  packed once per weight tensor (`packed_weight`) into the tiles the kernel
+  fetches with one bulk copy each; where the grid would not fill the card,
+  Cin is split (`cin_splits`) and a second pass adds the splits' f32 sums
+  in a fixed order. Bound: tensor-core operations at most SD shapes, weight
+  bytes at 8 x 8.
 
 `fused_conv_wanted(shape)` is the port's rule for where a ResnetBlock fuses:
 4 <= H, W <= 64 (the shape part of the JAX `_plan`) and Cin % 8 == 0 (the
@@ -40,7 +43,8 @@ reaches x through (A, B) flows through `gn_affine_coeffs` by autograd.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import weakref
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,10 +52,14 @@ import torch.nn.functional as F
 from . import _build
 
 MIN_HW, MAX_HW = 4, 64  # kMinHW, kMaxHW of csrc/affine_silu_conv3x3.cu
-TILE_PIXELS, TILE_COUT, CHUNK_CIN = 128, 128, 16  # BM, BN, KC of the kernel
-FILL_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
-MIN_SPLIT_CHUNKS = 8  # a split walks at least 8 chunks (128 input channels)
-
+TILE_PIXELS, CHUNK_CIN = 128, 64  # BM, KC of the kernel
+TILE_COUTS = (128, 160)  # the kernel's BN instantiations
+H100_SMS = 132  # one block of K7 an SM
+# `cin_splits` counts time in steps (one tap of one chunk of one block): a
+# block's prologue and epilogue cost about 4, a split's partial sums and the
+# pass that adds them about 12 (chosen against a sweep of forced splits over
+# the SD-1.5 shapes with scripts/torch_bench_fused_conv.py on an H100).
+BLOCK_OVERHEAD_STEPS, SPLIT_OVERHEAD_STEPS = 4, 12
 
 def gn_affine_coeffs(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int, eps: float = 1e-6,
@@ -99,25 +107,98 @@ def affine_silu_conv3x3_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# Packed weights
+# ---------------------------------------------------------------------------
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> (9, chunks, Cout, CHUNK_CIN): per tap and
+    chunk of CHUNK_CIN input channels (Cin zero-padded to whole chunks) the
+    rows of all output channels, each row as K7 holds it in shared memory:
+    its eight 16-byte pieces (8 channels each) in the 128-byte swizzle, piece
+    p of row co at place p ^ (co % 8). A tile of consecutive output channels
+    is then one contiguous block that K7 fetches with one bulk copy."""
+    cout, cin = w.shape[:2]
+    chunks = -(-cin // CHUNK_CIN)
+    packed = F.pad(w.detach().permute(2, 3, 0, 1).reshape(9, cout, cin),
+                   (0, chunks * CHUNK_CIN - cin))
+    pieces = packed.reshape(9, cout, chunks, 8, CHUNK_CIN // 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(cout, device=w.device)
+    place = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)[:, None]  # an involution
+    return pieces[:, :, rows[:, None], place].reshape(9, chunks, cout, CHUNK_CIN).contiguous()
+
+
+# (data_ptr, shape, device) -> (weak reference to the weight, its version, packed copy)
+_PACKED: Dict[tuple, tuple] = {}
+
+
+def packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """`pack_weight(w)`, cached per weight tensor: the guided edit's weights
+    are frozen, so each is packed once. An entry serves the same tensor
+    object at the same address and `_version` only: an in-place update (an
+    optimizer step, `load_state_dict`) or another tensor at that address
+    packs anew, and an entry goes when its tensor does. A write through
+    `w.data` does not move `_version` and is not seen."""
+    key = (w.data_ptr(), tuple(w.shape), w.device)
+    entry = _PACKED.get(key)
+    if entry is not None and entry[0]() is w and entry[1] == w._version:
+        packed_weight.hits += 1
+        return entry[2]
+
+    def drop(ref, key=key):
+        if key in _PACKED and _PACKED[key][0] is ref:
+            del _PACKED[key]
+
+    packed = pack_weight(w)
+    _PACKED[key] = (weakref.ref(w, drop), w._version, packed)
+    packed_weight.misses += 1
+    return packed
+
+
+packed_weight.hits = packed_weight.misses = 0
+
+
+def packed_weight_bytes() -> int:
+    """Bytes the cache of packed weights holds."""
+    return sum(p.numel() * p.element_size() for _, _, p in _PACKED.values())
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L = ctypes.c_longlong
-# device, x, a, b, w, bias, bias_f32, y, partial, scratch_floats, splits, N, Cin, Cout, H, W,
-# stream
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]
+# device, x, a, b, packed w, bias, bias_f32, y, partial, scratch_floats, splits, BN, N, Cin,
+# CinPad, Cout, H, W, stream
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
-def cin_splits(n: int, cin: int, cout: int, h: int, w: int) -> int:
-    """How many ways K7 splits Cin: 1 where the grid of (pixel tile, cout
-    tile, image) blocks fills the card (FILL_BLOCKS), else enough splits to
-    fill it, each of at least MIN_SPLIT_CHUNKS chunks of Cin."""
-    blocks = -(-h * w // TILE_PIXELS) * -(-cout // TILE_COUT) * n
-    if blocks >= FILL_BLOCKS // 2:
-        return 1
+def tile_cout(cout: int) -> int:
+    """K7's cout tile BN: the wider one where it pads Cout no more."""
+    narrow, wide = TILE_COUTS
+    return wide if -(-cout // wide) * wide <= -(-cout // narrow) * narrow else narrow
+
+
+def cin_splits(n: int, cin: int, cout: int, h: int, w: int, sms: int = H100_SMS) -> int:
+    """How many ways K7 splits Cin's chunks. The batch is folded into the
+    pixel tiles, so a launch has ceil(N H W / BM) * ceil(Cout / BN) tiles,
+    each split `s` ways into blocks of ceil(chunks / s) chunks of nine
+    steps; blocks run in waves of `sms`. Takes the `s` of the least waves *
+    (steps + BLOCK_OVERHEAD_STEPS) (+ SPLIT_OVERHEAD_STEPS where s > 1), the
+    smallest such, with no empty split."""
+    tiles = -(-n * h * w // TILE_PIXELS) * -(-cout // tile_cout(cout))
     chunks = -(-cin // CHUNK_CIN)
-    return max(1, min(-(-FILL_BLOCKS // blocks), chunks // MIN_SPLIT_CHUNKS))
+    best, best_cost = 1, None
+    for s in range(1, chunks + 1):
+        per_split = -(-chunks // s)
+        if -(-chunks // per_split) != s:  # would leave an empty split
+            continue
+        cost = (-(-tiles * s // sms) * (9 * per_split + BLOCK_OVERHEAD_STEPS)
+                + (SPLIT_OVERHEAD_STEPS if s > 1 else 0))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
 
 
 def shape_refused(x_shape: Sequence[int], w_shape: Sequence[int]) -> Optional[str]:
@@ -151,18 +232,20 @@ def affine_silu_conv3x3_kernel(x, a, b, w, bias) -> torch.Tensor:
                                   ("b", b, (n, cin), (torch.float32,)),
                                   ("bias", bias, (cout,), (torch.bfloat16, torch.float32))):
         if (t.device != x.device or tuple(t.shape) != tuple(shape) or t.dtype not in dtypes
-                or not t.is_contiguous() or (arg in ("x", "w") and t.data_ptr() % 16)):
+                or not t.is_contiguous() or (arg != "bias" and t.data_ptr() % 16)):
             raise ValueError(f"{name}: {arg} must be contiguous {tuple(shape)} of {dtypes} on "
-                             f"{x.device} (x and w 16-byte aligned), got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
+                             f"{x.device}, 16-byte aligned, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    packed = packed_weight(w)
     y = torch.empty((n, cout, h, wd), dtype=torch.bfloat16, device=x.device)
     splits = cin_splits(n, cin, cout, h, wd)
     partial = (torch.empty(splits * y.numel(), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     _build.launch(name, _ARGTYPES, x.device, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                  w.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32), y.data_ptr(),
-                  None if partial is None else partial.data_ptr(),
-                  0 if partial is None else partial.numel(), splits, n, cin, cout, h, wd)
+                  packed.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
+                  y.data_ptr(), None if partial is None else partial.data_ptr(),
+                  0 if partial is None else partial.numel(), splits, tile_cout(cout), n, cin,
+                  packed.shape[1] * CHUNK_CIN, cout, h, wd)
     affine_silu_conv3x3_kernel.launches += 1
     return y
 

@@ -1,7 +1,7 @@
 """Where the PyTorch port's SD-1.5 512 px main path spends its time on the
 GPU, through the pipeline's own calls.
 
-    python3 scripts/torch_profile_edit.py
+    python3 scripts/torch_profile_edit.py [--fused]
 
 Builds the port's SD-1.5 UNet and SD VAE (bf16, seeded random weights), a
 512 px image and an `EditPipeline`, as chip_smoke.py does, then on the card:
@@ -20,11 +20,21 @@ Builds the port's SD-1.5 UNet and SD VAE (bf16, seeded random weights), a
     share is given against the events wall time of the same call without
     the profiler, and against the wall time under the profiler, which
     counts the profiler's own host overhead.
+With `--fused` the models are built in the fused-conv configuration
+(`fused_conv=True`: ResnetBlock convs 4 to 64 px wide run K7 with their
+GroupNorm folded in) and the 5-step edit's device time is split into K7
+(kernels of namespace fc), `gn_affine_coeffs` forward and its autograd
+backward, the fused conv's backward (`conv_transpose2d`, `silu_backward`, the
+sums) and the rest. The pieces other than K7 are profiler ranges opened
+around them (`install_fused_ranges`), so that run also records host
+activity.
 Prints the card's name and power limit first. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -46,7 +56,11 @@ ATTN_KERNELS = ("fa::flash_",)  # the port's flash-attention kernels (namespace 
 # kernels (its forward statistics, and the backward the port calls).
 GN_KERNELS = ("gn::", "GroupNorm", "RowwiseMoments", "ComputeInternalGradients",
               "ComputeFusedParams")
+K7_KERNELS = ("fc::",)  # the fused conv's kernels (namespace fc)
 STEPS, T_SKIP, CHUNK, SHORT = 50, 10, 10, 5
+# Profiler ranges of the fused path's pieces that are not K7 itself.
+RANGES = {"coeffs": "fused/gn_affine_coeffs", "coeffs_bwd": "fused/gn_affine_coeffs backward",
+          "conv_bwd": "fused/conv backward"}
 
 
 def event_ms(fn, reps=3):
@@ -61,19 +75,81 @@ def event_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def profile(label, fn, events_wall_ms, top=12):
-    """Device kernels of one call of `fn` under torch.profiler."""
+class _Mark(torch.autograd.Function):
+    """Identity; its backward opens (`opens`) or closes the profiler range
+    `name` once, shared through `state` by the marks of one call."""
+
+    @staticmethod
+    def forward(ctx, t, name, state, opens):
+        ctx.name, ctx.state, ctx.opens = name, state, opens
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.profiler import record_function
+
+        state = ctx.state
+        if ctx.opens and "range" not in state:
+            state["range"] = record_function(ctx.name)
+            state["range"].__enter__()
+        elif not ctx.opens and state.get("range") is not None:
+            state["range"].__exit__(None, None, None)
+            state["range"] = None
+        return g, None, None, None
+
+
+def install_fused_ranges() -> None:
+    """Wraps `gn_affine_coeffs` as the ResnetBlock calls it, and the fused
+    conv's backward, in profiler ranges. The autograd backward of
+    `gn_affine_coeffs` gets a range too: identity marks on its outputs open
+    it (their backward runs first) and a mark on its input closes it (its
+    backward runs once every node between them has run)."""
+    from torch.profiler import record_function
+
+    from diffusion_image_editing_tpu_torch.models import layers
+    from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
+
+    coeffs, backward = layers.gn_affine_coeffs, FC._AffineSiluConv3x3.backward
+
+    def ranged_coeffs(x, *args, **kwargs):
+        marked = torch.is_grad_enabled() and x.requires_grad
+        state = {}
+        if marked:
+            x = _Mark.apply(x, RANGES["coeffs_bwd"], state, False)
+        with record_function(RANGES["coeffs"]):
+            a, b = coeffs(x, *args, **kwargs)
+        if marked:
+            a, b = (_Mark.apply(t, RANGES["coeffs_bwd"], state, True) for t in (a, b))
+        return a, b
+
+    def ranged_backward(ctx, g):
+        with record_function(RANGES["conv_bwd"]):
+            return backward(ctx, g)
+
+    layers.gn_affine_coeffs = ranged_coeffs
+    FC._AffineSiluConv3x3.backward = staticmethod(ranged_backward)
+
+
+def profile(label, fn, events_wall_ms, top=12, ranges=False):
+    """Device kernels of one call of `fn` under torch.profiler; with `ranges`
+    also host activity, and the device time under each of RANGES."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # With host activity on, each range also appears as a device-side span
+    # from its first kernel to its last; those are not kernels.
+    spans = [e for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name in RANGES.values()]
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in RANGES.values()]
     if not kernels:
         raise RuntimeError(f"{label}: the profiler recorded no device kernels")
     busy_us, end = 0.0, float("-inf")
@@ -99,9 +175,33 @@ def profile(label, fn, events_wall_ms, top=12):
           f"busy time (the f32 casts around the backward are not counted):")
     for name, (t, count) in sorted(gn.items(), key=lambda kv: -kv[1][0]):
         print(f"[{label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:160]}")
+    if not ranges:
+        return
+    k7 = [tc for n, tc in by_name.items() if any(k in n for k in K7_KERNELS)]
+    parts = {"K7": (sum(t for t, _ in k7) / 1e3, sum(c for _, c in k7))}
+
+    def kernel_us(event):  # the kernels an op launched, and those of the ops inside it
+        return sum(k.duration for k in event.kernels) + sum(map(kernel_us, event.cpu_children))
+
+    for name in RANGES.values():
+        calls = [e for e in prof.events() if e.device_type == DeviceType.CPU and e.name == name]
+        parts[name] = (sum(map(kernel_us, calls)) / 1e3, len(calls))
+    rest = busy_ms - sum(ms for ms, _ in parts.values())
+    print(f"[{label}] the fused path's pieces, device ms (calls, share of busy time): "
+          + "; ".join(f"{name} {ms:.2f} (x{count}, {ms / busy_ms:.3f})"
+                      for name, (ms, count) in parts.items())
+          + f"; the rest {rest:.2f} ({rest / busy_ms:.3f})")
+    span_ms = {name: sum(e.time_range.elapsed_us() for e in spans if e.name == name) / 1e3
+               for name in RANGES.values()}
+    print(f"[{label}] the same ranges on the device, first kernel to last, gaps included, ms: "
+          + "; ".join(f"{name} {ms:.2f}" for name, ms in span_ms.items()))
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fused", action="store_true",
+                        help="profile the fused-conv configuration and split its device time")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -110,8 +210,13 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
-    unet = UNet2DCondition(SD15_UNET, device=dev, dtype=torch.bfloat16)
-    vae = AutoencoderKL(SD_VAE, device=dev, dtype=torch.bfloat16)
+    print(f"[config] {'fused_conv' if opts.fused else 'default'}")
+    if opts.fused:
+        install_fused_ranges()
+    unet = UNet2DCondition(dataclasses.replace(SD15_UNET, fused_conv=opts.fused), device=dev,
+                           dtype=torch.bfloat16)
+    vae = AutoencoderKL(dataclasses.replace(SD_VAE, fused_conv=opts.fused), device=dev,
+                        dtype=torch.bfloat16)
     text = torch.from_numpy(rng.standard_normal((2, 77, 768), dtype=np.float32))
     img = torch.from_numpy(
         rng.uniform(-1.0, 1.0, (1, 3, SD_VAE.sample_size, SD_VAE.sample_size)).astype(np.float32))
@@ -149,7 +254,7 @@ def main() -> int:
           f"gradient) {event_ms(lambda: attr.apply_batched(x, z, eps, t, idx, sched, decode), 5):.2f}"
           f" ms")
     profile("inversion", invert, inv_ms)
-    profile(f"edit {SHORT} steps", edit(STEPS - SHORT), short_ms)
+    profile(f"edit {SHORT} steps", edit(STEPS - SHORT), short_ms, ranges=opts.fused)
     return 0
 
 

@@ -252,13 +252,68 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize(
     "shape,splits",
     [
-        ((2, 320, 320, 64, 64), 1),     # 192 blocks fill the card
-        ((2, 2560, 1280, 16, 16), 7),   # 40 blocks: 7 splits of 23 chunks
-        ((2, 2560, 1280, 8, 8), 14),    # 20 blocks
-        ((2, 1280, 1280, 8, 8), 10),    # 80 chunks: at least 8 a split
-        ((1, 512, 512, 64, 64), 3),     # the VAE's 64 x 64 stage, 128 blocks
+        ((2, 320, 320, 64, 64), 1),     # 64 pixel tiles x 2 cout tiles of 160: one wave
+        ((2, 2560, 1280, 16, 16), 4),   # 32 tiles: 4 splits of 10 chunks, 128 blocks
+        ((2, 2560, 1280, 8, 8), 14),    # 8 tiles: 14 splits of 3 chunks (the last of 1)
+        ((2, 1280, 1280, 8, 8), 10),    # 8 tiles, 20 chunks: 10 splits of 2
+        ((1, 512, 512, 64, 64), 1),     # the VAE's 64 x 64 stage, 32 x 4 tiles of 128
         ((2, 16, 24, 4, 4), 1),         # one chunk: nothing to split
+        ((2, 1920, 640, 32, 32), 2),    # 64 tiles: a second wave would cost more than 2 splits
+        ((20, 320, 320, 64, 64), 1),    # the batched inversion: ten waves as they are
     ],
 )
 def test_cin_splits(shape, splits):
     assert T.cin_splits(*shape) == splits
+    chunks = -(-shape[1] // T.CHUNK_CIN)
+    assert (splits - 1) * -(-chunks // splits) < chunks  # no split is empty
+
+
+@pytest.mark.parametrize("cout,tile", [(320, 160), (640, 160), (1280, 160), (960, 160),
+                                       (512, 128), (128, 128), (24, 128), (72, 128)])
+def test_tile_cout(cout, tile):
+    """The 160-wide tile where it pads Cout no more than the 128-wide one."""
+    assert T.tile_cout(cout) == tile
+
+
+@pytest.mark.parametrize("cout,cin", [(8, 16), (24, 72), (16, 64), (5, 8)])
+def test_pack_weight_matches_numpy(cout, cin):
+    """(Cout, Cin, 3, 3) -> (9, chunks, Cout, 64): a numpy transpose of the
+    zero-padded weights gives tap ky * 3 + kx, chunk ci // 64, row co; within
+    a row, the 16-byte piece p = (ci % 64) // 8 stands at place p ^ (co % 8)."""
+    w = np.random.default_rng(cout).standard_normal((cout, cin, 3, 3)).astype(np.float32)
+    got = T.pack_weight(_t(w))
+    chunks = -(-cin // T.CHUNK_CIN)
+    padded = np.pad(w.transpose(2, 3, 0, 1).reshape(9, cout, cin),
+                    ((0, 0), (0, 0), (0, chunks * T.CHUNK_CIN - cin)))
+    plain = padded.reshape(9, cout, chunks, 8, 8).transpose(0, 2, 1, 3, 4)  # unswizzled
+    want = np.empty_like(plain)
+    for co in range(cout):
+        for place in range(8):
+            want[:, :, co, place] = plain[:, :, co, place ^ (co % 8)]
+    assert got.is_contiguous() and got.shape == (9, chunks, cout, T.CHUNK_CIN)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(9, chunks, cout, T.CHUNK_CIN))
+
+
+def test_packed_weight_cache_follows_the_weight():
+    """One packing per weight tensor and version: an in-place change or a
+    new tensor packs anew, and an entry goes with its tensor."""
+    w = torch.nn.Parameter(_t(np.random.default_rng(0).standard_normal((8, 16, 3, 3))
+                               .astype(np.float32)))
+    entries, misses, hits = len(T._PACKED), T.packed_weight.misses, T.packed_weight.hits
+    first = T.packed_weight(w)
+    assert T.packed_weight(w) is first
+    assert (T.packed_weight.misses, T.packed_weight.hits) == (misses + 1, hits + 1)
+    with torch.no_grad():
+        w.add_(1.0)  # what an optimizer step or load_state_dict does
+    second = T.packed_weight(w)
+    assert second is not first and T.packed_weight.misses == misses + 2
+    torch.testing.assert_close(second, T.pack_weight(w), rtol=0, atol=0)
+    pieces = [p ^ (co % 8) for co in range(8) for p in (0, 1)]  # where the 16 channels stand
+    real = second.reshape(9, 1, 8, 8, 8)[:, :, np.repeat(np.arange(8), 2), pieces]
+    torch.testing.assert_close(real, first.reshape(9, 1, 8, 8, 8)[
+        :, :, np.repeat(np.arange(8), 2), pieces] + 1.0)
+    other = w.detach().clone()  # a new tensor with the same values
+    assert T.packed_weight(other) is not second and T.packed_weight.misses == misses + 3
+    assert len(T._PACKED) == entries + 2 and T.packed_weight_bytes() >= 2 * second.numel() * 4
+    del w, other
+    assert len(T._PACKED) == entries

@@ -28,12 +28,18 @@ relative) where the f32 values straddle a rounding boundary. Statistics:
 mean within 1e-5 * (|mean| + 1), rstd within 1e-4 relative (f32 sums in
 another order).
 
-Fused conv (K7): H, W = 4, 12 x 20, 7 x 9 (no 16-byte output rows) and 64,
-Cin and Cout of 16, 24 and 960, bf16 and f32 bias; tolerance 2e-2 of
-max |plain| (f32 accumulation in another order, one rounding of the
-output where the plain version rounds the conv and the bias add apart).
-Gradients through the autograd function 2e-2 (the same backward ops on
-both sides, fed by outputs that differ by the forward's rounding).
+Fused conv (K7): H, W = 4, 12 x 20, 7 x 9 (no 16-byte rows of x or y) and
+64; Cin of 8, 16, 24, 72 and 960 (not whole 64-channel chunks) and Cout of
+16, 24, 320 and 960 (not whole cout tiles of either width); maps of fewer
+pixels than one 128-pixel tile at batch 1, 2 and 3 (a tile then holds
+several images, or part of one); shapes that split Cin; bf16 and f32
+bias. B lies far from zero, so silu(B) in the halo would show. Tolerance
+2e-2 of max |plain| (f32 accumulation in another order, one rounding of
+the output where the plain version rounds the conv and the bias add
+apart). Two calls on the same inputs are bit-equal, and a weight changed
+in place is packed anew. Gradients through the autograd function 2e-2 (the
+same backward ops on both sides, fed by outputs that differ by the
+forward's rounding).
 
 ABN (K8): the trainer's shapes (the stem's 224 x 224 x 64 at batch 16,
 layer4's 14 x 14 x 512, the 1 x 1 norms), H * W not a multiple of the
@@ -204,7 +210,7 @@ def test_group_norm_refuses_what_no_kernel_takes(gen):
 def _conv_inputs(gen, n, cin, cout, h, w, bias_dtype):
     x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
     a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device="cuda")
-    b = 0.5 * torch.randn((n, cin), generator=gen, device="cuda")
+    b = 1.5 + 0.5 * torch.randn((n, cin), generator=gen, device="cuda")  # silu(B) far from 0
     wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5)
     bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")
     return x, a, b, wt.to(torch.bfloat16), bias.to(bias_dtype)
@@ -219,6 +225,17 @@ def _conv_inputs(gen, n, cin, cout, h, w, bias_dtype):
         (2, 24, 960, 64, 64, torch.bfloat16),
         (1, 960, 24, 12, 20, torch.float32),
         (2, 960, 960, 8, 8, torch.bfloat16),
+        (2, 8, 24, 4, 4, torch.bfloat16),        # one k16 step of a chunk, half of it padding
+        (1, 72, 320, 16, 16, torch.bfloat16),    # a chunk and an eighth; two 160-wide tiles
+        (3, 24, 320, 4, 4, torch.float32),       # 48 pixels: three images in one tile
+        (1, 64, 16, 8, 8, torch.bfloat16),       # 64 pixels: half a tile
+        (2, 128, 24, 8, 8, torch.float32),       # 128 pixels: two images, one tile
+        (3, 72, 24, 8, 8, torch.bfloat16),       # 192 pixels: the second tile half empty
+        (3, 8, 16, 7, 9, torch.bfloat16),        # 63-pixel images straddle the tiles
+        (5, 24, 24, 12, 20, torch.float32),      # W = 20: a ragged 8-pixel unit a row
+        (2, 1280, 1280, 8, 8, torch.bfloat16),   # the UNet's 8 x 8: 10 splits
+        (2, 1920, 640, 32, 32, torch.bfloat16),  # 2 splits of 15 chunks
+        (3, 320, 72, 7, 9, torch.float32),       # splits with no 16-byte rows
     ],
 )
 def test_fused_conv_matches_plain(gen, n, cin, cout, h, w, bias_dtype):
@@ -227,6 +244,23 @@ def test_fused_conv_matches_plain(gen, n, cin, cout, h, w, bias_dtype):
     assert launched == {"affine_silu_conv3x3": 1}
     assert y.shape == (n, cout, h, w) and y.dtype == torch.bfloat16
     assert _rel(y, FC.affine_silu_conv3x3_reference(*args)) <= CONV_TOL
+    assert torch.equal(FC.affine_silu_conv3x3(*args), y)  # deterministic
+
+
+def test_fused_conv_repacks_a_weight_changed_in_place(gen):
+    x, a, b, wt, bias = _conv_inputs(gen, 2, 64, 32, 8, 8, torch.bfloat16)
+    y0 = FC.affine_silu_conv3x3(x, a, b, wt, bias)
+    misses = FC.packed_weight.misses
+    assert torch.equal(FC.affine_silu_conv3x3(x, a, b, wt, bias), y0)
+    assert FC.packed_weight.misses == misses  # the same weight: served from the cache
+    wt.mul_(-1.0)
+    y1 = FC.affine_silu_conv3x3(x, a, b, wt, bias)
+    assert FC.packed_weight.misses == misses + 1
+    assert _rel(y1, FC.affine_silu_conv3x3_reference(x, a, b, wt, bias)) <= CONV_TOL
+    assert _rel(y1, y0) > 0.5  # and not the stale copy's output
+    clone = wt.clone()  # another tensor with the same values
+    assert torch.equal(FC.affine_silu_conv3x3(x, a, b, clone, bias), y1)
+    assert FC.packed_weight.misses == misses + 2
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 24, 12, 20), (1, 64, 32, 64, 64)])
