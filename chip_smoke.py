@@ -12,9 +12,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              the kernel, the plain version and a library call that computes
              the same function (a yardstick only; the port never calls it):
              * attention (K1-K3): the forward through the public
-               `attention()`, the backward kernels on the forward's lse and
-               delta, then the whole gradient through `attention()`'s
-               autograd; yardstick `scaled_dot_product_attention`;
+               `attention()` at every width of the path and the batched
+               inversion's batch 20, the forward with lse at the UNet's
+               64 x 64 width against `torch.logsumexp`, the backward
+               kernels on the forward's lse and delta, then the whole
+               gradient through `attention()`'s autograd; yardstick
+               `scaled_dot_product_attention`;
              * GroupNorm (K4, or K5 + K6 by slab size) at the UNet's
                64 x 64 x 320 and 8 x 8 x 1280 (batch 2) and the VAE's
                512 x 512 x 128 (batch 1), each activation; yardstick
@@ -100,8 +103,10 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 16x16", (2, 256, 8, 160), (2, 256, 8, 160)),
     ("unet self 8x8", (2, 64, 8, 160), (2, 64, 8, 160)),
     ("unet cross 64x64", (2, 4096, 8, 40), (2, 77, 8, 40)),
+    ("unet self 64x64 b20", (20, 4096, 8, 40), (20, 4096, 8, 40)),  # the batched inversion
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512)),
 ]
+LSE_CASE = ("unet self 64x64", (2, 4096, 8, 40))  # the forward with lse, at the UNet's width
 BWD_CASES = [
     ("vae mid 64x64", (1, 4096, 1, 512)),
     ("unet self 32x32", (2, 1024, 8, 80)),
@@ -317,6 +322,27 @@ def phase_kernels() -> dict:
             failures.append(f"fwd {label}")
         if label == "unet self 64x64":
             entries["flash_attn_fwd"] = e
+
+    label, shape = LSE_CASE
+    q, k, v = (_randn(shape, gen, dev) for _ in range(3))
+    b, s, h, d = shape
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = flash_attn_fwd(q, k, v, scale, with_lse=True)
+        primal, _ = flash_attn_fwd(q, k, v, scale, with_lse=False)
+        lse_err = 0.0
+        for i in range(b):  # one batch element at a time: the f32 logits stay 0.5 GB
+            logits = torch.einsum("bqhd,bkhd->bhqk", q[i:i + 1].float(), k[i:i + 1].float())
+            ref_lse = torch.logsumexp(logits * scale, dim=-1).reshape(h, s)
+            lse_err = max(lse_err, (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item())
+            del logits
+    same = torch.equal(out, primal)
+    ok = lse_err <= LSE_TOL and same
+    log(f"[kernels] fwd with lse {label} {shape}: lse_err {lse_err:.3e} (tol {LSE_TOL}), output "
+        f"bit-equal to the call without lse: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fwd with lse {label}")
+    del q, k, v, out, primal, lse
 
     for label, shape in BWD_CASES:
         b, s, h, d = shape
@@ -679,17 +705,32 @@ def build_models(dev, fused: bool = False, weights=None):
     return unet, vae
 
 
+def fixed_text_sd(unet, vae, sched, text_emb, dev):
+    """The port's `SD` with a fixed [uncond; cond] embedding in place of CLIP
+    (no text weights here), as bench.py's wrapper: every `prep_text` call,
+    `prep_text(None)` included, returns it, so the UNet runs CFG at batch 2."""
+    from diffusion_image_editing_tpu_torch.pipeline import SD
+
+    class FixedTextSD(SD):
+        def prep_text(self, prompt_ids=None):
+            return fixed
+
+    sd = FixedTextSD(unet, vae, sched, device=dev)
+    fixed = text_emb.to(sd.device)
+    return sd
+
+
 def make_pipeline(unet, vae, dev):
     from diffusion_image_editing_tpu_torch.core import schedule_for_model
-    from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline
+    from diffusion_image_editing_tpu_torch.pipeline import EditPipeline
 
     rng = np.random.default_rng(0)
     text_emb = torch.from_numpy(
         rng.standard_normal((2, 77, unet.config.cross_attention_dim), dtype=np.float32))
     size = vae.config.sample_size
     img = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
-    sd = SD(unet, vae, schedule_for_model("sd", STEPS), text_emb=text_emb.to(torch.bfloat16),
-            device=dev)
+    sd = fixed_text_sd(unet, vae, schedule_for_model("sd", STEPS), text_emb.to(torch.bfloat16),
+                       dev)
     return sd, EditPipeline(sd), img
 
 

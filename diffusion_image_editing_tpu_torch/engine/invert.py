@@ -44,6 +44,9 @@ def sample_xts(sched: S.Schedule, x0: torch.Tensor, generator: Optional[torch.Ge
 def _trajectory(sched, x0, generator, noise, xts):
     if xts is not None:
         return xts
+    if generator is None and noise is None:
+        # As the JAX package: no silent draw from torch's global generator.
+        raise ValueError("eta > 0 requires generator, noise or precomputed xts")
     return sample_xts(sched, x0, generator=generator, noise=noise)
 
 
@@ -57,7 +60,8 @@ def ddpm_invert(
     xts: Optional[torch.Tensor] = None,
 ) -> InversionResult:
     """Sequential edit-friendly DDPM inversion, one UNet call per timestep.
-    eta == 0 degenerates to the deterministic forward-step loop."""
+    eta == 0 degenerates to the deterministic forward-step loop; eta > 0
+    needs `generator`, `noise` or a precomputed `xts`."""
     ts = sched.timesteps
     if eta == 0:
         x = x0

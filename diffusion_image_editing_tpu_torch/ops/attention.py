@@ -11,13 +11,17 @@ Kernels (`csrc/`, built by `ops._build`, bf16 in, f32 accumulation):
   cross-attention (ragged K, masked in the kernel) and the VAE's 4096-token
   single head of dim 512. Bound: tensor-core operations (4*S_q*S_k*D per
   head, 100+ operations per byte) at the 4096-token shapes, bytes at the
-  short ones. Design: a block of query rows walks K/V tiles, double-buffered
-  in shared memory by cp.async, with an online f32 softmax; the products run
-  on the tensor cores (mma.sync m16n8k16) and S, P and O stay in registers.
-  Up to a padded head dim of 160 a warp owns 16 whole rows; wider heads
-  (the VAE's 512) are cut into four slices, one per warp, so that a slice
-  of O fits the registers, and Q K^T is summed across the slices through
-  shared memory.
+  short ones; at head dim 40 the S_q*S_k exponentials. Design: a block of
+  query rows walks K/V tiles, streamed into shared memory by cp.async, with
+  an online f32 softmax; the products run on the tensor cores (mma.sync
+  m16n8k16) and S, P and O stay in registers. Up to a padded head dim of
+  160 a warp owns 16 whole rows; wider heads (the VAE's 512) are cut into
+  four slices, one per warp, so that a slice of O fits the registers, and
+  Q K^T is summed across the slices through shared memory. The padded
+  widths of `FWD_ROWS128_HEAD_DIMS` (the UNet's 40 -> 48 and 80) take a
+  design cut for short heads: 128-row blocks over a 3-slot K/V ring, Q held
+  in registers, one FFMA and one `ex2` a logit, and the row sum taken by
+  the PV product through a ones column of V.
 * `flash_attn_bwd_dq` (K2) replaces `_bwd_dq_kernel` and
   `flash_attn_bwd_dkv` (K3) replaces `_bwd_dkv_kernel`. Bound: operations
   (6 and 8 * S_q*S_k*D per head). Design: the recompute backward on the
@@ -113,6 +117,10 @@ _ARGTYPES = {
 # four slices.
 NARROW_HEAD_DIMS = (16, 32, 48, 80, 160)
 WIDE_SLICE_DIMS = (128,)
+# The padded narrow widths whose forward takes the 128-row design
+# (FA_FWD_ROWS128_DIMS in csrc/flash_attn_fwd.cu), where the bench script
+# read it faster.
+FWD_ROWS128_HEAD_DIMS = (48, 80)
 
 
 def kernel_takes_head_dim(d: int) -> bool:

@@ -16,13 +16,14 @@ from ..engine.denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClo
 class SD:
     """Stable Diffusion: UNet + schedule + KL-VAE codec on one device.
 
-    Text conditioning is a precomputed [uncond; cond] embedding (2, L, D),
-    `text_emb`; CLIP and the tokenizer come in a later slice, so
-    `prep_text(None)` returns that embedding. `device=None` means CUDA and
-    raises without it; the modules and the schedule are moved there."""
+    `prep_text(None)` is None, as in the JAX package: the run is then
+    unconditional. CLIP and the tokenizer come in a later slice, so prompt
+    ids are refused; a caller with a precomputed [uncond; cond] embedding
+    (2, L, D) overrides `prep_text`, as `bench.py` does. `device=None` means
+    CUDA and raises without it; the modules and the schedule are moved
+    there."""
 
-    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
-                 text_emb: Optional[torch.Tensor] = None, device=None):
+    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule, device=None):
         self.device = resolve_device(device)
         # Inference only: the guidance gradient is taken with respect to the
         # latent, so no weight needs one (XLA drops the weights' gradients in
@@ -31,7 +32,6 @@ class SD:
         self.unet = unet.to(self.device).requires_grad_(False)
         self.vae = vae.to(self.device).requires_grad_(False)
         self.schedule = sched.to(self.device)
-        self.text_emb = None if text_emb is None else text_emb.to(self.device)
         scale = vae.config.scaling_factor
         self._encode = EncodeClosure(self.vae, scale)
         self._decode = DecodeClosure(self.vae, scale)
@@ -48,9 +48,9 @@ class SD:
             return self._decode(latent)
 
     def prep_text(self, prompt_ids=None) -> Optional[torch.Tensor]:
-        if prompt_ids is not None:
-            raise NotImplementedError("prompt ids need the CLIP text encoder (a later slice)")
-        return self.text_emb
+        if prompt_ids is None:
+            return None
+        raise NotImplementedError("prompt ids need the CLIP text encoder (a later slice)")
 
     def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
         if text_emb is None:

@@ -1,0 +1,294 @@
+"""Build and time K1, the flash-attention forward kernel, alone.
+
+    python3 scripts/torch_bench_attention.py [--parent REV [--e2e]] [--only "self 64x64"]
+                                             [--variant DIR[:DEFINE+DEFINE]]
+
+Needs one CUDA GPU and nvcc. Builds `ops/csrc/flash_attn_fwd.cu` only
+(seconds), prints what ptxas used (registers, spills, shared memory) and any
+C7513 / C7515 line (ptxas serializing wgmma), then at every forward
+attention shape of the SD-1.5 512 px path (UNet self-attention at 4096,
+1024, 256 and 64 tokens with head dims 40, 80, 160 at batch 2, the 77-token
+cross-attention at each width, all of them again at the batched
+inversion's batch 20, and the VAE's single 512-wide head) holds the kernel
+against its plain version (`chip_smoke.FWD_TOL`, and the log-sum-exp within
+`chip_smoke.LSE_TOL` of `torch.logsumexp`) and prints its milliseconds
+beside `scaled_dot_product_attention`'s and three bounds: tensor-core
+operations, bytes, and exponentials at 16 a clock an SM at the card's
+highest SM clock. Times are `chip_smoke.time_ms`'s (CUDA events over 10
+calls queued behind a sleep kernel). The `[path]` line weighs each shape by
+its launches in one run of `chip_smoke.py`'s `[main]`.
+
+`--parent REV` also builds `flash_attn_fwd.cu` and the headers of git
+revision REV into the ignored build directory and times that kernel in the
+same call, in turns (parent, kernel, kernel, parent). Where the checkout is
+no git repository (a copy made for the card), the sources are taken from
+where an earlier run in the git checkout put them
+(`ops/.build/parent-REV/`). With `--e2e` it then builds chip_smoke.py's
+SD-1.5 models and times its `[main]` path (inversion, 40 guided steps,
+decode) with the parent's K1 and with this one, in turns, on the host
+clock around work that ends in a synchronise.
+
+`--variant DIR[:DEFINES]` (repeatable) builds `DIR/flash_attn_fwd.cu` with
+the `+`-separated `-D` defines and times it beside the kernel at each
+shape, unchecked: for knock-out copies of the source (an exponential made
+an FMA, a product dropped), which compute something else by design.
+
+Prints the card's name and power limit first; exits non-zero if a shape
+disagrees.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import io
+import math
+import re
+import subprocess
+import sys
+import tarfile
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from diffusion_image_editing_tpu_torch.ops import _build  # noqa: E402
+from diffusion_image_editing_tpu_torch.ops import attention as A  # noqa: E402
+
+KERNEL = "flash_attn_fwd"
+SMS, EXP_PER_CLOCK = 132, 16  # H100 SXM: SMs, and the special-function unit's ex2 an SM a clock
+# (label, q shape, kv shape, launches in one run of chip_smoke's [main]): a
+# UNet call runs 5 transformers at 64, 32 and 16 px and 1 at 8 px, each one
+# self- and one cross-attention; the run makes 4 inversion calls at batch 20
+# and 40 guided-step calls at batch 2; the VAE's attention runs 42 times.
+SHAPES = []
+for _b, _calls in ((2, 40), (20, 4)):
+    for _px, _d, _n in ((64, 40, 5), (32, 80, 5), (16, 160, 5), (8, 160, 1)):
+        _s = _px * _px
+        SHAPES.append((f"self {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, _s, 8, _d), _calls * _n))
+        SHAPES.append((f"cross {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, 77, 8, _d), _calls * _n))
+SHAPES.append(("vae mid 64x64 b1", (1, 4096, 1, 512), (1, 4096, 1, 512), 42))
+
+
+def parent_sources(rev: str) -> Path:
+    """`flash_attn_fwd.cu` and the headers of git revision `rev`, unpacked
+    into the build directory (or found there, outside a git checkout)."""
+    dst = _build.BUILD_DIR / f"parent-{rev}"
+    csrc = _build.CSRC.relative_to(ROOT).as_posix()
+    if (ROOT / ".git").exists():
+        blob = subprocess.run(["git", "-C", str(ROOT), "archive", rev, csrc],
+                              capture_output=True, check=True).stdout
+        dst.mkdir(parents=True, exist_ok=True)
+        with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+            for member in tar.getmembers():
+                name = Path(member.name).name
+                if member.isfile() and (name == f"{KERNEL}.cu" or name.endswith(".cuh")):
+                    (dst / name).write_bytes(tar.extractfile(member).read())
+    if not (dst / f"{KERNEL}.cu").exists():
+        raise SystemExit(f"no sources of {rev} in {dst}: run once in the git checkout first")
+    return dst
+
+
+def build_library(src_dir: Path, defines=()):
+    """nvcc `src_dir/flash_attn_fwd.cu` with the port's flags (and `-D`
+    defines) into `src_dir`, print ptxas's report, and load it."""
+    tag = "".join(f"-{d}" for d in defines)
+    out = src_dir / f"lib{KERNEL}{tag}.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           "-o", str(out), str(src_dir / f"{KERNEL}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src_dir} {defines}:\n{proc.stdout}{proc.stderr}")
+    log = out.with_suffix(".log")
+    log.write_text(proc.stdout + proc.stderr)
+    print_ptxas(log, f"{src_dir.name}{tag}")
+    fn = getattr(ctypes.CDLL(str(out)), KERNEL)
+    fn.argtypes = A._ARGTYPES[KERNEL]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def print_ptxas(log: Path, tag: str) -> None:
+    text = log.read_text()
+    entry, frame = "", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = _build._kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            frame = line.strip()
+        elif "ptxas info" in line and "Used" in line:
+            print(f"[build] {tag} {entry}: {line.split(':', 1)[1].strip()}; {frame}")
+        elif re.search(r"C751[35]|arning|Performance", line):
+            print(f"[build] {tag} {line.strip()}")
+
+
+def call_library(fn, q, k, v, scale, with_lse=False):
+    """One launch of a built K1 library on q's device and current stream."""
+    b, s_q, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device) if with_lse else None
+    rc = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, h, s_q, k.shape[1], d, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch failed: cudaError_t {rc}")
+    return out, lse
+
+
+def reference(q, k, v, scale):
+    """The plain version's output and the f32 log-sum-exp, one batch
+    element at a time so the f32 logits stay a few GB."""
+    outs, lses = [], []
+    for i in range(q.shape[0]):
+        qi, ki, vi = q[i:i + 1], k[i:i + 1], v[i:i + 1]
+        outs.append(A.attention_reference(qi, ki, vi, scale))
+        logits = torch.einsum("bqhd,bkhd->bhqk", qi.float(), ki.float()) * scale
+        lses.append(torch.logsumexp(logits, dim=-1).reshape(qi.shape[2], qi.shape[1]))
+        del logits
+    return torch.cat(outs), torch.cat(lses)
+
+
+def max_sm_clock_mhz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    try:
+        return float(smi.stdout.split()[0])
+    except (IndexError, ValueError):
+        return 1980.0  # the H100 SXM's highest boost clock
+
+
+def bounds(qs, ks, clock_mhz):
+    """(operations, bytes, exponentials) bounds in ms."""
+    b, s_q, h, d = qs
+    s_k = ks[1]
+    ops = 4.0 * b * h * s_q * s_k * d / chip_smoke.PEAK_BF16_FLOPS
+    nbytes = 2.0 * (2 * b * s_q * h * d + 2 * b * s_k * h * d) / chip_smoke.PEAK_BYTES
+    exps = b * h * s_q * s_k / (SMS * EXP_PER_CLOCK * clock_mhz * 1e6)
+    return ops * 1e3, nbytes * 1e3, exps * 1e3
+
+
+def check(out, lse, ref, ref_lse):
+    err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = err <= chip_smoke.FWD_TOL and lse_err <= chip_smoke.LSE_TOL and math.isfinite(err)
+    return err, lse_err, ok
+
+
+def e2e(parent, smi) -> None:
+    """chip_smoke's [main] path with the parent's K1 and with this one, in
+    turns (parent, kernel, kernel, parent) after a warm-up of each."""
+    unet, vae = chip_smoke.build_models(torch.device("cuda"))
+    _, pipe, img = chip_smoke.make_pipeline(unet, vae, torch.device("cuda"))
+    kernel = _build.load(KERNEL, A._ARGTYPES[KERNEL])
+    runs = {"parent": [], "kernel": []}
+    for name in ("parent", "kernel", "parent", "kernel", "kernel", "parent"):
+        _build._FNS[KERNEL] = parent if name == "parent" else kernel
+        _, inv_s, edit_s = chip_smoke.run_path(pipe, img, torch.device("cuda"))
+        runs[name].append((inv_s, edit_s))
+    _build._FNS[KERNEL] = kernel
+    for name, times in runs.items():
+        for inv_s, edit_s in times[1:]:  # the first of each is its warm-up
+            print(f"[e2e] {name}: e2e {inv_s + edit_s:.3f} s (inversion {inv_s:.3f} s, "
+                  f"{chip_smoke.GUIDED} guided steps {edit_s:.3f} s); on {smi}", flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="also build and time the kernel of this git revision")
+    parser.add_argument("--e2e", action="store_true",
+                        help="then time chip_smoke's [main] path with either kernel")
+    parser.add_argument("--only", default="", help="time only the shapes whose label holds this")
+    parser.add_argument("--variant", action="append", default=[],
+                        help="DIR[:DEFINE+DEFINE]: also time this unchecked build of K1")
+    opts = parser.parse_args()
+    if opts.e2e and not opts.parent:
+        parser.error("--e2e needs --parent")
+    parent_dir = parent_sources(opts.parent) if opts.parent else None
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    clock = max_sm_clock_mhz()
+    print(f"[device] {smi}; highest SM clock {clock:.0f} MHz", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    _build.build([KERNEL])
+    print(f"[build] {KERNEL} in {time.perf_counter() - t0:.1f} s")
+    print_ptxas(_build.library_path(KERNEL).with_suffix(".log"), "kernel")
+    parent = build_library(parent_dir) if parent_dir else None
+    variants = {}
+    for spec in opts.variant:
+        src, _, defines = spec.partition(":")
+        defines = defines.split("+") if defines else []
+        variants[spec] = build_library((ROOT / src).resolve(), defines)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failed, total = [], {"kernel": 0.0, "parent": 0.0, "sdpa": 0.0}
+    for label, qs, ks, launches in SHAPES:
+        if opts.only not in label:
+            continue
+        q, k, v = chip_smoke._randn(qs, gen, dev), chip_smoke._randn(ks, gen, dev), \
+            chip_smoke._randn(ks, gen, dev)
+        scale = qs[3] ** -0.5
+        with torch.no_grad():
+            ref, ref_lse = reference(q, k, v, scale)
+            out, lse = A.flash_attn_fwd(q, k, v, scale, with_lse=True)
+            err, lse_err, ok = check(out, lse, ref, ref_lse)
+            line = (f"[fwd] {label} q{qs} kv{ks}: rel err {err:.3e} lse err {lse_err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+            if parent is not None:
+                p_err, p_lse_err, p_ok = check(*call_library(parent, q, k, v, scale, True),
+                                               ref, ref_lse)
+                line += f" (parent {p_err:.3e} / {p_lse_err:.3e})"
+                ok = ok and p_ok
+            del ref, ref_lse
+            kernel = lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=False)  # noqa: E731
+            if parent is not None:
+                par = lambda: call_library(parent, q, k, v, scale)  # noqa: E731
+                p_ms = [chip_smoke.time_ms(par)]
+                ms = [chip_smoke.time_ms(kernel), chip_smoke.time_ms(kernel)]
+                p_ms.append(chip_smoke.time_ms(par))
+                ms, p_ms = sum(ms) / 2, sum(p_ms) / 2
+            else:
+                ms, p_ms = chip_smoke.time_ms(kernel), None
+            lse_ms = chip_smoke.time_ms(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))
+            v_ms = {spec: chip_smoke.time_ms(lambda: call_library(fn, q, k, v, scale))
+                    for spec, fn in variants.items()}
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            sdpa_ms = chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                                scale=scale))
+        b_ops, b_bytes, b_exp = bounds(qs, ks, clock)
+        line += (f" | kernel {ms:.4f} ms (with lse {lse_ms:.4f})"
+                 + (f", parent {p_ms:.4f} ms (x{p_ms / ms:.2f})" if p_ms else "")
+                 + f", sdpa {sdpa_ms:.4f} ms; bound ops {b_ops:.4f}, bytes {b_bytes:.4f}, "
+                 f"exp {b_exp:.4f} ms; {launches} launches a run")
+        print(line, flush=True)
+        for spec, t in v_ms.items():
+            print(f"[variant] {label} {spec}: {t:.4f} ms (kernel {ms:.4f})", flush=True)
+        total["kernel"] += launches * ms
+        total["sdpa"] += launches * sdpa_ms
+        total["parent"] += launches * (p_ms or 0.0)
+        if not ok:
+            failed.append(label)
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    print(f"[path] launch-weighted K1 device time of one [main] run: kernel "
+          f"{total['kernel']:.2f} ms" + (f", parent {total['parent']:.2f} ms" if parent else "")
+          + f", sdpa {total['sdpa']:.2f} ms; on {smi}")
+    if opts.e2e:
+        e2e(parent, smi)
+    if failed:
+        print(f"[FAIL] {failed}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -45,11 +45,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402
 from diffusion_image_editing_tpu_torch.core import schedule_for_model  # noqa: E402
 from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc  # noqa: E402
 from diffusion_image_editing_tpu_torch.models import (  # noqa: E402
     SD15_UNET, SD_VAE, AutoencoderKL, UNet2DCondition)
-from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline  # noqa: E402
+from diffusion_image_editing_tpu_torch.pipeline import EditPipeline  # noqa: E402
 
 ATTN_KERNELS = ("fa::flash_",)  # the port's flash-attention kernels (namespace fa)
 # GroupNorm: the port's forward kernels (namespace gn) and PyTorch's GroupNorm
@@ -220,8 +221,8 @@ def main() -> int:
     text = torch.from_numpy(rng.standard_normal((2, 77, 768), dtype=np.float32))
     img = torch.from_numpy(
         rng.uniform(-1.0, 1.0, (1, 3, SD_VAE.sample_size, SD_VAE.sample_size)).astype(np.float32))
-    sd = SD(unet, vae, schedule_for_model("sd", STEPS), text_emb=text.to(torch.bfloat16),
-            device=dev)
+    sd = chip_smoke.fixed_text_sd(unet, vae, schedule_for_model("sd", STEPS),
+                                  text.to(torch.bfloat16), dev)
     pipe = EditPipeline(sd)
     attr = SingleColorAttrFunc(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)
 

@@ -189,13 +189,28 @@ def test_built_head_dims_match_the_cuda_sources():
     import re
     from pathlib import Path
 
-    src = (Path(T.__file__).parent / "csrc" / "flash_attn_common.cuh").read_text()
+    csrc = Path(T.__file__).parent / "csrc"
 
-    def widths(macro):
-        line = re.search(rf"#define {macro}\(X\)(.*)", src).group(1)
+    def widths(macro, source="flash_attn_common.cuh"):
+        line = re.search(rf"#define {macro}\(X\)(.*)", (csrc / source).read_text()).group(1)
         return tuple(int(w) for w in re.findall(r"X\((\d+)\)", line))
 
     assert widths("FA_NARROW_DIMS") == T.NARROW_HEAD_DIMS
     assert widths("FA_WIDE_SLICES") == T.WIDE_SLICE_DIMS
     assert [d for d in (8, 40, 64, 120, 256, 472, 512, 520) if T.kernel_takes_head_dim(d)] == [
         8, 40, 472, 512]
+
+
+def test_forward_dispatch_matches_the_cuda_source():
+    """The narrow widths that take the forward's 128-row design are those
+    the .cu dispatches to it, and each is a built narrow width."""
+    import re
+    from pathlib import Path
+
+    src = (Path(T.__file__).parent / "csrc" / "flash_attn_fwd.cu").read_text()
+    line = re.search(r"#define FA_FWD_ROWS128_DIMS\(X\)(.*)", src).group(1)
+    cases = re.findall(r"X\((\d+), (\d+)\)", line)  # (padded width, row fragments a warp)
+    assert tuple(int(w) for w, _ in cases) == T.FWD_ROWS128_HEAD_DIMS
+    assert all(8 % int(mf) == 0 for _, mf in cases)
+    assert set(T.FWD_ROWS128_HEAD_DIMS) <= set(T.NARROW_HEAD_DIMS)
+    assert "FA_FWD_ROWS128_DIMS(FA_CASE)" in src

@@ -140,6 +140,17 @@ def test_inversion_input_checks(traj):
         TI.sample_xts(ts, x, noise=torch.zeros(1))
 
 
+@pytest.mark.parametrize("invert", ["ddpm_invert", "ddpm_invert_batched"])
+def test_inversion_without_noise_raises_as_jax(traj, invert):
+    """eta > 0 with no generator, noise or xts: no silent draw from torch's
+    global generator; JAX raises for want of a key."""
+    js, ts, x0, _, _ = traj
+    with pytest.raises(ValueError, match="requires"):
+        getattr(JI, invert)(js, J_EPS, jnp.asarray(x0), eta=1.0)
+    with pytest.raises(ValueError, match="requires"):
+        getattr(TI, invert)(ts, t_eps, torch.from_numpy(nchw(x0)), eta=1.0)
+
+
 ATTR = dict(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)
 
 

@@ -13,7 +13,12 @@ Attention (K1-K3): ragged query and key lengths that are no multiple of any
 tile, a single row, and head dims padded inside the kernel to each built
 width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on both designs: narrow
 heads (padded width up to 160) with one warp per 16 rows, and wider heads
-cut into four slices, one warp each. Tolerances, bf16 in and out as on the
+cut into four slices, one warp each. The forward's 128-row design (padded
+width 48: head dim 40, whose row sum comes from the PV product, and 48,
+which sums P itself; padded width 80, two row fragments a warp: 72 and 80)
+at query and key lengths that are no multiple of its 128-row block or its
+64-key tile, 77 and 1 keys, several batches and heads, one launch each; a
+negative scale goes to the 4-warp design. Tolerances, bf16 in and out as on the
 main path, each as max |kernel - plain| / max |plain|: forward 2e-2, a few
 times the readings that chip_smoke.py prints at the main path's shapes
 (PERF.md); gradients 2e-2 (P and dS are rounded to bf16 in the kernels'
@@ -119,6 +124,35 @@ def test_forward_and_lse_match_plain(gen, b, s_q, s_k, h, d):
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
     primal = A.attention(q, k, v, scale)  # no gradient asked: the kernel without lse
     assert torch.equal(primal, out)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,d,scale",
+    [
+        (1, 1, 1, 1, 40, 0.16),
+        (2, 130, 77, 3, 40, 0.16),      # the cross-attention's 77 keys, a ragged tile
+        (2, 257, 1, 2, 40, 0.16),       # one key; two blocks and a row past them
+        (1, 200, 129, 2, 40, 0.16),     # 3 key tiles, the last of one key
+        (3, 384, 640, 2, 40, 0.16),     # whole blocks and tiles, 10 tiles through the ring
+        (1, 150, 190, 2, 48, 0.144),    # no padding column: P summed by the warp
+        (2, 300, 77, 2, 40, -0.16),     # a negative scale takes the 4-warp design
+        (2, 1024, 77, 3, 80, 0.11),     # head dim 80: two row fragments a warp
+        (1, 100, 130, 2, 72, 0.12),     # 72 in 80: the ones column
+        (1, 200, 300, 2, 80, 0.11),
+    ],
+)
+def test_forward_rows128_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
+    q = _rand((b, s_q, h, d), gen)
+    k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
+    (out, lse), launched = _launched(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))
+    ref = A.attention_reference(q, k, v, scale)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    ref_lse = torch.logsumexp(logits, dim=-1).reshape(b * h, s_q)
+    assert launched == {"flash_attn_fwd": 1}
+    assert _rel(out, ref) <= FWD_TOL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    primal, launched = _launched(lambda: A.attention(q, k, v, scale))
+    assert launched == {"flash_attn_fwd": 1} and torch.equal(primal, out)
 
 
 @pytest.mark.parametrize(

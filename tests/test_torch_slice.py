@@ -33,8 +33,8 @@ from diffusion_image_editing_tpu_torch.models import (
     UNet2DCondition,
     state_dict_from_jax,
 )
-from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline
-from tests.torch_port_helpers import nchw, tiny_unet_params, tiny_vae_params
+from diffusion_image_editing_tpu_torch.pipeline import EditPipeline
+from tests.torch_port_helpers import FixedTextSD, nchw, tiny_unet_params, tiny_vae_params
 
 STEPS, T_SKIP = 5, 1
 TRAJ = dict(rtol=1e-4, atol=1e-3)
@@ -55,13 +55,13 @@ def both():
     unet, uparams = tiny_unet_params()
     vae, vparams = tiny_vae_params()
 
-    class FixedTextSD(JSD):
+    class JFixedTextSD(JSD):
         """No CLIP weights here: a fixed [uncond; cond] embedding, as bench.py."""
 
         def prep_text(self, prompt_ids):
             return jnp.asarray(text)
 
-    jpipe = JEditPipeline(FixedTextSD(unet, uparams, j_schedule("sd", STEPS), vae, vparams))
+    jpipe = JEditPipeline(JFixedTextSD(unet, uparams, j_schedule("sd", STEPS), vae, vparams))
     jxt, jzs, jxts, _, _ = jpipe.prepare_real_image_edit(
         jnp.asarray(img), eta=1.0, inversion_method="ddpm", mode="batched", t_skip=T_SKIP,
         key=key)
@@ -74,8 +74,8 @@ def both():
     tv.load_state_dict(state_dict_from_jax(vparams, "vae"))
     latent_shape = (1, 16, 16, 4)  # NHWC latent of a 32 px image
     noise = jax.random.normal(key, (STEPS,) + latent_shape, jnp.float32)  # sample_xts' draw
-    pipe = EditPipeline(SD(tu, tv, schedule_for_model("sd", STEPS),
-                           text_emb=torch.from_numpy(text), device="cpu"))
+    pipe = EditPipeline(FixedTextSD(tu, tv, schedule_for_model("sd", STEPS),
+                                    text_emb=torch.from_numpy(text), device="cpu"))
     txt, tzs, txts, mask, parsing = pipe.prepare_real_image_edit(
         torch.from_numpy(nchw(img)), eta=1.0, inversion_method="ddpm", mode="batched",
         t_skip=T_SKIP, noise=torch.from_numpy(nchw5(noise).copy()))

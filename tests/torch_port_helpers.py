@@ -3,13 +3,27 @@
 `jax_params` makes seeded Flax params for a JAX module from numpy without
 running its initializers (`jax.eval_shape` traces only), which keeps the
 tiny models' set-up to a second or two; `state_dict_from_jax` carries the
-same values into the port."""
+same values into the port. `FixedTextSD` is the port's `SD` with a fixed
+[uncond; cond] text embedding, as bench.py's wrapper."""
 
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from diffusion_image_editing_tpu_torch.pipeline import SD
+
+
+class FixedTextSD(SD):
+    """No CLIP weights here: a fixed [uncond; cond] embedding, as bench.py."""
+
+    def __init__(self, *args, text_emb, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fixed_text_emb = text_emb.to(self.device)
+
+    def prep_text(self, prompt_ids=None):
+        return self.fixed_text_emb
 
 
 def _fill(path, leaf, rng):
