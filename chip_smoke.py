@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              * attention (K1-K3): the forward through the public
                `attention()` at every width of the path and the batched
                inversion's batch 20, the forward with lse at the UNet's
-               64 x 64 width against `torch.logsumexp`, the backward
+               64 x 64 width and at the VAE's 512-wide head against
+               `torch.logsumexp` (O bit-equal without it), the backward
                kernels on the forward's lse and delta, then the whole
                gradient through `attention()`'s autograd; yardstick
                `scaled_dot_product_attention`;
@@ -106,7 +107,10 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 64x64 b20", (20, 4096, 8, 40), (20, 4096, 8, 40)),  # the batched inversion
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512)),
 ]
-LSE_CASE = ("unet self 64x64", (2, 4096, 8, 40))  # the forward with lse, at the UNet's width
+LSE_CASES = [  # the forward with lse: the UNet's width, and the VAE's (40 launches a run)
+    ("unet self 64x64", (2, 4096, 8, 40)),
+    ("vae mid 64x64", (1, 4096, 1, 512)),
+]
 BWD_CASES = [
     ("vae mid 64x64", (1, 4096, 1, 512)),
     ("unet self 32x32", (2, 1024, 8, 80)),
@@ -323,26 +327,28 @@ def phase_kernels() -> dict:
         if label == "unet self 64x64":
             entries["flash_attn_fwd"] = e
 
-    label, shape = LSE_CASE
-    q, k, v = (_randn(shape, gen, dev) for _ in range(3))
-    b, s, h, d = shape
-    scale = d ** -0.5
-    with torch.no_grad():
-        out, lse = flash_attn_fwd(q, k, v, scale, with_lse=True)
-        primal, _ = flash_attn_fwd(q, k, v, scale, with_lse=False)
-        lse_err = 0.0
-        for i in range(b):  # one batch element at a time: the f32 logits stay 0.5 GB
-            logits = torch.einsum("bqhd,bkhd->bhqk", q[i:i + 1].float(), k[i:i + 1].float())
-            ref_lse = torch.logsumexp(logits * scale, dim=-1).reshape(h, s)
-            lse_err = max(lse_err, (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item())
-            del logits
-    same = torch.equal(out, primal)
-    ok = lse_err <= LSE_TOL and same
-    log(f"[kernels] fwd with lse {label} {shape}: lse_err {lse_err:.3e} (tol {LSE_TOL}), output "
-        f"bit-equal to the call without lse: {same} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append(f"fwd with lse {label}")
-    del q, k, v, out, primal, lse
+    for label, shape in LSE_CASES:
+        q, k, v = (_randn(shape, gen, dev) for _ in range(3))
+        b, s, h, d = shape
+        scale = d ** -0.5
+        with torch.no_grad():
+            out, lse = flash_attn_fwd(q, k, v, scale, with_lse=True)
+            primal, _ = flash_attn_fwd(q, k, v, scale, with_lse=False)
+            lse_err = 0.0
+            for i in range(b):  # one batch element at a time: the f32 logits stay 0.5 GB
+                logits = torch.einsum("bqhd,bkhd->bhqk", q[i:i + 1].float(), k[i:i + 1].float())
+                ref_lse = torch.logsumexp(logits * scale, dim=-1).reshape(h, s)
+                lse_err = max(lse_err, (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item())
+                del logits
+            lse_ms = time_ms(lambda: flash_attn_fwd(q, k, v, scale, with_lse=True))
+        same = torch.equal(out, primal)
+        ok = lse_err <= LSE_TOL and same
+        log(f"[kernels] fwd with lse {label} {shape}: lse_err {lse_err:.3e} (tol {LSE_TOL}), "
+            f"output bit-equal to the call without lse: {same} {'ok' if ok else 'FAIL'} | "
+            f"kernel with lse {lse_ms:.4f} ms")
+        if not ok:
+            failures.append(f"fwd with lse {label}")
+        del q, k, v, out, primal, lse
 
     for label, shape in BWD_CASES:
         b, s, h, d = shape

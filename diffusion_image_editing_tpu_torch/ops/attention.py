@@ -12,16 +12,19 @@ Kernels (`csrc/`, built by `ops._build`, bf16 in, f32 accumulation):
   single head of dim 512. Bound: tensor-core operations (4*S_q*S_k*D per
   head, 100+ operations per byte) at the 4096-token shapes, bytes at the
   short ones; at head dim 40 the S_q*S_k exponentials. Design: a block of
-  query rows walks K/V tiles, streamed into shared memory by cp.async, with
-  an online f32 softmax; the products run on the tensor cores (mma.sync
-  m16n8k16) and S, P and O stay in registers. Up to a padded head dim of
-  160 a warp owns 16 whole rows; wider heads (the VAE's 512) are cut into
-  four slices, one per warp, so that a slice of O fits the registers, and
-  Q K^T is summed across the slices through shared memory. The padded
-  widths of `FWD_ROWS128_HEAD_DIMS` (the UNet's 40 -> 48 and 80) take a
-  design cut for short heads: 128-row blocks over a 3-slot K/V ring, Q held
-  in registers, one FFMA and one `ex2` a logit, and the row sum taken by
-  the PV product through a ones column of V.
+  query rows walks K/V tiles, streamed into shared memory, with an online
+  f32 softmax; the products run on the tensor cores and S, P and O stay in
+  registers. Up to a padded head dim of 160 a warp owns 16 whole rows
+  (mma.sync m16n8k16, cp.async); the padded widths of
+  `FWD_ROWS128_HEAD_DIMS` (the UNet's 40 -> 48 and 80) take a design cut
+  for short heads: 128-row blocks over a 3-slot K/V ring, Q held in
+  registers, one FFMA and one `ex2` a logit, and the row sum taken by the
+  PV product through a ones column of V. The wide slices of
+  `FWD_WIDE_SLICE_DIMS` (the VAE's 512) take warpgroups: two of them split
+  the 512 columns of a 64-row block, sum their halves of Q K^T (wgmma)
+  through shared memory and each run P V (wgmma) on its half of V; K/V
+  tiles arrive by TMA, and the keys are split over a cluster of two
+  blocks that combine their partial sums at the end.
 * `flash_attn_bwd_dq` (K2) replaces `_bwd_dq_kernel` and
   `flash_attn_bwd_dkv` (K3) replaces `_bwd_dkv_kernel`. Bound: operations
   (6 and 8 * S_q*S_k*D per head). Design: the recompute backward on the
@@ -121,6 +124,10 @@ WIDE_SLICE_DIMS = (128,)
 # (FA_FWD_ROWS128_DIMS in csrc/flash_attn_fwd.cu), where the bench script
 # read it faster.
 FWD_ROWS128_HEAD_DIMS = (48, 80)
+# The wide slices (a quarter of the padded head dim) whose forward takes the
+# warpgroup design (FA_FWD_WIDE_SLICES in csrc/flash_attn_fwd.cu): every
+# wide slice built, since the design replaced the four-warp slices there.
+FWD_WIDE_SLICE_DIMS = (128,)
 
 
 def kernel_takes_head_dim(d: int) -> bool:

@@ -65,6 +65,12 @@
 namespace fc {
 
 using fa::bf16;
+using fa::fence_operands;
+using fa::mbar_init;
+using fa::mbar_wait;
+using fa::wgmma_commit;
+using fa::wgmma_fence;
+using fa::wgmma_wait;
 
 constexpr int BM = 128;            // output pixels a block
 constexpr int KC = 64;             // input channels a chunk: 128 bytes a weight row
@@ -212,17 +218,6 @@ __device__ __forceinline__ void unit_store_all(const UnitRegs& r, const Unit& t,
 // the accumulators are then written by wgmma alone, which ptxas needs in
 // order to keep the products of a step in flight together.
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Descriptor of a K-major tile of rows of 64 bf16 (128 bytes) in the
 // 128-byte swizzle, 1024-byte aligned: 8-row groups 1024 bytes apart. The
 // k16 step kk starts 32 kk bytes into the row.
@@ -275,29 +270,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)
   }
 }
 
-// Keeps the compiler from reading an accumulator before the wait above it.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// --- mbarrier and the bulk copy that reports to it.
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(fa::smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(fa::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
+// --- The bulk copy that reports to an mbarrier (fa::mbar_init, fa::mbar_wait).
 
 // Weight tile of step (tap, chunk), rows co0 .. co0 + rows of it, into a ring
 // slot: one bulk copy of rows * 128 contiguous bytes (the packed weights hold

@@ -4,7 +4,9 @@
 // layout of `ops.attention.attention`, read in place (no head split copy).
 // Row statistics (lse, delta) are (B*H, S) f32.
 //
-// All three kernels share one shape of work. A block owns 16 * RG rows (of
+// The backward kernels and the forward's narrow designs share one shape of
+// work (the forward's 512-wide design, flash_attn_fwd.cu, uses warpgroups
+// and wgmma instead). A block owns 16 * RG rows (of
 // queries, or of keys for dK/dV) of one (batch, head) and walks the other
 // sequence in tiles held in shared memory, double-buffered by cp.async. Its
 // warps form RG row groups of SLICES warps; each warp of a row group owns 16
@@ -224,6 +226,41 @@ __device__ inline void store_acc(bf16* dst, const float (&c)[NT][4], const float
             __floats2bfloat162_rn(c[n][2 * r] * mul[r], c[n][2 * r + 1] * mul[r]);
     }
   }
+}
+
+// --- wgmma and mbarrier (sm_90a), for the kernels that use them (the
+// forward's wide design, K7).
+
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // at most N committed groups still in flight
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from reading an accumulator before the wait above it.
+template <int N>
+__device__ inline void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// Until the phase of the given parity has completed.
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // Checks shared by the three entry points; 0 when the shape is taken.

@@ -9,16 +9,15 @@
 // Bound on the H100: tensor-core operations at the 4096-token shapes
 // (4 * Sq * Sk * D per head), bytes at the short ones; at the UNet's head
 // dim 40 the Sq * Sk exponentials (16 a clock an SM on the special-function
-// unit) take longer than the products. Two designs, one per width (the
+// unit) take longer than the products. Three designs, by width (the
 // dispatch at the end):
 //
-// * `flash_fwd_kernel` (every width but those of FA_FWD_ROWS128_DIMS): a
-//   block owns 16 * RG query rows and walks the keys in BK-row tiles,
-//   double-buffered by cp.async so the next tile's load overlaps this
-//   tile's products: S = Q K^T (split-K across the SLICES warps of a row
-//   group for wide heads), an online softmax per row in f32 and base 2,
-//   then O = alpha * O + P V with P rounded to bf16 and fed from registers.
-//   O stays in registers until the end.
+// * `flash_fwd_kernel` (the narrow widths but those of FA_FWD_ROWS128_DIMS): a
+//   block owns 16 * RG query rows, a warp 16 of them, and walks the keys in
+//   BK-row tiles, double-buffered by cp.async so the next tile's load
+//   overlaps this tile's products: S = Q K^T, an online softmax per row in
+//   f32 and base 2, then O = alpha * O + P V with P rounded to bf16 and fed
+//   from registers. O stays in registers until the end.
 // * `flash_fwd_rows128_kernel` (FA_FWD_ROWS128_DIMS: the UNet's head dims
 //   40 and 80 at 4096 and 1024 tokens): the same arithmetic, cut down to
 //   what the short head leaves room for. Its parent above spent a third of
@@ -41,34 +40,56 @@
 //   chain of each warp (products, max and shuffles, exponentials, pack,
 //   rescale, barrier), not one unit: knocking out the exponentials saves
 //   nothing, and wgmma in place of mma.sync read no faster (PERF.md).
+// * `wide::flash_fwd_wide_kernel` (FA_FWD_WIDE_SLICES: the VAE's single
+//   512-wide head at 4096 and 256 tokens). There a logit costs 1024
+//   multiply-adds against one exponential, so the tensor products bind
+//   (4 * Sq * Sk * 512); and a 64 x 512 f32 O does not fit one warpgroup's
+//   registers. A block owns 64 query rows; two warpgroups each own 256 of
+//   the 512 columns, hold that slice of O (128 registers a thread) and
+//   compute their half of S = Q K^T by wgmma (m64n32k16, Q and K from
+//   shared memory); the halves are added through shared memory behind one
+//   named barrier a 32-key tile, and both warpgroups run the same softmax;
+//   P V is wgmma m64n256k16 with P from registers and V read transposed
+//   from shared memory. 64 blocks would fill half the card, so the keys
+//   are split over a cluster of two blocks, each combining its columns with
+//   the other's partial sums through distributed shared memory at the end
+//   (the lse is the f32 sum of P, O the same to the bit with or without
+//   it). Streaming K and V from L2 was the parent design's bound (1 GiB a
+//   call; a knock-out that loaded them once ran 56 % faster), and a
+//   cp.async version of this design still spent 39 % on it: Q, K and V
+//   arrive by TMA, a warpgroup asking for its own column half of each
+//   32-key tile (its products read no other), two slots deep, so no load
+//   waits on the other warpgroup. There is no producer warpgroup: with one,
+//   ptxas held every thread to the launch bound's 168 registers,
+//   `setmaxnreg` notwithstanding, and serialized the products (C7512).
+
+#include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "flash_attn_common.cuh"
 
 namespace fa {
 
-template <int DS, int SLICES, int RG, int BK>
+template <int DP, int RG, int BK>
 constexpr size_t fwd_smem() {
-  constexpr size_t ld = DS * SLICES + kPadH;
-  return (16 * RG + 4 * BK) * ld * sizeof(bf16)  // Q, then K and V twice
-         + (SLICES > 1 ? RG * SLICES * 16 * (BK + 8) * sizeof(float) : 0);  // split-K S
+  return (16 * RG + 4 * BK) * (DP + kPadH) * sizeof(bf16);  // Q, then K and V twice
 }
 
-template <int DS, int SLICES, int RG, int BK>
-__global__ void __launch_bounds__(32 * SLICES * RG)
+template <int DP, int RG, int BK>
+__global__ void __launch_bounds__(32 * RG)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      int H, int Sq, int Sk, int D, float scale) {
-  constexpr int DP = DS * SLICES, LD = DP + kPadH, BQ = 16 * RG, LDR = BK + 8;
-  constexpr int NT_S = BK / 8, NT_O = DS / 8;
+  constexpr int LD = DP + kPadH, BQ = 16 * RG;
+  constexpr int NT_S = BK / 8, NT_O = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LD;      // [2][BK][LD]
   bf16* sV = sK + 2 * BK * LD;  // [2][BK][LD]
-  float* sRed = reinterpret_cast<float*>(sV + 2 * BK * LD);  // [RG][SLICES][16][LDR]
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, rg = warp / SLICES, sl = warp % SLICES;
+  const int rg = threadIdx.x / 32;
   const int t4 = threadIdx.x % 4;
   const float scale_log2 = scale * kLog2e;
 
@@ -81,7 +102,7 @@ __global__ void __launch_bounds__(32 * SLICES * RG)
   zero(acc);
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, base-2 logits
   float l_run[2] = {0.0f, 0.0f};            // this thread's share of the row sums
-  const bf16* wQ = sQ + 16 * rg * LD + sl * DS;
+  const bf16* wQ = sQ + 16 * rg * LD;
   const int n_tiles = (Sk + BK - 1) / BK;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -95,17 +116,12 @@ __global__ void __launch_bounds__(32 * SLICES * RG)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* cK = sK + stage * BK * LD + sl * DS;
-    const bf16* cV = sV + stage * BK * LD + sl * DS;
+    const bf16* cK = sK + stage * BK * LD;
+    const bf16* cV = sV + stage * BK * LD;
 
     float s[NT_S][4];
     zero(s);
-    warp_mma_abt<DS / 16, NT_S>(s, wQ, LD, cK, LD);
-    if constexpr (SLICES > 1) {
-      store_partial(sRed + (rg * SLICES + sl) * 16 * LDR, LDR, s);
-      __syncthreads();
-      load_total<NT_S, SLICES>(s, sRed + rg * SLICES * 16 * LDR, LDR);
-    }
+    warp_mma_abt<DP / 16, NT_S>(s, wQ, LD, cK, LD);
 
     // Online softmax over this tile; keys >= Sk are masked. Every tile holds
     // at least one real key, so the new row maximum is finite.
@@ -157,10 +173,10 @@ __global__ void __launch_bounds__(32 * SLICES * RG)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.0f / l_run[r];
     const int row = q0 + 16 * rg + threadIdx.x % 32 / 4 + 8 * r;
-    if (lse != nullptr && sl == 0 && t4 == 0 && row < Sq)
+    if (lse != nullptr && t4 == 0 && row < Sq)
       lse[static_cast<size_t>(bh) * Sq + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
   }
-  store_acc(o, acc, inv, b, h, H, Sq, D, q0 + 16 * rg, sl * DS);
+  store_acc(o, acc, inv, b, h, H, Sq, D, q0 + 16 * rg, 0);
 }
 
 // 2^x on the special-function unit; flushes subnormal results to 0 (a
@@ -390,15 +406,407 @@ cudaError_t launch_fwd_rows128(const bf16* q, const bf16* k, const bf16* v, bf16
   return cudaGetLastError();
 }
 
-template <int DS, int SLICES, int RG, int BK>
+// ---------------------------------------------------------------------------
+// The wide design (FA_FWD_WIDE_SLICES: the VAE's head dim 512): warpgroups,
+// wgmma, TMA, and the keys split over a cluster of two.
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+namespace cg = cooperative_groups;
+
+constexpr int BM = 64;              // query rows a block: one wgmma M
+constexpr int BK = 32;              // keys a tile
+constexpr int DP = 512;             // padded head dim
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kQBytes = BM * DP * 2;
+constexpr int kTileBytes = BK * DP * 2;
+constexpr int kXFloats = BM * BK;   // one warpgroup's partial S
+constexpr size_t kSmem = kQBytes + 4 * kTileBytes + 4 * kXFloats * sizeof(float) + 9 * 8;
+
+// One box of a (B, S, H, D) tensor's map, columns [c, c + 64) of rows
+// [row, row + rows) of head (b, h), into shared memory at dst in the
+// 128-byte swizzle, by the tensor memory accelerator; `bar` counts its
+// bytes. Rows and columns outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, int c, int h,
+                                        int row, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(h), "r"(row), "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void warpgroups_sync() {  // both warpgroups, not the cluster
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor in the 128-byte swizzle (1024-byte atoms):
+// `lbo` and `sbo` in bytes. K-major (Q, K): sbo = 1024 between 8-row groups,
+// lbo unused; the k16 step kk starts 32 kk bytes into the atom's rows.
+// MN-major (V): lbo between 64-column atoms, sbo = 1024 between 8-key groups.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return ((addr >> 4) & 0x3fff) | (uint64_t((lbo >> 4) & 0x3fff) << 16) |
+         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(1) << 62);
+}
+
+#define FA_D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S[64 x 32] (+)= Q[64 x 16] K[32 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O[64 x 256] += P[64 x 16] V[16 x 256]: P from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), V MN-major in shared memory (trans-b).
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56),
+        FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88), FA_D8(96), FA_D8(104), FA_D8(112), FA_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// This warpgroup's half of S = Q K^T: 16 k16 steps over its 256 columns, Q
+// and K K-major at q_wg and k_wg. The first step overwrites S.
+__device__ __forceinline__ void qk_product(float (&s)[16], uint32_t q_wg, uint32_t k_wg) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_s(s, desc(q_wg + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024),
+            desc(k_wg + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+}
+
+// One tile's softmax. The two warpgroups' halves of S meet in `x` (this
+// tile's exchange buffer: one half each): each thread's 16 values sit at the
+// same places of both accumulators, and a + b == b + a, so both warpgroups
+// hold one S. Then the online softmax in base 2; keys >= Sk (the ragged
+// tile) count nothing. Every tile holds a real key, so the new row maximum
+// is finite. P goes to bf16 A fragments; alpha rescales the old rows.
+__device__ __forceinline__ void softmax_tile(float (&s)[16], float* x, int wg, int tid, int key0,
+                                             int Sk, bool ragged, float c, float (&m_run)[2],
+                                             float (&l_run)[2], uint32_t (&pa)[2][4],
+                                             float (&alpha)[2]) {
+  float4* mine = reinterpret_cast<float4*>(x + wg * kXFloats);
+  const float4* other = reinterpret_cast<const float4*>(x + (1 - wg) * kXFloats);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    mine[j * 128 + tid] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+  warpgroups_sync();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 o = other[j * 128 + tid];
+    s[4 * j] += o.x;
+    s[4 * j + 1] += o.y;
+    s[4 * j + 2] += o.z;
+    s[4 * j + 3] += o.w;
+  }
+  float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = s[4 * j + e] * c;
+      if (ragged && key0 + 8 * j + (e & 1) >= Sk) v = -INFINITY;
+      s[4 * j + e] = v;
+      m_new[e / 2] = fmaxf(m_new[e / 2], v);
+    }
+  }
+  float row_sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+    alpha[r] = ex2(m_run[r] - m_new[r]);
+    m_run[r] = m_new[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(s[4 * j + e] - m_new[e / 2]);
+      s[4 * j + e] = p;
+      row_sum[e / 2] += p;
+    }
+    pa[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + row_sum[r];
+}
+
+__device__ __forceinline__ void rescale(float (&acc)[128], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    acc[4 * j] *= alpha[0];
+    acc[4 * j + 1] *= alpha[0];
+    acc[4 * j + 2] *= alpha[1];
+    acc[4 * j + 3] *= alpha[1];
+  }
+}
+
+// One block: BM query rows of head (b, h), half of the key tiles (cluster
+// rank 0 the first half, 1 the rest). Two warpgroups, each owning 256 of
+// the 512 columns, compute and also load: a producer warpgroup would leave
+// them 168 registers a thread (ptxas holds the kernel to its launch bound,
+// setmaxnreg or not), too few for 128 accumulators and the products in
+// flight. Shared memory: Q [8][BM][64], K and V two slots each of
+// [8][BK][64], all in 64-column blocks in the 128-byte swizzle; the partial
+// S exchange, two buffers of two warpgroups; the mbarriers.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sK = sQ + kQBytes, sV = sK + 2 * kTileBytes;
+  float* sX = reinterpret_cast<float*>(smem + kQBytes + 4 * kTileBytes);
+  // [2 warpgroups][2 slots]: this warpgroup's half of a K or V slot has
+  // landed; then Q has landed.
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sX + 4 * kXFloats);
+  uint64_t* full_v = full_k + 4;
+  uint64_t* full_q = full_k + 8;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());  // which half of the keys
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x / 2) * BM;
+  const int n_all = (Sk + BK - 1) / BK, n_first = (n_all + 1) / 2;
+  const int tile0 = rank == 0 ? 0 : n_first;
+  const int n_tiles = rank == 0 ? n_first : n_all - n_first;
+  const int wg = threadIdx.x / 128;  // columns [256 wg, 256 wg + 256)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const float c = scale * kLog2e;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 9; ++i) mbar_init(&full_k[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    expect_bytes(full_q, kQBytes);
+    for (int j = 0; j < 8; ++j) tma_box(sQ + j * BM * 128, tm_q, 64 * j, h, q0, b, full_q);
+  }
+  __syncthreads();
+  // Each warpgroup's products read only its own 256 columns of Q, K and V,
+  // so it asks for its halves of the K and V tiles itself, into slot t % 2,
+  // as soon as its own products are done with the slot: no wait on the other
+  // warpgroup. One thread asks; the slot's barrier flips when the bytes land.
+  uint64_t* my_k = full_k + 2 * wg;
+  uint64_t* my_v = full_v + 2 * wg;
+  auto load_half = [&](uint32_t slot_base, const CUtensorMap& map, uint64_t* bar, int t) {
+    if (tid == 0) {
+      expect_bytes(bar, kTileBytes / 2);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        tma_box(slot_base + (4 * wg + j) * BK * 128, map, 256 * wg + 64 * j, h, (tile0 + t) * BK,
+                b, bar);
+    }
+  };
+  auto load_k = [&](int t) {
+    load_half(sK + (t & 1) * kTileBytes, tm_k, &my_k[t & 1], t);
+  };
+  auto load_v = [&](int t) {
+    load_half(sV + (t & 1) * kTileBytes, tm_v, &my_v[t & 1], t);
+  };
+  for (int t = 0; t < 2 && t < n_tiles; ++t) {
+    load_k(t);
+    load_v(t);
+  }
+  mbar_wait(full_q, 0);
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of this warp, base 2
+  float l_run[2] = {0.0f, 0.0f};            // this thread's share of the row sums
+  const uint32_t q_wg = sQ + 4 * wg * BM * 128;
+  // Addresses made anew each tile: hoisted out of the loop, the 36
+  // descriptors would hold 72 registers and starve the products.
+  auto k_addr = [&](int i) {
+    uint32_t a = sK + (i & 1) * kTileBytes + 4 * wg * BK * 128;
+    asm volatile("" : "+r"(a));
+    return a;
+  };
+  auto v_addr = [&](int i) {
+    uint32_t a = sV + (i & 1) * kTileBytes + 4 * wg * BK * 128;
+    asm volatile("" : "+r"(a));
+    return a;
+  };
+
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int slot = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    float s[16];
+    mbar_wait(&my_k[slot], parity);
+    wgmma_fence();
+    qk_product(s, q_wg, k_addr(i));
+    wgmma_commit();
+    wgmma_wait<0>();  // S, and the last tile's P V, are done
+    fence_operands(s);
+    fence_operands(acc);
+    // This K slot takes tile i + 2, tile i - 1's V slot tile i + 1.
+    if (i + 2 < n_tiles) load_k(i + 2);
+    if (i >= 1 && i + 1 < n_tiles) load_v(i + 1);
+    uint32_t pa[2][4];
+    float alpha[2];
+    softmax_tile(s, sX + 2 * slot * kXFloats, wg, tid, (tile0 + i) * BK + 2 * t4, Sk,
+                 (tile0 + i + 1) * BK > Sk, c, m_run, l_run, pa, alpha);
+    rescale(acc, alpha);
+    // O += P V over this warpgroup's 256 columns, left in flight under the
+    // next tile's Q K^T.
+    mbar_wait(&my_v[slot], parity);
+    wgmma_fence();
+    const uint32_t va = v_addr(i);
+    wgmma_pv(acc, pa[0], desc(va, BK * 128, 1024));
+    wgmma_pv(acc, pa[1], desc(va + 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // The two halves of the keys meet. Warpgroup `rank` of each block
+  // finishes its columns with the other block's sums for them; the other
+  // warpgroup leaves its sums, row maxima and row sums in shared memory
+  // (over Q and K, which no product reads any more) for the other block.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  float4* dump = reinterpret_cast<float4*>(smem);
+  float4* stats = reinterpret_cast<float4*>(smem + kQBytes);
+  const bool finish = wg == rank;
+  if (!finish) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      dump[j * 128 + tid] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    stats[tid] = make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
+  }
+  cluster.sync();
+  if (finish) {
+    const float4* peer = cluster.map_shared_rank(dump, rank ^ 1);
+    const float4 ps = cluster.map_shared_rank(stats, rank ^ 1)[tid];
+    const float pm[2] = {ps.x, ps.y}, pl[2] = {ps.z, ps.w};
+    float a_own[2], a_peer[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // Rank 0's half holds at least one key, so m is finite.
+      const float m = fmaxf(m_run[r], pm[r]);
+      a_own[r] = ex2(m_run[r] - m);
+      a_peer[r] = ex2(pm[r] - m);
+      const float l = rank == 0 ? l_run[r] * a_own[r] + pl[r] * a_peer[r]
+                                : pl[r] * a_peer[r] + l_run[r] * a_own[r];
+      inv[r] = 1.0f / l;
+      const int row = q0 + 16 * warp + lane / 4 + 8 * r;
+      if (lse != nullptr && rank == 0 && t4 == 0 && row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = (m + log2f(l)) * kLn2;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float4 x = peer[j * 128 + tid];
+      const float px[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mine_part = acc[4 * j + e] * a_own[e / 2];
+        const float peer_part = px[e] * a_peer[e / 2];
+        acc[4 * j + e] = rank == 0 ? mine_part + peer_part : peer_part + mine_part;
+      }
+    }
+    float (&acc4)[32][4] = *reinterpret_cast<float(*)[32][4]>(acc);
+    store_acc(o, acc4, inv, b, h, H, Sq, D, q0 + 16 * warp, 256 * wg);
+  }
+  cluster.sync();  // the other block has read this one's shared memory
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry points, so the
+// library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The map of a (B, S, H, D) bf16 tensor in boxes of 64 columns x `rows` rows
+// of one head, 128-byte swizzled; outside the tensor a box reads zeros.
+cudaError_t encode_map(CUtensorMap* map, const bf16* x, int B, int S, int H, int D, int rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                              reinterpret_cast<void**>(&encode),
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
+                   int Sq, int Sk, int D, float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = encode_map(&tm_q, q, B, Sq, H, D, BM);
+  if (err == cudaSuccess) err = encode_map(&tm_k, k, B, Sk, H, D, BK);
+  if (err == cudaSuccess) err = encode_map(&tm_v, v, B, Sk, H, D, BK);
+  if (err == cudaSuccess) err = set_smem(flash_fwd_wide_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(2 * ((Sq + BM - 1) / BM), B * H);
+  flash_fwd_wide_kernel<<<grid, kThreads, kSmem, stream>>>(tm_q, tm_k, tm_v, o, lse, H, Sq, Sk, D,
+                                                           scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
+template <int DP, int RG, int BK>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
                        int H, int Sq, int Sk, int D, float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<DS, SLICES, RG, BK>();
-  auto kernel = flash_fwd_kernel<DS, SLICES, RG, BK>;
+  constexpr size_t smem = fwd_smem<DP, RG, BK>();
+  auto kernel = flash_fwd_kernel<DP, RG, BK>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + 16 * RG - 1) / (16 * RG), B * H);
-  kernel<<<grid, 32 * SLICES * RG, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, D, scale);
+  kernel<<<grid, 32 * RG, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, D, scale);
   return cudaGetLastError();
 }
 
@@ -409,6 +817,13 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, flo
 // faster than flash_fwd_kernel (PERF.md); ops/attention.py lists the same
 // widths.
 #define FA_FWD_ROWS128_DIMS(X) X(48, 1) X(80, 2)
+
+// The wide slices (a quarter of the padded head dim) that take
+// wide::flash_fwd_wide_kernel, built for four slices of 128 (512) only; it
+// replaced flash_fwd_kernel's four-slice instantiation, which read 3.3x
+// slower at the VAE's shape (PERF.md). ops/attention.py lists the same
+// widths.
+#define FA_FWD_WIDE_SLICES(X) X(128)
 
 // lse may be null (primal-only call). Returns a cudaError_t.
 extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const void* v, void* o,
@@ -427,7 +842,7 @@ extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const vo
   // FA_FWD_ROWS128_DIMS: 128-row blocks (their row maximum is taken on the
   // unscaled products, so a scale <= 0 goes to flash_fwd_kernel). Other
   // widths up to 160: one warp per 16 rows, 4 warps, 64-key tiles. Wider:
-  // the head dim in 4 slices, 2 row groups (8 warps, 32 rows), 32-key tiles.
+  // FA_FWD_WIDE_SLICES, the warpgroup design.
   if (scale > 0.0f) {
     switch (round_up(D, 16)) {
 #define FA_CASE(DP, MF) \
@@ -439,15 +854,15 @@ extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const vo
   }
   switch (round_up(D, 16)) {
 #define FA_CASE(DP) \
-  case DP: return launch_fwd<DP, 1, 4, 64>(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
+  case DP: return launch_fwd<DP, 4, 64>(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
     FA_NARROW_DIMS(FA_CASE)
 #undef FA_CASE
     default: break;
   }
   switch (round_up(D, 64) / 4) {
 #define FA_CASE(DS) \
-  case DS: return launch_fwd<DS, 4, 2, 32>(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
-    FA_WIDE_SLICES(FA_CASE)
+  case DS: return wide::launch(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
+    FA_FWD_WIDE_SLICES(FA_CASE)
 #undef FA_CASE
     default: return cudaErrorInvalidValue;
   }

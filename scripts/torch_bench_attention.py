@@ -4,8 +4,9 @@
                                              [--variant DIR[:DEFINE+DEFINE]]
 
 Needs one CUDA GPU and nvcc. Builds `ops/csrc/flash_attn_fwd.cu` only
-(seconds), prints what ptxas used (registers, spills, shared memory) and any
-C7513 / C7515 line (ptxas serializing wgmma), then at every forward
+(seconds), prints what ptxas used for each design (registers, spills, shared
+memory) and any C75xx line (ptxas serializing wgmma, or ignoring
+`setmaxnreg`), then at every forward
 attention shape of the SD-1.5 512 px path (UNet self-attention at 4096,
 1024, 256 and 64 tokens with head dims 40, 80, 160 at batch 2, the 77-token
 cross-attention at each width, all of them again at the batched
@@ -123,7 +124,7 @@ def print_ptxas(log: Path, tag: str) -> None:
             frame = line.strip()
         elif "ptxas info" in line and "Used" in line:
             print(f"[build] {tag} {entry}: {line.split(':', 1)[1].strip()}; {frame}")
-        elif re.search(r"C751[35]|arning|Performance", line):
+        elif re.search(r"C75\d\d|arning|Performance", line):
             print(f"[build] {tag} {line.strip()}")
 
 

@@ -214,3 +214,16 @@ def test_forward_dispatch_matches_the_cuda_source():
     assert all(8 % int(mf) == 0 for _, mf in cases)
     assert set(T.FWD_ROWS128_HEAD_DIMS) <= set(T.NARROW_HEAD_DIMS)
     assert "FA_FWD_ROWS128_DIMS(FA_CASE)" in src
+
+
+def test_forward_wide_dispatch_matches_the_cuda_source():
+    """The wide slices that take the forward's warpgroup design are those
+    the .cu dispatches to it, and each is a built wide slice."""
+    import re
+    from pathlib import Path
+
+    src = (Path(T.__file__).parent / "csrc" / "flash_attn_fwd.cu").read_text()
+    line = re.search(r"#define FA_FWD_WIDE_SLICES\(X\)(.*)", src).group(1)
+    assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) == T.FWD_WIDE_SLICE_DIMS
+    assert set(T.FWD_WIDE_SLICE_DIMS) == set(T.WIDE_SLICE_DIMS)  # the forward's only wide path
+    assert "FA_FWD_WIDE_SLICES(FA_CASE)" in src

@@ -13,7 +13,12 @@ Attention (K1-K3): ragged query and key lengths that are no multiple of any
 tile, a single row, and head dims padded inside the kernel to each built
 width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on both designs: narrow
 heads (padded width up to 160) with one warp per 16 rows, and wider heads
-cut into four slices, one warp each. The forward's 128-row design (padded
+cut into four slices, one warp each. The forward's warpgroup design for the
+wide heads (64-row blocks in pairs that split the keys, 32-key tiles) at
+the VAE's shapes, rows and keys that are no multiple of a block or a tile,
+fewer keys than one tile (the second block of a pair has none), several
+batches and heads, 456 padded to 512 (472 and 33 rows are cases of the
+first forward test), and a negative scale, one launch each. The forward's 128-row design (padded
 width 48: head dim 40, whose row sum comes from the PV product, and 48,
 which sums P itself; padded width 80, two row fragments a warp: 72 and 80)
 at query and key lengths that are no multiple of its 128-row block or its
@@ -142,6 +147,35 @@ def test_forward_and_lse_match_plain(gen, b, s_q, s_k, h, d):
     ],
 )
 def test_forward_rows128_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
+    q = _rand((b, s_q, h, d), gen)
+    k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
+    (out, lse), launched = _launched(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))
+    ref = A.attention_reference(q, k, v, scale)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    ref_lse = torch.logsumexp(logits, dim=-1).reshape(b * h, s_q)
+    assert launched == {"flash_attn_fwd": 1}
+    assert _rel(out, ref) <= FWD_TOL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    primal, launched = _launched(lambda: A.attention(q, k, v, scale))
+    assert launched == {"flash_attn_fwd": 1} and torch.equal(primal, out)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,d,scale",
+    [
+        (1, 4096, 4096, 1, 512, 512 ** -0.5),  # the VAE's mid-block attention
+        (1, 256, 256, 1, 512, 512 ** -0.5),    # the VAE at 16 x 16 latents
+        (1, 100, 130, 1, 512, 0.044),          # ragged rows and keys
+        (1, 64, 20, 1, 512, 0.044),            # fewer keys than one 32-key tile
+        (1, 10, 300, 1, 512, 0.044),           # fewer rows than one 64-row block
+        (1, 65, 1, 1, 512, 0.044),             # one key: the second block of the pair has none
+        (1, 70, 33, 1, 512, 0.044),            # two tiles, one a block, the second of one key
+        (2, 130, 77, 3, 512, 0.044),           # batches and heads, rows not whole blocks
+        (1, 80, 90, 2, 456, 0.047),            # the narrowest width the design takes
+        (1, 100, 300, 1, 512, -0.044),         # a negative scale
+    ],
+)
+def test_forward_wide_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
     q = _rand((b, s_q, h, d), gen)
     k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
     (out, lse), launched = _launched(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))
