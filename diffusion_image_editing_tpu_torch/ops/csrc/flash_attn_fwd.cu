@@ -64,7 +64,6 @@
 //   `setmaxnreg` notwithstanding, and serialized the products (C7512).
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 #include "flash_attn_common.cuh"
 
@@ -177,14 +176,6 @@ __global__ void __launch_bounds__(32 * RG)
       lse[static_cast<size_t>(bh) * Sq + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
   }
   store_acc(o, acc, inv, b, h, H, Sq, D, q0 + 16 * rg, 0);
-}
-
-// 2^x on the special-function unit; flushes subnormal results to 0 (a
-// probability below 2^-126 of the row maximum adds nothing in bf16 or f32).
-__device__ inline float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 constexpr int kRows128Rows = 128, kRows128Stages = 3;
@@ -424,41 +415,6 @@ constexpr int kTileBytes = BK * DP * 2;
 constexpr int kXFloats = BM * BK;   // one warpgroup's partial S
 constexpr size_t kSmem = kQBytes + 4 * kTileBytes + 4 * kXFloats * sizeof(float) + 9 * 8;
 
-// One box of a (B, S, H, D) tensor's map, columns [c, c + 64) of rows
-// [row, row + rows) of head (b, h), into shared memory at dst in the
-// 128-byte swizzle, by the tensor memory accelerator; `bar` counts its
-// bytes. Rows and columns outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, int c, int h,
-                                        int row, int b, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(h), "r"(row), "r"(b), "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void warpgroups_sync() {  // both warpgroups, not the cluster
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// Shared-memory matrix descriptor in the 128-byte swizzle (1024-byte atoms):
-// `lbo` and `sbo` in bytes. K-major (Q, K): sbo = 1024 between 8-row groups,
-// lbo unused; the k16 step kk starts 32 kk bytes into the atom's rows.
-// MN-major (V): lbo between 64-column atoms, sbo = 1024 between 8-key groups.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return ((addr >> 4) & 0x3fff) | (uint64_t((lbo >> 4) & 0x3fff) << 16) |
-         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(1) << 62);
-}
-
-#define FA_D8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
 // S[64 x 32] (+)= Q[64 x 16] K[32 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -470,35 +426,6 @@ __device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : FA_D8(0), FA_D8(8)
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O[64 x 256] += P[64 x 16] V[16 x 256]: P from registers (the m16n8k16 A
-// fragment of each warp's 16 rows), V MN-major in shared memory (trans-b).
-__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56),
-        FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88), FA_D8(96), FA_D8(104), FA_D8(112), FA_D8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // This warpgroup's half of S = Q K^T: 16 k16 steps over its 256 columns, Q
@@ -749,37 +676,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     store_acc(o, acc4, inv, b, h, H, Sq, D, q0 + 16 * warp, 256 * wg);
   }
   cluster.sync();  // the other block has read this one's shared memory
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry points, so the
-// library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The map of a (B, S, H, D) bf16 tensor in boxes of 64 columns x `rows` rows
-// of one head, 128-byte swizzled; outside the tensor a box reads zeros.
-cudaError_t encode_map(CUtensorMap* map, const bf16* x, int B, int S, int H, int D, int rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                              reinterpret_cast<void**>(&encode),
-                                              cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};  // bytes, dims 1-3
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
-                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,

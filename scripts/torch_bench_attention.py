@@ -1,6 +1,6 @@
-"""Build and time K1, the flash-attention forward kernel, alone.
+"""Build and time K1 (flash-attention forward) or, with `--bwd`, K3 (its dK/dV backward) alone.
 
-    python3 scripts/torch_bench_attention.py [--parent REV [--e2e]] [--only "self 64x64"]
+    python3 scripts/torch_bench_attention.py [--bwd] [--parent REV [--e2e]] [--only "self 64x64"]
                                              [--variant DIR[:DEFINE+DEFINE]]
 
 Needs one CUDA GPU and nvcc. Builds `ops/csrc/flash_attn_fwd.cu` only
@@ -34,6 +34,19 @@ the `+`-separated `-D` defines and times it beside the kernel at each
 shape, unchecked: for knock-out copies of the source (an exponential made
 an FMA, a product dropped), which compute something else by design.
 
+`--bwd` builds `flash_attn_bwd_dkv.cu` (K3) and `flash_attn_bwd_dq.cu`
+(K2) instead, and takes K1 from its own build for the forward's lse. At
+each backward shape (the VAE's 512-wide head at 4096 tokens, 40 launches
+a `[main]` run; the DDPM UNet's at 256 tokens; a ragged 512-wide shape
+whose query and key counts differ and fill no tile; the narrow
+`chip_smoke.BWD_CASES` shape at head dim 80) it holds K3 (and the
+parent's) against `attention_bwd_dkv_reference` on the same lse and delta
+within `chip_smoke.GRAD_TOL` (max |kernel - plain| / max |plain|, dK and
+dV each), checks that a second call is bit-equal, and prints K3's
+milliseconds beside the parent's, the operations bound (8 * Sq * Sk * D a
+head) and the SDPA backward (dQ, dK and dV). `--parent`, `--variant` and
+`--e2e` act on K3 as they do on K1.
+
 Prints the card's name and power limit first; exits non-zero if a shape
 disagrees.
 """
@@ -61,7 +74,7 @@ import chip_smoke  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import _build  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import attention as A  # noqa: E402
 
-KERNEL = "flash_attn_fwd"
+KERNEL = "flash_attn_fwd"  # the kernel under test: K3 with --bwd
 SMS, EXP_PER_CLOCK = 132, 16  # H100 SXM: SMs, and the special-function unit's ex2 an SM a clock
 # (label, q shape, kv shape, launches in one run of chip_smoke's [main]): a
 # UNet call runs 5 transformers at 64, 32 and 16 px and 1 at 8 px, each one
@@ -74,10 +87,17 @@ for _b, _calls in ((2, 40), (20, 4)):
         SHAPES.append((f"self {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, _s, 8, _d), _calls * _n))
         SHAPES.append((f"cross {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, 77, 8, _d), _calls * _n))
 SHAPES.append(("vae mid 64x64 b1", (1, 4096, 1, 512), (1, 4096, 1, 512), 42))
+# K3's shapes: (label, q shape, kv shape, launches in one run of [main]).
+BWD_SHAPES = [
+    ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512), 40),
+    ("ddpm 16x16", (1, 256, 1, 512), (1, 256, 1, 512), 0),
+    ("ragged 512", (1, 1000, 2, 512), (1, 777, 2, 512), 0),
+    ("unet self 32x32", (2, 1024, 8, 80), (2, 1024, 8, 80), 0),
+]
 
 
 def parent_sources(rev: str) -> Path:
-    """`flash_attn_fwd.cu` and the headers of git revision `rev`, unpacked
+    """`KERNEL`'s source and the headers of git revision `rev`, unpacked
     into the build directory (or found there, outside a git checkout)."""
     dst = _build.BUILD_DIR / f"parent-{rev}"
     csrc = _build.CSRC.relative_to(ROOT).as_posix()
@@ -96,8 +116,8 @@ def parent_sources(rev: str) -> Path:
 
 
 def build_library(src_dir: Path, defines=()):
-    """nvcc `src_dir/flash_attn_fwd.cu` with the port's flags (and `-D`
-    defines) into `src_dir`, print ptxas's report, and load it."""
+    """nvcc `src_dir/KERNEL.cu` with the port's flags (and `-D` defines)
+    into `src_dir`, print ptxas's report, and load it."""
     tag = "".join(f"-{d}" for d in defines)
     out = src_dir / f"lib{KERNEL}{tag}.so"
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
@@ -180,9 +200,96 @@ def check(out, lse, ref, ref_lse):
     return err, lse_err, ok
 
 
+def call_dkv(fn, q, k, v, dout, lse, delta, scale):
+    """One launch of a built K3 library on q's device and current stream."""
+    b, s_q, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q,
+            k.shape[1], d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch failed: cudaError_t {rc}")
+    return dk, dv
+
+
+def bwd_shapes(opts, parent, variants, smi) -> list:
+    """K3 (and the parent's) at every BWD_SHAPES shape; returns the labels
+    that failed their check."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failed, total = [], {"kernel": 0.0, "parent": 0.0}
+    for label, qs, ks, launches in BWD_SHAPES:
+        if opts.only not in label:
+            continue
+        q, dout = chip_smoke._randn(qs, gen, dev), chip_smoke._randn(qs, gen, dev)
+        k, v = chip_smoke._randn(ks, gen, dev), chip_smoke._randn(ks, gen, dev)
+        scale = qs[3] ** -0.5
+        with torch.no_grad():
+            out, lse = A.flash_attn_fwd(q, k, v, scale, with_lse=True)
+            delta = A.attention_delta(dout, out)
+            args = (q, k, v, dout, lse, delta, scale)
+            want = A.attention_bwd_dkv_reference(*args)
+
+            def rel_errs(got):
+                return [_rel(g, w) for g, w in zip(got, want)]
+
+            got = A.flash_attn_bwd_dkv(*args)
+            errs = rel_errs(got)
+            same = all(torch.equal(a, b) for a, b in zip(got, A.flash_attn_bwd_dkv(*args)))
+            ok = same and all(e <= chip_smoke.GRAD_TOL and math.isfinite(e) for e in errs)
+            line = (f"[bwd] {label} q{qs} kv{ks}: rel err dk {errs[0]:.3e} dv {errs[1]:.3e} "
+                    f"(tol {chip_smoke.GRAD_TOL}), rerun bit-equal {same} "
+                    f"{'ok' if ok else 'FAIL'}")
+            if parent is not None:
+                p_errs = rel_errs(call_dkv(parent, *args))
+                line += f" (parent dk {p_errs[0]:.3e} dv {p_errs[1]:.3e})"
+                ok = ok and all(e <= chip_smoke.GRAD_TOL for e in p_errs)
+            del want, got
+            kernel = lambda: A.flash_attn_bwd_dkv(*args)  # noqa: E731
+            if parent is not None:
+                par = lambda: call_dkv(parent, *args)  # noqa: E731
+                p_ms = [chip_smoke.time_ms(par)]
+                ms = [chip_smoke.time_ms(kernel), chip_smoke.time_ms(kernel)]
+                p_ms.append(chip_smoke.time_ms(par))
+                ms, p_ms = sum(ms) / 2, sum(p_ms) / 2
+            else:
+                ms, p_ms = chip_smoke.time_ms(kernel), None
+            v_ms = {spec: chip_smoke.time_ms(lambda: call_dkv(fn, *args))
+                    for spec, fn in variants.items()}
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves),
+                                                 scale=scale)
+        lib_dout = dout.transpose(1, 2)
+        sdpa_ms = chip_smoke.time_ms(
+            lambda: torch.autograd.grad(lib_out, leaves, lib_dout, retain_graph=True))
+        b, s_q, h, d = qs
+        b_ops = 8.0 * b * h * s_q * ks[1] * d / chip_smoke.PEAK_BF16_FLOPS * 1e3
+        line += (f" | kernel {ms:.4f} ms"
+                 + (f", parent {p_ms:.4f} ms (x{p_ms / ms:.2f})" if p_ms else "")
+                 + f", sdpa backward (dq+dk+dv) {sdpa_ms:.4f} ms; bound ops {b_ops:.4f} ms; "
+                 f"{launches} launches a run")
+        print(line, flush=True)
+        for spec, t in v_ms.items():
+            print(f"[variant] {label} {spec}: {t:.4f} ms (kernel {ms:.4f})", flush=True)
+        total["kernel"] += launches * ms
+        total["parent"] += launches * (p_ms or 0.0)
+        if not ok:
+            failed.append(label)
+        del q, k, v, dout, out, lse, delta, args, leaves, lib_out
+        torch.cuda.empty_cache()
+    print(f"[path] launch-weighted K3 device time of one [main] run: kernel "
+          f"{total['kernel']:.2f} ms" + (f", parent {total['parent']:.2f} ms" if parent else "")
+          + f"; on {smi}")
+    return failed
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
 def e2e(parent, smi) -> None:
-    """chip_smoke's [main] path with the parent's K1 and with this one, in
-    turns (parent, kernel, kernel, parent) after a warm-up of each."""
+    """chip_smoke's [main] path with the parent's kernel and with this one,
+    in turns (parent, kernel, kernel, parent) after a warm-up of each."""
     unet, vae = chip_smoke.build_models(torch.device("cuda"))
     _, pipe, img = chip_smoke.make_pipeline(unet, vae, torch.device("cuda"))
     kernel = _build.load(KERNEL, A._ARGTYPES[KERNEL])
@@ -200,6 +307,8 @@ def e2e(parent, smi) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--bwd", action="store_true",
+                        help="K3 (the backward for dK and dV) in place of K1")
     parser.add_argument("--parent", help="also build and time the kernel of this git revision")
     parser.add_argument("--e2e", action="store_true",
                         help="then time chip_smoke's [main] path with either kernel")
@@ -209,6 +318,9 @@ def main() -> int:
     opts = parser.parse_args()
     if opts.e2e and not opts.parent:
         parser.error("--e2e needs --parent")
+    global KERNEL
+    if opts.bwd:
+        KERNEL = "flash_attn_bwd_dkv"
     parent_dir = parent_sources(opts.parent) if opts.parent else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -219,8 +331,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build([KERNEL])
-    print(f"[build] {KERNEL} in {time.perf_counter() - t0:.1f} s")
+    built = [KERNEL, "flash_attn_fwd", "flash_attn_bwd_dq"] if opts.bwd else [KERNEL]
+    _build.build(built)
+    print(f"[build] {', '.join(built)} in {time.perf_counter() - t0:.1f} s")
     print_ptxas(_build.library_path(KERNEL).with_suffix(".log"), "kernel")
     parent = build_library(parent_dir) if parent_dir else None
     variants = {}
@@ -228,6 +341,15 @@ def main() -> int:
         src, _, defines = spec.partition(":")
         defines = defines.split("+") if defines else []
         variants[spec] = build_library((ROOT / src).resolve(), defines)
+
+    if opts.bwd:
+        failed = bwd_shapes(opts, parent, variants, smi)
+        if opts.e2e:
+            e2e(parent, smi)
+        if failed:
+            print(f"[FAIL] {failed}")
+            return 1
+        return 0
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
