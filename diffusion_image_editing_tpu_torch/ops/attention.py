@@ -31,12 +31,17 @@ Kernels (`csrc/`, built by `ops._build`, bf16 in, f32 accumulation):
   forward's tiling. P is rebuilt from the forward's log-sum-exp, so nothing
   of size S^2 is stored; P and dS feed the next products from registers;
   each block owns its dQ (K2) or dK/dV (K3) rows, so the sums need no
-  atomics and are deterministic. K3's wide slices of
-  `BWD_DKV_WIDE_SLICE_DIMS` (the VAE's 512) take warpgroups: a cluster of
-  two blocks owns 64 keys, one block dV and the other dK of all 512
-  columns; the first computes S^T (wgmma) and sends it to the second,
-  which computes dP^T, once a 32-query tile, and Q/dO tiles arrive by
-  TMA.
+  atomics and are deterministic. K2's wide slices of
+  `BWD_DQ_WIDE_SLICE_DIMS` (the VAE's 512) take warpgroups: a block owns
+  64 query rows and two warpgroups 256 of the 512 columns of dQ each (Q
+  held in registers); their shares of S and dP (wgmma) are added through
+  shared memory once a 32-key tile, dO/K/V arrive by TMA, and the keys are
+  split over a cluster of two blocks that add their dQ partials at the
+  end. K3's wide slices of `BWD_DKV_WIDE_SLICE_DIMS` take warpgroups too:
+  a cluster of two blocks owns 64 keys, one block dV and the other dK of
+  all 512 columns; the first computes S^T (wgmma) and sends it to the
+  second, which computes dP^T, once a 32-query tile, and Q/dO tiles
+  arrive by TMA.
 
 The plain versions are `attention_reference` (K1; its torch autograd is the
 whole backward) and `attention_bwd_dq_reference` / `attention_bwd_dkv_reference`
@@ -137,6 +142,10 @@ FWD_WIDE_SLICE_DIMS = (128,)
 # (FA_BWD_DKV_WIDE_SLICES in csrc/flash_attn_bwd_dkv.cu): every wide slice
 # built, since it replaced the four-warp slices there.
 BWD_DKV_WIDE_SLICE_DIMS = (128,)
+# The wide slices whose dQ backward takes the warpgroup design
+# (FA_BWD_DQ_WIDE_SLICES in csrc/flash_attn_bwd_dq.cu): every wide slice
+# built, since it replaced the four-warp slices there.
+BWD_DQ_WIDE_SLICE_DIMS = (128,)
 
 
 def kernel_takes_head_dim(d: int) -> bool:

@@ -172,39 +172,6 @@ constexpr size_t kSmem = kFullBytes + 2 * kStages * kTileBytes
                          + kStages * 2 * 2 * kStatStride * sizeof(float)  // lse and delta
                          + (2 + 2 * 2 * kStages + 2 + 2) * 8;   // mbarriers
 
-// C[64 x 32] (+)= A[64 x 16] B[32 x 16]^T: A from registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : FA_D8(0), FA_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// This warp's A fragments of a [4][64 rows][64] tile of 64-column boxes in
-// the 128-byte swizzle at `tile`, one k16 step kk of its 256 columns each:
-// ldmatrix matrices (rows 0-7, 8-15) x (columns 0-7, 8-15) of the step are
-// the fragment's four registers. Within a box, 16-byte chunk c of row r
-// lies at r * 128 + (c ^ r % 8) * 16.
-__device__ __forceinline__ void load_fragments(uint32_t (&a)[16][4], uint32_t tile, int warp,
-                                               int lane) {
-  const int row = 16 * warp + lane % 8 + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 16; ++kk) {
-    const int chunk = 2 * (kk % 4) + lane / 16;
-    const uint32_t addr = tile + (kk / 4) * BK * 128 + row * 128 + ((chunk ^ (row % 8)) << 4);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
-                 : "r"(addr));
-  }
-}
-
 // The shared::cluster address of `local` (an address in this block's
 // shared memory) in block `rank` of the cluster.
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t local, uint32_t rank) {
@@ -386,7 +353,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   mbar_wait(&full_a[wg], 0);
 
   uint32_t afr[16][4];  // this warp's rows of K (rank 0) or V (rank 1), as A fragments
-  load_fragments(afr, a_wg, warp, tid % 32);
+  load_fragments<BK>(afr, a_wg, warp, tid % 32);
 
   for (int i = 0; i < n_tiles; ++i) {
     // This block's product over this warpgroup's 256 columns: S^T = K Q^T

@@ -4,21 +4,14 @@
 // layout of `ops.attention.attention`, read in place (no head split copy).
 // Row statistics (lse, delta) are (B*H, S) f32.
 //
-// The narrow designs of all three kernels and K2's wide one share one shape
-// of work (the 512-wide designs of K1 and K3 use warpgroups, wgmma and TMA
-// instead, from the helpers at the end of this file). A block owns 16 * RG rows (of
-// queries, or of keys for dK/dV) of one (batch, head) and walks the other
-// sequence in tiles held in shared memory, double-buffered by cp.async. Its
-// warps form RG row groups of SLICES warps; each warp of a row group owns 16
-// rows and one DS-wide slice of the head dim, and keeps that slice of its
-// output accumulator in registers (mma.sync m16n8k16, bf16 in, f32 out):
-//   * SLICES = 1 for padded head dims up to 160 (the UNet's 40/80/160): a
-//     warp owns whole rows;
-//   * SLICES = 4 for wider heads (the VAE's 512): a 16 x 512 f32 accumulator
-//     would not fit one warp's registers, so the head dim is cut in four. A
-//     product over the head dim (Q K^T, dO V^T) is then split-K: each warp
-//     adds its slice's share, the shares meet in shared memory, and every
-//     warp of the row group reads back the same total.
+// The narrow designs of all three kernels share one shape of work (the
+// 512-wide designs use warpgroups, wgmma and TMA instead, from the helpers
+// at the end of this file). A block owns 16 * RG rows (of queries, or of
+// keys for dK/dV) of one (batch, head) and walks the other sequence in
+// tiles held in shared memory, double-buffered by cp.async. Each warp owns
+// 16 whole rows of the padded head dim (up to 160: the UNet's 40/80/160)
+// and keeps its output accumulator in registers (mma.sync m16n8k16, bf16
+// in, f32 out).
 // The head dim is zero-padded in shared memory (exact: a zero column adds 0
 // to each product and gives a zero output column); ragged sequence ends are
 // zero-filled on load and masked where they would count.
@@ -174,39 +167,6 @@ __device__ inline void warp_mma_pb(float (&acc)[NT][4], const float (&p)[2 * KS]
   }
 }
 
-// Split-K over the head dim, in two halves around a __syncthreads: each warp
-// stores its partial 16 x 8NT tile, then every warp of the row group loads
-// the sum of the PARTS partials, in the same order, so all hold one total.
-template <int NT>
-__device__ inline void store_partial(float* red, int ldr, const float (&c)[NT][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    *reinterpret_cast<float2*>(red + g * ldr + n * 8 + 2 * t) = make_float2(c[n][0], c[n][1]);
-    *reinterpret_cast<float2*>(red + (g + 8) * ldr + n * 8 + 2 * t) =
-        make_float2(c[n][2], c[n][3]);
-  }
-}
-
-template <int NT, int PARTS>
-__device__ inline void load_total(float (&c)[NT][4], const float* red, int ldr) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  zero(c);
-#pragma unroll
-  for (int part = 0; part < PARTS; ++part) {
-    const float* base = red + part * 16 * ldr;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float2 lo = *reinterpret_cast<const float2*>(base + g * ldr + n * 8 + 2 * t);
-      const float2 hi = *reinterpret_cast<const float2*>(base + (g + 8) * ldr + n * 8 + 2 * t);
-      c[n][0] += lo.x;
-      c[n][1] += lo.y;
-      c[n][2] += hi.x;
-      c[n][3] += hi.y;
-    }
-  }
-}
-
 // One warp's accumulator (rows row0 + [0, 16), columns col0 + [0, 8 NT)) times
 // `mul` (per row half: rows g and g + 8), rounded to bf16, into head (b, h)
 // of a (B, S, H, D) tensor; rows >= S and columns >= D are dropped.
@@ -230,7 +190,7 @@ __device__ inline void store_acc(bf16* dst, const float (&c)[NT][4], const float
 }
 
 // --- wgmma and mbarrier (sm_90a), for the kernels that use them (the
-// forward's wide design, K7).
+// wide designs of K1-K3).
 
 __device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ inline void wgmma_commit() {
@@ -286,9 +246,9 @@ __device__ inline float ex2(float x) {
   return y;
 }
 
-// --- For the 512-wide designs of K1 (flash_attn_fwd.cu) and K3
-// (flash_attn_bwd_dkv.cu): tensor maps, TMA boxes, wgmma from shared
-// memory.
+// --- For the 512-wide designs of K1 (flash_attn_fwd.cu), K2
+// (flash_attn_bwd_dq.cu) and K3 (flash_attn_bwd_dkv.cu): tensor maps, TMA
+// boxes, wgmma from shared memory and from registers.
 
 // One box of a (B, S, H, D) tensor's map, columns [c, c + 64) of rows
 // [row, row + rows) of head (b, h), into shared memory at dst in the
@@ -334,6 +294,55 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 #define FA_D8(i)                                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// C[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, both K-major in shared memory
+// (K1: S = Q K^T; K2: dP = dO V^T).
+__device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C[64 x 32] (+)= A[64 x 16] B[32 x 16]^T: A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B K-major in shared memory (K2: S = Q
+// K^T; K3: S^T = K Q^T, dP^T = V dO^T).
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : FA_D8(0), FA_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// This warp's A fragments of a [4][ROWS][64] tile of 64-column boxes in the
+// 128-byte swizzle at `tile` (ROWS = 64, one wgmma M), one k16 step kk of
+// its 256 columns each: ldmatrix matrices (rows 0-7, 8-15) x (columns 0-7,
+// 8-15) of the step are the fragment's four registers. Within a box,
+// 16-byte chunk c of row r lies at r * 128 + (c ^ r % 8) * 16.
+template <int ROWS>
+__device__ __forceinline__ void load_fragments(uint32_t (&a)[16][4], uint32_t tile, int warp,
+                                               int lane) {
+  const int row = 16 * warp + lane % 8 + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int chunk = 2 * (kk % 4) + lane / 16;
+    const uint32_t addr = tile + (kk / 4) * ROWS * 128 + row * 128 + ((chunk ^ (row % 8)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+                 : "r"(addr));
+  }
+}
 
 // C[64 x 256] += A[64 x 16] B[16 x 256]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B MN-major in shared memory (trans-b)

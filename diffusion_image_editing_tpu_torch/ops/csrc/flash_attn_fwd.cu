@@ -415,19 +415,6 @@ constexpr int kTileBytes = BK * DP * 2;
 constexpr int kXFloats = BM * BK;   // one warpgroup's partial S
 constexpr size_t kSmem = kQBytes + 4 * kTileBytes + 4 * kXFloats * sizeof(float) + 9 * 8;
 
-// S[64 x 32] (+)= Q[64 x 16] K[32 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : FA_D8(0), FA_D8(8)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // This warpgroup's half of S = Q K^T: 16 k16 steps over its 256 columns, Q
 // and K K-major at q_wg and k_wg. The first step overwrites S.
 __device__ __forceinline__ void qk_product(float (&s)[16], uint32_t q_wg, uint32_t k_wg) {

@@ -1,7 +1,7 @@
-"""Build and time K1 (flash-attention forward) or, with `--bwd`, K3 (its dK/dV backward) alone.
+"""Build and time K1 (flash-attention forward), or K3 (`--bwd`) or K2 (`--dq`) of the backward.
 
-    python3 scripts/torch_bench_attention.py [--bwd] [--parent REV [--e2e]] [--only "self 64x64"]
-                                             [--variant DIR[:DEFINE+DEFINE]]
+    python3 scripts/torch_bench_attention.py [--bwd | --dq] [--parent REV [--e2e]]
+                                             [--only "self 64x64"] [--variant DIR[:DEFINE+DEFINE]]
 
 Needs one CUDA GPU and nvcc. Builds `ops/csrc/flash_attn_fwd.cu` only
 (seconds), prints what ptxas used for each design (registers, spills, shared
@@ -47,6 +47,13 @@ milliseconds beside the parent's, the operations bound (8 * Sq * Sk * D a
 head) and the SDPA backward (dQ, dK and dV). `--parent`, `--variant` and
 `--e2e` act on K3 as they do on K1.
 
+`--dq` does the same for K2 (`flash_attn_bwd_dq.cu`): it builds K2 and K1
+(and K3, for `--e2e`), holds K2 (and the parent's) against
+`attention_bwd_dq_reference` at the same four shapes, checks that a second
+call is bit-equal, and prints K2's milliseconds beside the parent's, the
+operations bound (6 * Sq * Sk * D a head) and the SDPA backward.
+`--parent`, `--variant` and `--e2e` act on K2.
+
 Prints the card's name and power limit first; exits non-zero if a shape
 disagrees.
 """
@@ -74,7 +81,7 @@ import chip_smoke  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import _build  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import attention as A  # noqa: E402
 
-KERNEL = "flash_attn_fwd"  # the kernel under test: K3 with --bwd
+KERNEL = "flash_attn_fwd"  # the kernel under test: K3 with --bwd, K2 with --dq
 SMS, EXP_PER_CLOCK = 132, 16  # H100 SXM: SMs, and the special-function unit's ex2 an SM a clock
 # (label, q shape, kv shape, launches in one run of chip_smoke's [main]): a
 # UNet call runs 5 transformers at 64, 32 and 16 px and 1 at 8 px, each one
@@ -87,7 +94,7 @@ for _b, _calls in ((2, 40), (20, 4)):
         SHAPES.append((f"self {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, _s, 8, _d), _calls * _n))
         SHAPES.append((f"cross {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, 77, 8, _d), _calls * _n))
 SHAPES.append(("vae mid 64x64 b1", (1, 4096, 1, 512), (1, 4096, 1, 512), 42))
-# K3's shapes: (label, q shape, kv shape, launches in one run of [main]).
+# K2's and K3's shapes: (label, q shape, kv shape, launches in one run of [main]).
 BWD_SHAPES = [
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512), 40),
     ("ddpm 16x16", (1, 256, 1, 512), (1, 256, 1, 512), 0),
@@ -200,21 +207,38 @@ def check(out, lse, ref, ref_lse):
     return err, lse_err, ok
 
 
-def call_dkv(fn, q, k, v, dout, lse, delta, scale):
-    """One launch of a built K3 library on q's device and current stream."""
+# The backward kernels: (name, tag of the output lines, wrapper, plain
+# version, operations a head in units of Sq * Sk * D, names of the outputs).
+BWD_KERNELS = {
+    "flash_attn_bwd_dkv": ("K3", "[bwd]", A.flash_attn_bwd_dkv, A.attention_bwd_dkv_reference,
+                           8, ("dk", "dv")),
+    "flash_attn_bwd_dq": ("K2", "[dq]", A.flash_attn_bwd_dq, A.attention_bwd_dq_reference, 6,
+                          ("dq",)),
+}
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def call_bwd(fn, q, k, v, dout, lse, delta, scale):
+    """One launch of a built K2 or K3 library on q's device and current
+    stream; returns its outputs as a tuple."""
     b, s_q, h, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    outs = ((torch.empty_like(q),) if KERNEL == "flash_attn_bwd_dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
     rc = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q,
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs), b, h, s_q,
             k.shape[1], d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError_t {rc}")
-    return dk, dv
+    return outs
 
 
 def bwd_shapes(opts, parent, variants, smi) -> list:
-    """K3 (and the parent's) at every BWD_SHAPES shape; returns the labels
-    that failed their check."""
+    """K2 or K3 (and the parent's) at every BWD_SHAPES shape; returns the
+    labels that failed their check."""
+    name, tag, wrapper, plain, ops_factor, out_names = BWD_KERNELS[KERNEL]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failed, total = [], {"kernel": 0.0, "parent": 0.0}
@@ -228,33 +252,37 @@ def bwd_shapes(opts, parent, variants, smi) -> list:
             out, lse = A.flash_attn_fwd(q, k, v, scale, with_lse=True)
             delta = A.attention_delta(dout, out)
             args = (q, k, v, dout, lse, delta, scale)
-            want = A.attention_bwd_dkv_reference(*args)
+            want = _as_tuple(plain(*args))
 
             def rel_errs(got):
-                return [_rel(g, w) for g, w in zip(got, want)]
+                return " ".join(f"{n} {_rel(g, w):.3e}" for n, g, w in zip(out_names, got, want))
 
-            got = A.flash_attn_bwd_dkv(*args)
-            errs = rel_errs(got)
-            same = all(torch.equal(a, b) for a, b in zip(got, A.flash_attn_bwd_dkv(*args)))
-            ok = same and all(e <= chip_smoke.GRAD_TOL and math.isfinite(e) for e in errs)
-            line = (f"[bwd] {label} q{qs} kv{ks}: rel err dk {errs[0]:.3e} dv {errs[1]:.3e} "
+            def within(got):
+                errs = [_rel(g, w) for g, w in zip(got, want)]
+                return all(e <= chip_smoke.GRAD_TOL and math.isfinite(e) for e in errs)
+
+            got = _as_tuple(wrapper(*args))
+            same = all(torch.equal(a, b) for a, b in zip(got, _as_tuple(wrapper(*args))))
+            ok = same and within(got)
+            line = (f"{tag} {label} q{qs} kv{ks}: rel err {rel_errs(got)} "
                     f"(tol {chip_smoke.GRAD_TOL}), rerun bit-equal {same} "
                     f"{'ok' if ok else 'FAIL'}")
             if parent is not None:
-                p_errs = rel_errs(call_dkv(parent, *args))
-                line += f" (parent dk {p_errs[0]:.3e} dv {p_errs[1]:.3e})"
-                ok = ok and all(e <= chip_smoke.GRAD_TOL for e in p_errs)
+                p_got = call_bwd(parent, *args)
+                line += f" (parent {rel_errs(p_got)})"
+                ok = ok and within(p_got)
+                del p_got
             del want, got
-            kernel = lambda: A.flash_attn_bwd_dkv(*args)  # noqa: E731
+            kernel = lambda: wrapper(*args)  # noqa: E731
             if parent is not None:
-                par = lambda: call_dkv(parent, *args)  # noqa: E731
+                par = lambda: call_bwd(parent, *args)  # noqa: E731
                 p_ms = [chip_smoke.time_ms(par)]
                 ms = [chip_smoke.time_ms(kernel), chip_smoke.time_ms(kernel)]
                 p_ms.append(chip_smoke.time_ms(par))
                 ms, p_ms = sum(ms) / 2, sum(p_ms) / 2
             else:
                 ms, p_ms = chip_smoke.time_ms(kernel), None
-            v_ms = {spec: chip_smoke.time_ms(lambda: call_dkv(fn, *args))
+            v_ms = {spec: chip_smoke.time_ms(lambda: call_bwd(fn, *args))
                     for spec, fn in variants.items()}
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves),
@@ -263,7 +291,7 @@ def bwd_shapes(opts, parent, variants, smi) -> list:
         sdpa_ms = chip_smoke.time_ms(
             lambda: torch.autograd.grad(lib_out, leaves, lib_dout, retain_graph=True))
         b, s_q, h, d = qs
-        b_ops = 8.0 * b * h * s_q * ks[1] * d / chip_smoke.PEAK_BF16_FLOPS * 1e3
+        b_ops = ops_factor * b * h * s_q * ks[1] * d / chip_smoke.PEAK_BF16_FLOPS * 1e3
         line += (f" | kernel {ms:.4f} ms"
                  + (f", parent {p_ms:.4f} ms (x{p_ms / ms:.2f})" if p_ms else "")
                  + f", sdpa backward (dq+dk+dv) {sdpa_ms:.4f} ms; bound ops {b_ops:.4f} ms; "
@@ -277,7 +305,7 @@ def bwd_shapes(opts, parent, variants, smi) -> list:
             failed.append(label)
         del q, k, v, dout, out, lse, delta, args, leaves, lib_out
         torch.cuda.empty_cache()
-    print(f"[path] launch-weighted K3 device time of one [main] run: kernel "
+    print(f"[path] launch-weighted {name} device time of one [main] run: kernel "
           f"{total['kernel']:.2f} ms" + (f", parent {total['parent']:.2f} ms" if parent else "")
           + f"; on {smi}")
     return failed
@@ -307,20 +335,25 @@ def e2e(parent, smi) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--bwd", action="store_true",
-                        help="K3 (the backward for dK and dV) in place of K1")
+    kind = parser.add_mutually_exclusive_group()
+    kind.add_argument("--bwd", action="store_true",
+                      help="K3 (the backward for dK and dV) in place of K1")
+    kind.add_argument("--dq", action="store_true",
+                      help="K2 (the backward for dQ) in place of K1")
     parser.add_argument("--parent", help="also build and time the kernel of this git revision")
     parser.add_argument("--e2e", action="store_true",
                         help="then time chip_smoke's [main] path with either kernel")
     parser.add_argument("--only", default="", help="time only the shapes whose label holds this")
     parser.add_argument("--variant", action="append", default=[],
-                        help="DIR[:DEFINE+DEFINE]: also time this unchecked build of K1")
+                        help="DIR[:DEFINE+DEFINE]: also time this unchecked build of the kernel")
     opts = parser.parse_args()
     if opts.e2e and not opts.parent:
         parser.error("--e2e needs --parent")
     global KERNEL
     if opts.bwd:
         KERNEL = "flash_attn_bwd_dkv"
+    elif opts.dq:
+        KERNEL = "flash_attn_bwd_dq"
     parent_dir = parent_sources(opts.parent) if opts.parent else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -331,7 +364,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = [KERNEL, "flash_attn_fwd", "flash_attn_bwd_dq"] if opts.bwd else [KERNEL]
+    built = ([KERNEL] + [n for n in ("flash_attn_fwd", *BWD_KERNELS) if n != KERNEL]
+             if opts.bwd or opts.dq else [KERNEL])
     _build.build(built)
     print(f"[build] {', '.join(built)} in {time.perf_counter() - t0:.1f} s")
     print_ptxas(_build.library_path(KERNEL).with_suffix(".log"), "kernel")
@@ -342,7 +376,7 @@ def main() -> int:
         defines = defines.split("+") if defines else []
         variants[spec] = build_library((ROOT / src).resolve(), defines)
 
-    if opts.bwd:
+    if opts.bwd or opts.dq:
         failed = bwd_shapes(opts, parent, variants, smi)
         if opts.e2e:
             e2e(parent, smi)

@@ -240,3 +240,16 @@ def test_bwd_dkv_wide_dispatch_matches_the_cuda_source():
     assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) == T.BWD_DKV_WIDE_SLICE_DIMS
     assert set(T.BWD_DKV_WIDE_SLICE_DIMS) == set(T.WIDE_SLICE_DIMS)  # K3's only wide path
     assert "FA_BWD_DKV_WIDE_SLICES(FA_CASE)" in src
+
+
+def test_bwd_dq_wide_dispatch_matches_the_cuda_source():
+    """The wide slices that take K2's warpgroup design are those the .cu
+    dispatches to it, and each is a built wide slice."""
+    import re
+    from pathlib import Path
+
+    src = (Path(T.__file__).parent / "csrc" / "flash_attn_bwd_dq.cu").read_text()
+    line = re.search(r"#define FA_BWD_DQ_WIDE_SLICES\(X\)(.*)", src).group(1)
+    assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) == T.BWD_DQ_WIDE_SLICE_DIMS
+    assert set(T.BWD_DQ_WIDE_SLICE_DIMS) == set(T.WIDE_SLICE_DIMS)  # K2's only wide path
+    assert "FA_BWD_DQ_WIDE_SLICES(FA_CASE)" in src

@@ -12,8 +12,8 @@ cases add what the path does not reach.
 Attention (K1-K3): ragged query and key lengths that are no multiple of any
 tile, a single row, and head dims padded inside the kernel to each built
 width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on both designs: narrow
-heads (padded width up to 160) with one warp per 16 rows, and wider heads
-cut into four slices, one warp each. The forward's warpgroup design for the
+heads (padded width up to 160) with one warp per 16 rows, and the wide
+heads' warpgroup designs. The forward's warpgroup design for the
 wide heads (64-row blocks in pairs that split the keys, 32-key tiles) at
 the VAE's shapes, rows and keys that are no multiple of a block or a tile,
 fewer keys than one tile (the second block of a pair has none), several
@@ -23,7 +23,10 @@ design for the wide heads (clusters of two blocks, one holding dV and the
 other dK, 32-query tiles) at the VAE's and the DDPM's shapes, query and key
 counts that fill no tile (Sq != Sk), one query tile, several batches and
 heads with an odd tile count, and 472 padded to 512, each within the
-gradient tolerance and bit-equal on a second call. The forward's 128-row design (padded
+gradient tolerance and bit-equal on a second call; K2's warpgroup design
+for the wide heads (64-row blocks in clusters of two that split the keys,
+32-key tiles) at the same five shapes and with fewer keys than one tile,
+the same way. The forward's 128-row design (padded
 width 48: head dim 40, whose row sum comes from the PV product, and 48,
 which sums P itself; padded width 80, two row fragments a warp: 72 and 80)
 at query and key lengths that are no multiple of its 128-row block or its
@@ -236,6 +239,30 @@ def test_bwd_dkv_wide_design_matches_plain_and_reruns_bit_equal(gen, b, s_q, s_k
         assert g.dtype == torch.bfloat16 and _rel(g, w) <= GRAD_TOL
     again = A.flash_attn_bwd_dkv(*args)
     assert all(torch.equal(g, a) for g, a in zip(got, again))  # deterministic: no atomics
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,d",
+    [
+        (1, 4096, 4096, 1, 512),  # the VAE's mid-block attention
+        (1, 256, 256, 1, 512),    # the DDPM UNet's 16 x 16 attention
+        (1, 1000, 777, 2, 512),   # queries and keys that fill no tile, Sq != Sk
+        (1, 20, 70, 1, 512),      # one query block, three key tiles, the last of 6 keys
+        (3, 70, 64, 2, 472),      # batches and heads, two query blocks, 472 padded to 512
+        (1, 33, 20, 1, 512),      # fewer keys than one tile: the second block of a pair has none
+    ],
+)
+def test_bwd_dq_wide_design_matches_plain_and_reruns_bit_equal(gen, b, s_q, s_k, h, d):
+    q, dout = _rand((b, s_q, h, d), gen), _rand((b, s_q, h, d), gen)
+    k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
+    scale = d ** -0.5
+    out, lse = A.flash_attn_fwd(q, k, v, scale, with_lse=True)
+    args = (q, k, v, dout, lse, A.attention_delta(dout, out), scale)
+    got, launched = _launched(lambda: A.flash_attn_bwd_dq(*args))
+    want = A.attention_bwd_dq_reference(*args)
+    assert launched == {"flash_attn_bwd_dq": 1}
+    assert got.dtype == torch.bfloat16 and _rel(got, want) <= GRAD_TOL
+    assert torch.equal(got, A.flash_attn_bwd_dq(*args))  # deterministic: no atomics
 
 
 @pytest.mark.parametrize("d", [64, 120, 256])
