@@ -20,9 +20,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                gradient through `attention()`'s autograd; yardstick
                `scaled_dot_product_attention`;
              * GroupNorm (K4, or K5 + K6 by slab size) at the UNet's
-               64 x 64 x 320 and 8 x 8 x 1280 (batch 2) and the VAE's
-               512 x 512 x 128 (batch 1), each activation; yardstick
-               `F.group_norm` on bf16 (+ `F.silu`);
+               64 x 64 x 320, 8 x 8 x 1280 and 64 x 64 x 640 (batch 2) and
+               the VAE's 512 x 512 x 128 (batch 1), each activation, a
+               second call bit-equal to the first, and K5 alone at K4's
+               shapes; yardstick `F.group_norm` on bf16 (+ `F.silu`);
              * the fused GroupNorm+SiLU -> conv3x3 (K7) at the UNet's
                64 x 64 320 -> 320, 32 x 32 1920 -> 640, 16 x 16 2560 -> 1280
                and 8 x 8 1280 -> 1280 (batch 2), the VAE's 64 x 64 512 -> 512
@@ -122,10 +123,11 @@ BWD_CASES = [  # queries and keys of one length; the ragged case fills no block 
 # 1e-5 * (|mean| + 1), rstd within 1e-4 relative (sums in another order).
 GN_TOL, MEAN_TOL, RSTD_TOL = 1e-2, 1e-5, 1e-4
 GN_GROUPS, GN_EPS = 32, 1e-6
-GN_CASES = [  # (label, (N, C, H, W))
+GN_CASES = [  # (label, (N, C, H, W)); a kernel's table entry is its first shape on its route
     ("unet 64x64x320 b2", (2, 320, 64, 64)),
     ("unet 8x8x1280 b2", (2, 1280, 8, 8)),
     ("vae 512x512x128 b1", (1, 128, 512, 512)),
+    ("unet 64x64x640 b2", (2, 640, 64, 64)),  # 160 KiB slabs: K4 at a cluster of two
 ]
 # Fused conv: max |kernel - plain| / max |plain|. f32 accumulation in another
 # order; the kernel rounds conv + bias once, the plain version rounds the
@@ -432,20 +434,35 @@ def _groupnorm_kernels(gen, dev, entries, failures) -> None:
         args = (x, scale, bias, GN_GROUPS, GN_EPS)
         with torch.no_grad():
             ref_mean, ref_rstd = GN.group_norm_moments(x, GN_GROUPS, GN_EPS)
+            if fused:  # K5 alone at K4's slabs, the small slabs K5 takes below the route
+                mean, rstd = GN.group_norm_stats(x, GN_GROUPS, GN_EPS)
+                again = GN.group_norm_stats(x, GN_GROUPS, GN_EPS)
+                mean_err = ((mean - ref_mean).abs() / (ref_mean.abs() + 1)).max().item()
+                rstd_err = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+                same = torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
+                ok = mean_err <= MEAN_TOL and rstd_err <= RSTD_TOL and same
+                log(f"[kernels] group_norm {label} {shape} K5 alone (cluster "
+                    f"{GN.stats_cluster_blocks(shape, GN_GROUPS)}): mean {mean_err:.2e} (tol "
+                    f"{MEAN_TOL}), rstd {rstd_err:.2e} (tol {RSTD_TOL}), rerun bit-equal {same} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"group_norm {label} K5 alone")
             for act in GN.ACTS:
                 out, mean, rstd = GN.group_norm_kernels(*args, act)
+                again = GN.group_norm_kernels(*args, act)
                 ref = GN.group_norm_reference(*args, act)
                 torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip((out, mean, rstd), again))
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = err / ref.float().abs().max().item()
                 mean_err = ((mean - ref_mean).abs() / (ref_mean.abs() + 1)).max().item()
                 rstd_err = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
                 ok = (rel <= GN_TOL and mean_err <= MEAN_TOL and rstd_err <= RSTD_TOL
-                      and math.isfinite(rel))
+                      and math.isfinite(rel) and same)
                 line = (f"[kernels] group_norm {label} {shape} act={act} ({route}): "
                         f"max_abs_err {err:.3e}, relative {rel:.3e} (tol {GN_TOL}), mean "
-                        f"{mean_err:.2e} (tol {MEAN_TOL}), rstd {rstd_err:.2e} (tol {RSTD_TOL}) "
-                        f"{'ok' if ok else 'FAIL'}")
+                        f"{mean_err:.2e} (tol {MEAN_TOL}), rstd {rstd_err:.2e} (tol {RSTD_TOL}), "
+                        f"rerun bit-equal {same} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"group_norm {label} act={act}")
                 if act not in ("silu", None):
@@ -483,12 +500,15 @@ def _groupnorm_kernels(gen, dev, entries, failures) -> None:
                         x, mean, rstd, scale, bias, act), reps=5)
                     stat_abs = max((mean - ref_mean).abs().max().item(),
                                    (rstd - ref_rstd).abs().max().item())
+                    view = x.view(n, GN_GROUPS, -1)  # K5's statistics in one PyTorch call
+                    st_lib = time_ms(lambda: torch.var_mean(view, dim=-1, correction=0))
                     e5 = _entry("group_norm_stats", list(shape), stat_abs, st_ms, st_plain,
-                                3.0 * x.numel(), nx + stats, None, PEAK_F32_FLOPS)
+                                3.0 * x.numel(), nx + stats, st_lib, PEAK_F32_FLOPS)
                     e6 = _entry("group_norm_apply", list(shape), err, ap_ms, ap_plain,
                                 7.0 * x.numel(), 2 * nx + 4 * c + stats, None, PEAK_F32_FLOPS)
                     log(f"[kernels] group_norm {label} act=silu: K5 {st_ms:.4f} ms (plain "
-                        f"{st_plain:.4f}, bound {e5['bound_ms']:.4f}), K6 {ap_ms:.4f} ms (plain "
+                        f"{st_plain:.4f}, torch.var_mean {st_lib:.4f}, bound "
+                        f"{e5['bound_ms']:.4f}), K6 {ap_ms:.4f} ms (plain "
                         f"{ap_plain:.4f}, bound {e6['bound_ms']:.4f})")
                     entries.setdefault("group_norm_stats", e5)
                     entries.setdefault("group_norm_apply", e6)

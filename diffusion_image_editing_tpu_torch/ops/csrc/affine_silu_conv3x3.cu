@@ -270,7 +270,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)
   }
 }
 
-// --- The bulk copy that reports to an mbarrier (fa::mbar_init, fa::mbar_wait).
+// --- The bulk copy that reports to an mbarrier (sm90_async.cuh).
 
 // Weight tile of step (tap, chunk), rows co0 .. co0 + rows of it, into a ring
 // slot: one bulk copy of rows * 128 contiguous bytes (the packed weights hold
@@ -281,14 +281,8 @@ __device__ __forceinline__ void load_weights(bf16* slot, uint64_t* bar, const bf
                                              int chunk, int chunks, int co0, int rows, int Cout) {
   const bf16* src = wp + ((static_cast<size_t>(tap) * chunks + chunk) * Cout + co0) * KC;
   const unsigned bytes = rows * KC * static_cast<unsigned>(sizeof(bf16));
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(fa::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(fa::smem_addr(slot)),
-      "l"(src), "r"(bytes), "r"(fa::smem_addr(bar))
-      : "memory");
+  sm90::expect_bytes(bar, bytes);
+  sm90::bulk_load(slot, src, bytes, bar);
 }
 
 template <int BN>

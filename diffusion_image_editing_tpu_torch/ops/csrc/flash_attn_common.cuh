@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_async.cuh"
+
 namespace fa {
 
 using bf16 = __nv_bfloat16;
@@ -51,9 +53,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-__device__ inline unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+using sm90::smem_addr;
 
 // 16 bytes global -> shared, asynchronous; zero-filled when !valid (src unread).
 __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
@@ -208,21 +208,8 @@ __device__ inline void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// Until the phase of the given parity has completed.
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
+using sm90::mbar_init;  // sm90_async.cuh
+using sm90::mbar_wait;
 
 // Checks shared by the three entry points; 0 when the shape is taken.
 inline cudaError_t check_shape(int B, int H, int Sq, int Sk, int D) {
@@ -272,11 +259,7 @@ __device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap& map, in
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(x), "r"(smem_addr(bar))
       : "memory");
 }
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
+using sm90::expect_bytes;
 
 __device__ __forceinline__ void warpgroups_sync() {  // both warpgroups, not the cluster
   asm volatile("bar.sync 1, 256;\n" ::: "memory");

@@ -29,8 +29,9 @@ enum Act { kNone = 0, kSilu = 1, kRelu = 2, kGelu = 3 };
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
-    case kSilu:
-      return v / (1.0f + __expf(-v));
+    case kSilu:  // the fast division: within 2 ulp; 0 once 1 + e^-v passes 2^126,
+                 // where SiLU is within 2^-120 of 0
+      return __fdividef(v, 1.0f + __expf(-v));
     case kRelu:
       return fmaxf(v, 0.0f);
     case kGelu: {  // the tanh form, jax.nn.gelu's default
@@ -80,6 +81,22 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int w = 0; w < THREADS / 32; ++w) total += red[w];
   __syncthreads();  // `red` may be written again by the next call
   return total;
+}
+
+// (count, mean, M2 = sum((x - mean)^2)) of some values; M2 is never taken as
+// a difference of sums of squares.
+struct Moments {
+  float n, mean, m2;
+};
+
+// The moments of a batch folded into running ones (Chan et al.); a batch
+// of none leaves them as they are.
+__device__ __forceinline__ Moments fold(Moments a, float nb, float mb, float m2b) {
+  if (nb == 0.0f) return a;
+  const float n = a.n + nb;
+  const float w = nb / n;
+  const float d = mb - a.mean;
+  return {n, a.mean + d * w, a.m2 + m2b + d * d * a.n * w};
 }
 
 inline cudaError_t check_gn_shape(int N, int C, int HW, int G, int act) {

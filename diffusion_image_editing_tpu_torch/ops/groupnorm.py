@@ -9,21 +9,31 @@ statistics, the two-pass variance mean((x - mean)^2) of
 `group_norm_reference`, never E[x^2] - mean^2):
 
 * `group_norm_fused` (K4) replaces `_single_block_kernel`
-  (diffusion_image_editing_tpu/ops/groupnorm.py): one block per slab reads
-  the slab once into shared memory, takes its statistics there, and writes
-  the normalised, activated slab once.
+  (diffusion_image_editing_tpu/ops/groupnorm.py): a cluster of
+  `fused_cluster_blocks` blocks a slab, one piece a block (`slab_pieces`),
+  each copying its piece into shared memory by one bulk copy and taking
+  its (count, mean, M2) there; the blocks' moments meet in every block
+  through distributed shared memory, folded in rank order (Chan's
+  formula), and each block writes its normalised, activated piece: one
+  read and one write of the slab.
 * `group_norm_stats` (K5) replaces `_stats_kernel`: per-(n, g) mean and rstd
-  of slabs of any size. Slabs are cut into chunks of `STATS_CHUNK` elements,
-  one block each, so that batch 1 x 32 groups still fills the card; the
-  chunks' (mean, M2) combine in a fixed order (Chan's formula), so results
-  are deterministic.
+  of slabs of any size, in one launch. Each slab is split over a
+  thread-block cluster of `stats_cluster_blocks` blocks, so that batch 1 x
+  32 groups still fills the card, one piece a block (`slab_pieces`); each
+  thread folds what it streams into a running (count, mean, M2) by Chan's
+  formula, and the blocks' moments meet in rank 0's shared memory, folded
+  in rank order, so results are deterministic.
 * `group_norm_apply` (K6) replaces `_apply_kernel`: one elementwise pass
   with per-(n, g) statistics and per-channel scale and bias.
 
 All three are bound by bytes: K4 and K6 read and write x once, K5 reads it
 once. The route is chosen by slab size: a slab of at most
-`FUSED_MAX_SLAB_BYTES` (96 KiB of bf16, so two blocks share an SM's shared
-memory) takes K4, a larger one K5 then K6 (`uses_fused_kernel`).
+`FUSED_MAX_SLAB_BYTES` (512 KiB of bf16: up to 8 pieces of at most
+`FUSED_MAX_PIECE_BYTES`, 96 KiB, so that two blocks share an SM's shared
+memory) takes K4, a larger one K5 then K6 (`uses_fused_kernel`). Up to
+that limit K4 reads faster than K5 then K6 at every slab of the SD-1.5
+path (`scripts/torch_bench_groupnorm.py --fused-limit`); the VAE's slabs
+of 1 MiB and more take K5 + K6.
 
 Plain versions: `group_norm_moments` (K5, and K4's statistics),
 `group_norm_apply_reference` (K6) and `group_norm_reference` (K4, and the
@@ -41,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +59,13 @@ import torch.nn.functional as F
 from . import _build
 
 ACTS = (None, "silu", "relu", "gelu")  # codes 0-3 of csrc/group_norm_common.cuh
-FUSED_MAX_SLAB_BYTES = 96 * 1024  # kFusedMaxBytes of csrc/group_norm_fused.cu
-STATS_CHUNK = 16384  # kChunk of csrc/group_norm_stats.cu, elements
+FUSED_MAX_SLAB_BYTES = 512 * 1024  # the route limit: larger slabs take K5 + K6
+FUSED_MAX_PIECE_BYTES = 96 * 1024  # kFusedMaxPieceBytes of csrc/group_norm_fused.cu
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
+H100_SMS = 132
+# K5 and K4 split slabs over a cluster while the grid keeps within one
+# block an SM and no piece falls under these bytes (`_cluster_blocks`).
+STATS_MIN_PIECE_BYTES, FUSED_MIN_PIECE_BYTES = 48 * 1024, 12 * 1024
 
 
 def _check_act(act: Optional[str]) -> None:
@@ -149,12 +164,12 @@ def group_norm_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # device, x, scale, bias, affine_f32, out, mean, rstd, N, C, HW, G, eps, act, stream
-    "group_norm_fused": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # device, x, partial, scratch_floats, mean, rstd, N, C, HW, G, eps, stream
-    "group_norm_stats": [_I, _P, _P, _L, _P, _P, _I, _I, _I, _I, _F, _P],
+    # device, x, scale, bias, affine_f32, out, mean, rstd, N, C, HW, G, cluster, eps, act, stream
+    "group_norm_fused": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # device, x, mean, rstd, N, C, HW, G, cluster, eps, stream
+    "group_norm_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # device, x, mean, rstd, scale, bias, affine_f32, out, N, C, HW, G, act, stream
     "group_norm_apply": [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -168,6 +183,61 @@ def slab_bytes(shape: Sequence[int], num_groups: int) -> int:
 def uses_fused_kernel(shape: Sequence[int], num_groups: int) -> bool:
     """The route rule: K4 for a slab of at most FUSED_MAX_SLAB_BYTES, else K5 + K6."""
     return slab_bytes(shape, num_groups) <= FUSED_MAX_SLAB_BYTES
+
+
+def slab_pieces(length: int, blocks: int, atom: int) -> List[Tuple[int, int]]:
+    """(start, length) in elements of each block's piece of a slab of
+    `length` elements split over `blocks` blocks in whole atoms of `atom`
+    elements, as the kernels cut it: piece r spans atoms
+    [r * atoms // blocks, (r + 1) * atoms // blocks)."""
+    atoms = length // atom
+    cuts = [r * atoms // blocks * atom for r in range(blocks)] + [length]
+    return [(cuts[r], cuts[r + 1] - cuts[r]) for r in range(blocks)]
+
+
+def stats_atom(shape: Sequence[int], num_groups: int) -> int:
+    """K5 reads 16-byte vectors (8 elements) where the slab is a multiple
+    of 8 elements, so that every slab and piece starts on a 16-byte
+    boundary; single elements otherwise."""
+    return 8 if shape[1] // num_groups * math.prod(shape[2:]) % 8 == 0 else 1
+
+
+def fused_atom(shape: Sequence[int], num_groups: int) -> int:
+    """K4 copies and applies 16-byte vectors where H * W % 8 == 0: then a
+    vector lies in one channel, and every slab and piece starts on a
+    16-byte boundary; single elements otherwise."""
+    return 8 if math.prod(shape[2:]) % 8 == 0 else 1
+
+
+def _cluster_blocks(shape: Sequence[int], num_groups: int, atom: int, min_piece: int) -> int:
+    """Blocks a slab is split over: doubled from 1 while the grid would
+    keep within H100_SMS blocks, each piece at least `min_piece` bytes and
+    at least one atom; at most 8, the largest portable cluster."""
+    slabs = shape[0] * num_groups
+    nbytes = slab_bytes(shape, num_groups)
+    atoms = nbytes // 2 // atom
+    k = 1
+    while (k < CLUSTER_SIZES[-1] and slabs * 2 * k <= H100_SMS
+           and nbytes // (2 * k) >= min_piece and 2 * k <= atoms):
+        k *= 2
+    return k
+
+
+def stats_cluster_blocks(shape: Sequence[int], num_groups: int) -> int:
+    """K5's cluster size."""
+    return _cluster_blocks(shape, num_groups, stats_atom(shape, num_groups),
+                           STATS_MIN_PIECE_BYTES)
+
+
+def fused_cluster_blocks(shape: Sequence[int], num_groups: int) -> int:
+    """K4's cluster size: `_cluster_blocks`, or the least that keeps every
+    piece within FUSED_MAX_PIECE_BYTES if that is more (up to 8)."""
+    atom = fused_atom(shape, num_groups)
+    k = _cluster_blocks(shape, num_groups, atom, FUSED_MIN_PIECE_BYTES)
+    atoms = slab_bytes(shape, num_groups) // 2 // atom
+    while k < CLUSTER_SIZES[-1] and -(-atoms // k) * atom * 2 > FUSED_MAX_PIECE_BYTES:
+        k *= 2
+    return k
 
 
 def _check_x(name: str, x: torch.Tensor, num_groups: int) -> Tuple[int, int, int]:
@@ -223,7 +293,8 @@ def group_norm_fused(x, scale, bias, num_groups: int, eps: float, act: Optional[
     rstd = torch.empty_like(mean)
     _build.launch("group_norm_fused", _ARGTYPES["group_norm_fused"], x.device, x.data_ptr(),
                   scale.data_ptr(), bias.data_ptr(), affine_f32, out.data_ptr(), mean.data_ptr(),
-                  rstd.data_ptr(), n, c, hw, num_groups, float(eps), ACTS.index(act))
+                  rstd.data_ptr(), n, c, hw, num_groups, fused_cluster_blocks(x.shape, num_groups),
+                  float(eps), ACTS.index(act))
     group_norm_fused.launches += 1
     return out, mean, rstd
 
@@ -231,13 +302,11 @@ def group_norm_fused(x, scale, bias, num_groups: int, eps: float, act: Optional[
 def group_norm_stats(x, num_groups: int, eps: float):
     """K5. Returns (mean, rstd), (N, G) f32 each."""
     n, c, hw = _check_x("group_norm_stats", x, num_groups)
-    chunks = -(-(c // num_groups * hw) // STATS_CHUNK)
-    partial = torch.empty(2 * n * num_groups * chunks, dtype=torch.float32, device=x.device)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     _build.launch("group_norm_stats", _ARGTYPES["group_norm_stats"], x.device, x.data_ptr(),
-                  partial.data_ptr(), partial.numel(), mean.data_ptr(), rstd.data_ptr(),
-                  n, c, hw, num_groups, float(eps))
+                  mean.data_ptr(), rstd.data_ptr(), n, c, hw, num_groups,
+                  stats_cluster_blocks(x.shape, num_groups), float(eps))
     group_norm_stats.launches += 1
     return mean, rstd
 

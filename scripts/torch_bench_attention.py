@@ -61,13 +61,9 @@ disagrees.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import io
 import math
-import re
 import subprocess
 import sys
-import tarfile
 import time
 from pathlib import Path
 
@@ -80,6 +76,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import _build  # noqa: E402
 from diffusion_image_editing_tpu_torch.ops import attention as A  # noqa: E402
+from torch_bench_build import build_library, parent_sources, print_ptxas  # noqa: E402
 
 KERNEL = "flash_attn_fwd"  # the kernel under test: K3 with --bwd, K2 with --dq
 SMS, EXP_PER_CLOCK = 132, 16  # H100 SXM: SMs, and the special-function unit's ex2 an SM a clock
@@ -103,56 +100,9 @@ BWD_SHAPES = [
 ]
 
 
-def parent_sources(rev: str) -> Path:
-    """`KERNEL`'s source and the headers of git revision `rev`, unpacked
-    into the build directory (or found there, outside a git checkout)."""
-    dst = _build.BUILD_DIR / f"parent-{rev}"
-    csrc = _build.CSRC.relative_to(ROOT).as_posix()
-    if (ROOT / ".git").exists():
-        blob = subprocess.run(["git", "-C", str(ROOT), "archive", rev, csrc],
-                              capture_output=True, check=True).stdout
-        dst.mkdir(parents=True, exist_ok=True)
-        with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
-            for member in tar.getmembers():
-                name = Path(member.name).name
-                if member.isfile() and (name == f"{KERNEL}.cu" or name.endswith(".cuh")):
-                    (dst / name).write_bytes(tar.extractfile(member).read())
-    if not (dst / f"{KERNEL}.cu").exists():
-        raise SystemExit(f"no sources of {rev} in {dst}: run once in the git checkout first")
-    return dst
-
-
-def build_library(src_dir: Path, defines=()):
-    """nvcc `src_dir/KERNEL.cu` with the port's flags (and `-D` defines)
-    into `src_dir`, print ptxas's report, and load it."""
-    tag = "".join(f"-{d}" for d in defines)
-    out = src_dir / f"lib{KERNEL}{tag}.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-           "-o", str(out), str(src_dir / f"{KERNEL}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src_dir} {defines}:\n{proc.stdout}{proc.stderr}")
-    log = out.with_suffix(".log")
-    log.write_text(proc.stdout + proc.stderr)
-    print_ptxas(log, f"{src_dir.name}{tag}")
-    fn = getattr(ctypes.CDLL(str(out)), KERNEL)
-    fn.argtypes = A._ARGTYPES[KERNEL]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def print_ptxas(log: Path, tag: str) -> None:
-    text = log.read_text()
-    entry, frame = "", ""
-    for line in text.splitlines():
-        if "Compiling entry function" in line:
-            entry = _build._kernel_name(line.split("'")[1])
-        elif "spill stores" in line:
-            frame = line.strip()
-        elif "ptxas info" in line and "Used" in line:
-            print(f"[build] {tag} {entry}: {line.split(':', 1)[1].strip()}; {frame}")
-        elif re.search(r"C75\d\d|arning|Performance", line):
-            print(f"[build] {tag} {line.strip()}")
+def build_kernel(src_dir: Path, defines=()):
+    """`src_dir/KERNEL.cu` built with the port's flags, ptxas's report printed."""
+    return build_library(src_dir / f"{KERNEL}.cu", KERNEL, defines, A._ARGTYPES[KERNEL])
 
 
 def call_library(fn, q, k, v, scale, with_lse=False):
@@ -354,7 +304,7 @@ def main() -> int:
         KERNEL = "flash_attn_bwd_dkv"
     elif opts.dq:
         KERNEL = "flash_attn_bwd_dq"
-    parent_dir = parent_sources(opts.parent) if opts.parent else None
+    parent_dir = parent_sources(opts.parent, [KERNEL]) if opts.parent else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -369,12 +319,12 @@ def main() -> int:
     _build.build(built)
     print(f"[build] {', '.join(built)} in {time.perf_counter() - t0:.1f} s")
     print_ptxas(_build.library_path(KERNEL).with_suffix(".log"), "kernel")
-    parent = build_library(parent_dir) if parent_dir else None
+    parent = build_kernel(parent_dir) if parent_dir else None
     variants = {}
     for spec in opts.variant:
         src, _, defines = spec.partition(":")
         defines = defines.split("+") if defines else []
-        variants[spec] = build_library((ROOT / src).resolve(), defines)
+        variants[spec] = build_kernel((ROOT / src).resolve(), defines)
 
     if opts.bwd or opts.dq:
         failed = bwd_shapes(opts, parent, variants, smi)

@@ -20,6 +20,8 @@ the JAX reference at atol 1e-4: a two-pass variance keeps about
 most digits.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,11 +154,13 @@ def test_unknown_activation_is_refused():
     "shape,fused",
     [
         ((2, 320, 64, 64), True),     # SD UNet 64 x 64 x 320: 80 KiB slabs
-        ((2, 640, 64, 64), False),    # 160 KiB
+        ((2, 640, 64, 64), True),     # 160 KiB
         ((2, 1280, 8, 8), True),
-        ((1, 512, 64, 64), False),    # SD VAE 64 x 64 x 512: 128 KiB
+        ((1, 512, 64, 64), True),     # SD VAE 64 x 64 x 512: 128 KiB
         ((1, 128, 512, 512), False),  # SD VAE 512 x 512 x 128: 2 MiB
-        ((1, 96, 128, 128), True),    # exactly FUSED_MAX_SLAB_BYTES
+        ((1, 96, 128, 128), True),    # 96 KiB, FUSED_MAX_PIECE_BYTES: a cluster of one takes it
+        ((1, 512, 128, 128), True),   # SD VAE 128 x 128 x 512: exactly FUSED_MAX_SLAB_BYTES
+        ((1, 256, 256, 256), False),  # SD VAE 256 x 256 x 256: 1 MiB
     ],
 )
 def test_route_rule_by_slab_size(shape, fused):
@@ -180,3 +184,90 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             T.group_norm_apply(x, stats, stats, s, b, "silu")
     T.group_norm(x, s, b, 4)
     assert OPS.launch_counts() == before
+
+
+# Every GroupNorm shape of chip_smoke.py's [main] run: the SD-1.5 UNet at
+# batch 2 (the guided steps) and 20 (the batched inversion), the SD VAE's
+# encoder and decoder from 64 to 512 px; 32 groups each.
+PATH_SHAPES = [
+    (n, c, hw, hw) for n in (2, 20) for c, hw in (
+        (320, 64), (640, 64), (960, 64), (320, 32), (640, 32), (960, 32), (1280, 32), (1920, 32),
+        (640, 16), (1280, 16), (1920, 16), (2560, 16), (1280, 8), (2560, 8))
+] + [(1, c, hw, hw) for c, hw in ((512, 64), (512, 128), (256, 128), (512, 256), (256, 256),
+                                  (128, 256), (256, 512), (128, 512))]
+# (shape, groups) at the edges: the scalar path (H * W % 8 != 0, C / G = 1),
+# a slab of one element and of two vectors, vectors that split unevenly
+# over the cluster, K4's slab limit, and N * G = 65535, the grid's limit.
+EDGE_SHAPES = [
+    ((1, 32, 7, 9), 32), ((1, 32, 1, 1), 32), ((1, 64, 1, 8), 32), ((1, 32, 250, 251), 32),
+    ((1, 32, 248, 249), 32), ((1, 32, 328, 329), 32), ((1, 96, 128, 128), 32),
+    ((2, 64, 13, 13), 32), ((4369, 30, 8, 8), 15), ((4369, 60, 32, 32), 15),
+    ((1, 24, 128, 128), 8), ((1, 32, 8, 4999), 32), ((1, 32, 111, 113), 32),
+]
+PIECE_CASES = (
+    [("K5", s, 32) for s in PATH_SHAPES] + [("K5", s, g) for s, g in EDGE_SHAPES]
+    + [("K4", s, g) for s, g in [(s, 32) for s in PATH_SHAPES] + EDGE_SHAPES
+       if T.uses_fused_kernel(s, g)])
+
+
+@pytest.mark.parametrize("kernel,shape,groups", PIECE_CASES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_cluster_and_pieces_cover_each_slab(kernel, shape, groups):
+    """The host's choice for K4 and K5: a portable cluster size, and pieces
+    that are non-empty, balanced to one atom, cover the slab exactly and,
+    on the vector path, start on 16-byte boundaries; the grid (k, N * G)
+    within its limits."""
+    if kernel == "K5":
+        k, atom = T.stats_cluster_blocks(shape, groups), T.stats_atom(shape, groups)
+    else:
+        k, atom = T.fused_cluster_blocks(shape, groups), T.fused_atom(shape, groups)
+    assert k in T.CLUSTER_SIZES
+    length = T.slab_bytes(shape, groups) // 2
+    pieces = T.slab_pieces(length, k, atom)
+    assert len(pieces) == k and pieces[0][0] == 0
+    assert all(start + n == following for (start, n), (following, _) in zip(pieces, pieces[1:]))
+    assert sum(n for _, n in pieces) == length
+    assert all(n > 0 for _, n in pieces)
+    assert max(n for _, n in pieces) - min(n for _, n in pieces) <= atom
+    if kernel == "K4":
+        assert max(n for _, n in pieces) * 2 <= T.FUSED_MAX_PIECE_BYTES
+    if shape[2] * shape[3] % 8 == 0:  # slabs and pieces of whole 16-byte vectors
+        assert atom == 8 and length % 8 == 0
+        assert all(start % 8 == 0 and n % 8 == 0 for start, n in pieces)
+    assert shape[0] * groups <= 65535  # the grid is (k, N * G) blocks: y at most 65535
+
+
+@pytest.mark.parametrize(
+    "shape,k5,k4",
+    [
+        ((1, 128, 512, 512), 4, None),  # 32 slabs of 2 MiB: 128 blocks, one an SM
+        ((2, 640, 64, 64), 2, None),    # 64 slabs of 160 KiB: 128 blocks
+        ((1, 512, 64, 64), 2, None),    # 32 slabs of 128 KiB: no piece under 48 KiB
+        ((20, 640, 64, 64), 1, None),   # 640 slabs: the card is full without a cluster
+        ((2, 320, 64, 64), 1, 2),       # 64 slabs of 80 KiB: K4 in 128 blocks
+        ((2, 1280, 8, 8), 1, 1),        # 5 KiB slabs stay whole
+        ((1, 32, 1, 1), 1, 1),          # one element: one piece
+    ],
+)
+def test_cluster_size_at_path_shapes(shape, k5, k4):
+    assert T.stats_cluster_blocks(shape, 32) == k5
+    if k4 is not None:
+        assert T.fused_cluster_blocks(shape, 32) == k4
+
+
+def test_largest_cluster_takes_the_largest_slab():
+    """K4 at 8 blocks a slab: 8 slabs of 96 KiB, pieces of 12 KiB."""
+    assert T.fused_cluster_blocks((1, 24, 128, 128), 8) == 8
+
+
+def test_cluster_constants_match_the_sources():
+    """The Python route and cluster rule against the CUDA sources."""
+    csrc = Path(T.__file__).parent / "csrc"
+    for name in ("group_norm_stats.cu", "group_norm_fused.cu"):
+        src = (csrc / name).read_text()
+        assert f"kMaxCluster = {T.CLUSTER_SIZES[-1]};" in src, name
+        assert "sm90::launch_clustered(" in src, name
+    assert "cudaLaunchAttributeClusterDimension" in (csrc / "sm90_async.cuh").read_text()
+    fused = (csrc / "group_norm_fused.cu").read_text()
+    assert f"kFusedMaxPieceBytes = {T.FUSED_MAX_PIECE_BYTES // 1024} * 1024;" in fused
+    assert T.FUSED_MAX_SLAB_BYTES <= T.CLUSTER_SIZES[-1] * T.FUSED_MAX_PIECE_BYTES

@@ -38,9 +38,12 @@ times the readings that chip_smoke.py prints at the main path's shapes
 products). Log-sum-exp max |kernel - plain| 1e-3 (f32 sums of bf16 products
 in another order).
 
-GroupNorm (K4-K6): H * W not a multiple of 8 (the scalar paths) nor of the
-stats chunk, C / G = 1 and 2, batch 20, slabs at and just above K4's limit,
-and large-mean input. Output tolerance 1e-2 of max |plain|: both round the
+GroupNorm (K4-K6): H * W not a multiple of 8 (the scalar paths), C / G = 1
+and 2, batch 20, slabs at and above K4's limit, large-mean input, and
+K4 and K5 each at every cluster size (1, 2, 4, 8 blocks a slab), with
+slabs whose 16-byte vectors (or elements, on the scalar path) do not
+split evenly over the cluster, and K4 at its route limit (512 KiB).
+Two calls of K4 and of K5 give the same bits. Output tolerance 1e-2 of max |plain|: both round the
 same f32 value to bf16, so they differ by at most one bf16 step (2^-7
 relative) where the f32 values straddle a rounding boundary. Statistics:
 mean within 1e-5 * (|mean| + 1), rstd within 1e-4 relative (f32 sums in
@@ -278,12 +281,24 @@ def test_head_dims_not_built_are_refused(gen, d):
         (1, 32, 7, 9, 32, "silu", 0.0),        # C/G = 1, H*W = 63: scalar K4
         (2, 64, 13, 13, 32, "gelu", 0.0),      # C/G = 2, H*W = 169
         (20, 320, 8, 8, 32, "silu", 0.0),      # batch 20 (the inversion's)
-        (1, 96, 128, 128, 32, "relu", 0.0),    # slab of exactly 96 KiB: K4
-        (1, 96, 128, 130, 32, None, 0.0),      # 97.5 KiB: K5 + K6, 3.05 chunks
-        (1, 32, 250, 251, 32, "silu", 0.0),    # C/G = 1, odd slab: scalar K5 and K6
-        (1, 128, 200, 200, 32, "gelu", 0.0),   # 10 chunks a slab, the last ragged
-        (2, 320, 64, 64, 32, "silu", 50.0),    # large mean, K4
-        (1, 128, 256, 256, 32, "silu", 50.0),  # large mean, K5 + K6
+        (1, 96, 128, 128, 32, "relu", 0.0),    # 96 KiB, one piece's most: K4, cluster 4
+        (1, 96, 128, 130, 32, None, 0.0),      # 97.5 KiB: K4, cluster 4
+        (1, 32, 250, 251, 32, "silu", 0.0),    # C/G = 1, odd slab: scalar K4, cluster 4
+        (1, 128, 200, 200, 32, "gelu", 0.0),   # 312.5 KiB: K4, cluster 4
+        (2, 320, 64, 64, 32, "silu", 50.0),    # large mean, K4 cluster 2
+        (1, 24, 128, 128, 8, "silu", 0.0),     # K4 cluster 8 (8 slabs of 96 KiB)
+        (1, 32, 8, 4999, 32, "gelu", 0.0),     # K4 cluster 4, 4999 vectors: uneven pieces
+        (1, 32, 111, 113, 32, "silu", 0.0),    # K4's scalar path, cluster 2, 12543 elements
+        (1, 128, 256, 256, 32, "silu", 50.0),  # large mean, K4 at its route limit
+        (1, 128, 512, 512, 32, "silu", 50.0),  # large mean, K5 + K6
+        (5, 32, 224, 240, 32, "silu", 0.0),    # K4, cluster 2 (160 slabs of 105 KiB)
+        (1, 32, 248, 249, 32, "relu", 0.0),    # K4 cluster 4, 7719 vectors: uneven pieces
+        (1, 32, 328, 329, 32, None, 0.0),      # K4 cluster 4, 13489 vectors: uneven pieces
+        (20, 640, 64, 64, 32, "silu", 0.0),    # batch 20: K4 cluster 2, 640 slabs of 160 KiB
+        (2, 640, 64, 64, 32, "silu", 50.0),    # 160 KiB slabs, large mean
+        (1, 512, 128, 128, 32, "silu", 0.0),   # 512 KiB, K4's route limit: cluster 8
+        (1, 256, 256, 256, 32, "silu", 0.0),   # 1 MiB: K5 (cluster 4) + K6
+        (1, 160, 250, 251, 32, "silu", 0.0),   # 613 KiB, H*W % 8 != 0: K5 + K6's scalar path
     ],
 )
 def test_group_norm_matches_plain(gen, n, c, h, w, g, act, mean):
@@ -299,6 +314,50 @@ def test_group_norm_matches_plain(gen, n, c, h, w, g, act, mean):
     assert ((r - ref_r).abs() / ref_r).max().item() <= RSTD_TOL
     assert _rel(out, GN.group_norm_reference(x, scale, bias, g, 1e-6, act)) <= GN_TOL
     assert torch.equal(GN.group_norm(x, scale, bias, g, 1e-6, act), out)
+
+
+@pytest.mark.parametrize(
+    "shape,groups,cluster",
+    [
+        ((1, 32, 7, 9), 32, 1),          # the scalar path, 63 elements a slab
+        ((2, 320, 64, 64), 32, 1),
+        ((2, 640, 64, 64), 32, 2),
+        ((1, 32, 250, 251), 32, 2),      # scalar, 62750 elements: uneven pieces
+        ((1, 128, 512, 512), 32, 4),
+        ((1, 32, 8, 24999), 32, 4),      # 24999 vectors: uneven pieces
+        ((1, 64, 256, 256), 8, 8),
+        ((1, 8, 8, 24999), 8, 8),        # 24999 vectors: uneven pieces
+    ],
+)
+def test_group_norm_stats_at_every_cluster_size(gen, shape, groups, cluster):
+    """K5 called alone, whatever the route would take, at each cluster size
+    (held to the shape by the assertion on `stats_cluster_blocks`)."""
+    assert GN.stats_cluster_blocks(shape, groups) == cluster
+    x = (torch.randn(shape, generator=gen, device="cuda") + 3.0).to(torch.bfloat16)
+    (m, r), launched = _launched(lambda: GN.group_norm_stats(x, groups, 1e-6))
+    assert launched == {"group_norm_stats": 1}
+    ref_m, ref_r = GN.group_norm_moments(x, groups, 1e-6)
+    assert ((m - ref_m).abs() / (ref_m.abs() + 1)).max().item() <= MEAN_TOL
+    assert ((r - ref_r).abs() / ref_r).max().item() <= RSTD_TOL
+    again = GN.group_norm_stats(x, groups, 1e-6)
+    assert torch.equal(m, again[0]) and torch.equal(r, again[1])
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 320, 64, 64), (2, 1280, 8, 8), (1, 32, 7, 9), (1, 128, 512, 512),
+              (2, 640, 64, 64), (1, 32, 250, 251)])
+def test_group_norm_kernels_rerun_bit_equal(gen, shape):
+    """Every sum runs in one fixed order, with no atomics: K4 (all but the
+    VAE's 2 MiB slabs) and K5 give the same bits on a second call."""
+    x = _rand(shape, gen)
+    scale = (1 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(torch.bfloat16)
+    if GN.uses_fused_kernel(shape, 32):
+        first = GN.group_norm_fused(x, scale, bias, 32, 1e-6, "silu")
+        second = GN.group_norm_fused(x, scale, bias, 32, 1e-6, "silu")
+    else:
+        first, second = GN.group_norm_stats(x, 32, 1e-6), GN.group_norm_stats(x, 32, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("act", GN.ACTS)
