@@ -36,7 +36,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. tiny    - the model-level pieces of the path at the TINY configs (CFG
              eps, encode, decode, the decode's gradient), bf16 on the card
              against f32 on the CPU with the same weights and inputs, in the
-             default and the fused-conv configuration.
+             default and the fused-conv configuration; then the TINY CLIP
+             text encoder and a 3-step TINY `generate_image` under a prompt,
+             the same way.
    seg-tiny - two BiSeNet train steps with norm="abn" at width 8, 64 px,
              batch 2, f32 on the card (TF32 off) against the same on the CPU
              from the same weights and batches: losses, weights, running
@@ -54,7 +56,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              default configuration, then the whole path, with the fused conv's
              and the remaining GroupNorms' launch counts checked and a finite
              image.
-7. seg     - the segmentation trainer's path after the SD models are freed:
+7. prompt  - the SD path as a user starts it, at full width, after the [main]
+             models are freed: an HF-layout SD-1.5 checkpoint directory
+             (UNet, VAE under the legacy attention names, CLIP ViT-L/14
+             text encoder, bf16 `torch.save` files from seeded random
+             weights, and a synthetic byte-level tokenizer) written to a
+             temporary directory, loaded by `create_diffusion_model("sd",
+             checkpoint_dir=...)` on the card and checked bit-equal to what
+             was written; a tokenized prompt; `generate_images` (50 steps,
+             CFG 3.5, 512 px); DDIM inversion of a random 512 px image under
+             the prompt; the fused edit with resynthesis inside a latent box
+             and 40 colour-guided steps; a rerun check over 5 guided steps
+             (the split mode beside the fused one, which run one loop), held
+             within RERUN_TOL with bit-equality printed. Checks every kernel's launch
+             count against what each part implies, that no plain attention
+             (but CLIP's causal one) and no plain GroupNorm ran on the card,
+             and finite images; prints the load, generation, inversion and
+             edit seconds and the peak memory.
+8. seg     - the segmentation trainer's path after the SD models are freed:
              `seg.train_loop` (the `seg-train` CLI's entry point) at the
              reference recipe (BiSeNet, ResNet-18, width 64, 19 classes,
              448 px, batch 16, OHEM 3-head loss, warmup -> poly SGD) with
@@ -75,6 +94,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -98,6 +118,9 @@ LSE_TOL = 1e-3  # max |kernel - plain|: f32 log-sum-exp of bf16 inputs, sums in 
 # on the CPU (eps 0.049, latent 0.014, decode 0.024, decode VJP 0.019): eps
 # is looser because CFG scales a difference of two UNet outputs by 3.5.
 TINY_TOL = {"eps": 0.1, "latent": 0.05, "decode": 0.05, "decode_vjp": 0.05}
+# The same for CLIP's states and a 3-step CFG generation's image: the CPU
+# spread of the same computations was 0.0061-0.0068 and 0.009-0.016.
+TINY_PROMPT_TOL = {"clip": 0.02, "generate": 0.05}
 
 FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 64x64", (2, 4096, 8, 40), (2, 4096, 8, 40)),
@@ -661,8 +684,44 @@ def phase_tiny() -> None:
                 f"(tol {tol}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{config} {name}")
+    failed += _tiny_prompt()
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
+
+
+def _tiny_prompt() -> list:
+    """The TINY CLIP text encoder and a 3-step CFG generation under its
+    prompt embedding, bf16 on the card against f32 on the CPU from the same
+    weights, ids and x_T. Returns the names that disagree."""
+    import copy
+
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.models import (
+        TINY_CLIP_TEXT, TINY_SD_UNET, TINY_VAE, AutoencoderKL, CLIPTextEncoder, UNet2DCondition)
+    from diffusion_image_editing_tpu_torch.pipeline import SD
+
+    torch.manual_seed(1)
+    rng = np.random.default_rng(1)
+    modules = (UNet2DCondition(TINY_SD_UNET, device="cpu"), AutoencoderKL(TINY_VAE, device="cpu"),
+               CLIPTextEncoder(TINY_CLIP_TEXT, device="cpu"))
+    ids = rng.integers(0, TINY_CLIP_TEXT.vocab_size, (2, TINY_CLIP_TEXT.max_position_embeddings))
+    xt = torch.from_numpy(rng.standard_normal((1, 4, 8, 8), dtype=np.float32))
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        unet, vae, clip = (copy.deepcopy(m).to(dtype=dtype) for m in modules)
+        sd = SD(unet, vae, schedule_for_model("sd", 3), clip, device=dev)
+        img, _ = sd.generate_image(xt, prompt_ids=ids, num_inference_steps=3)
+        runs[dev] = {"clip": sd.encode_text_ids(ids), "generate": img}
+    failed = []
+    for name, tol in TINY_PROMPT_TOL.items():
+        ref = runs["cpu"][name].float()
+        err = ((runs["cuda"][name].float().cpu() - ref).abs().max() / ref.abs().max()).item()
+        ok = err <= tol and math.isfinite(err)
+        log(f"[tiny] prompt {name} {tuple(ref.shape)}: max|card bf16 - cpu f32| / max|cpu| "
+            f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"prompt {name}")
+    return failed
 
 
 def phase_seg_tiny(devices=("cpu", "cuda")) -> None:
@@ -801,16 +860,24 @@ def per_forward_launches(pieces) -> dict:
     return out
 
 
-def path_launches(per: dict) -> dict:
-    """What the counted run implies from the per-forward launches: UNET_CALLS
-    UNet calls, DECODES decodes (GUIDED of them with a gradient), ENCODES
-    encodes. The final decode has no gradient; it launches the same forward
-    kernels, and its backward kernels are taken off."""
-    total = {k: UNET_CALLS * per["eps"][k] + DECODES * per["decode"][k]
-             + ENCODES * per["encode"][k] for k in per["eps"]}
+def implied_launches(per: dict, unet_calls: int, grad_decodes: int, decodes: int,
+                     encodes: int) -> dict:
+    """What a run implies from the per-forward launches: `unet_calls` UNet
+    calls, `decodes` decodes (`grad_decodes` of them with a gradient),
+    `encodes` encodes. A decode without a gradient launches the same forward
+    kernels; its backward kernels are taken off."""
+    total = {k: unet_calls * per["eps"][k] + decodes * per["decode"][k]
+             + encodes * per["encode"][k] for k in per["eps"]}
     for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        total[k] -= per["decode"][k]  # the final decode runs no backward
+        total[k] -= (decodes - grad_decodes) * per["decode"][k]
     return total
+
+
+def path_launches(per: dict) -> dict:
+    """The [main] and [fused] runs: UNET_CALLS UNet calls, DECODES decodes
+    (GUIDED of them with a gradient; the final decode has none), ENCODES
+    encodes."""
+    return implied_launches(per, UNET_CALLS, GUIDED, DECODES, ENCODES)
 
 
 def count_modules(module, cls) -> int:
@@ -834,17 +901,27 @@ def plain_abn_watch():
     return plain_watch([(ABN, "abn_apply_reference"), (F, "batch_norm")])
 
 
+def plain_attention_watch():
+    """Counts calls of the plain attention and of SDPA on CUDA tensors while
+    the block runs; causal calls (CLIP's, plain by design) apart."""
+    from diffusion_image_editing_tpu_torch.ops import attention as A
+
+    return plain_watch([(A, "attention_reference"), (F, "scaled_dot_product_attention")])
+
+
 @contextlib.contextmanager
 def plain_watch(targets):
     """Counts the calls of each (module, function name) whose first argument
-    is a CUDA tensor while the block runs."""
+    is a CUDA tensor while the block runs; calls with `causal=True` count
+    under "<name> causal"."""
     calls = {name: 0 for _, name in targets}
     originals = [getattr(mod, name) for mod, name in targets]
 
     def counting(name, fn):
         def wrapper(x, *args, **kwargs):
             if x.is_cuda:
-                calls[name] += 1
+                key = f"{name} causal" if kwargs.get("causal") else name
+                calls[key] = calls.get(key, 0) + 1
             return fn(x, *args, **kwargs)
         return wrapper
 
@@ -1016,7 +1093,208 @@ def phase_fused(smi: str, unet, vae) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. seg
+# 7. prompt
+# ---------------------------------------------------------------------------
+
+PROMPT = "a photo of the red cat"
+CFG = 3.5
+MODE_STEPS = 5  # guided steps of the rerun check
+# Both edit modes run one loop (`engine.edit.edit`), so a "split" run beside
+# the "fused" one from the same inputs and noise is a rerun of that loop.
+# Its bound, max|rerun - run| / max|run| of the image, the eps and the pred-x0
+# traces: cuDNN may pick a non-deterministic algorithm (the decoder's
+# gradient runs convolution backwards), and then the reruns differ in the
+# last bits of each step, compounded over the steps. Bit-equality is printed
+# beside it.
+RERUN_TOL = 2e-2
+# A synthetic CLIP vocabulary: every byte, every byte ending a word, the
+# merges below and the two special tokens (no real vocabulary is in the repo).
+MERGES = [("p", "h"), ("ph", "o"), ("pho", "to</w>"), ("t", "o</w>"), ("t", "h"),
+          ("th", "e</w>"), ("r", "e"), ("re", "d</w>"), ("c", "a"), ("ca", "t</w>"),
+          ("o", "f</w>")]
+
+
+def write_tokenizer(path: str) -> int:
+    """An HF tokenizer directory (vocab.json + merges.txt); returns its size."""
+    from diffusion_image_editing_tpu_torch.host.tokenizer import bytes_to_unicode
+
+    byte_vocab = list(bytes_to_unicode().values())
+    tokens = byte_vocab + [v + "</w>" for v in byte_vocab]
+    tokens += ["".join(m) for m in MERGES] + ["<|startoftext|>", "<|endoftext|>"]
+    os.makedirs(path)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in MERGES) + "\n")
+    return len(tokens)
+
+
+def write_sd_checkpoint(root: str, dev) -> tuple:
+    """An HF-layout SD-1.5 directory from seeded random bf16 weights: unet/,
+    vae/ (attention under the legacy names), text_encoder/ (CLIP ViT-L/14),
+    tokenizer/. Returns ({component: the state dict written, on the CPU},
+    bytes of weights)."""
+    from diffusion_image_editing_tpu_torch.models import (
+        CLIP_VIT_L_14_TEXT, SD15_UNET, SD_VAE, AutoencoderKL, CLIPTextEncoder, UNet2DCondition)
+    from diffusion_image_editing_tpu_torch.models.port import save_checkpoint_dir
+
+    torch.manual_seed(7)
+    written, nbytes = {}, 0
+    for sub, cls, cfg, legacy in (("unet", UNet2DCondition, SD15_UNET, False),
+                                  ("vae", AutoencoderKL, SD_VAE, True),
+                                  ("text_encoder", CLIPTextEncoder, CLIP_VIT_L_14_TEXT, False)):
+        module = cls(cfg, device=dev, dtype=torch.bfloat16)
+        nbytes += save_checkpoint_dir(module, os.path.join(root, sub),
+                                      legacy_attention_names=legacy)
+        written[sub] = {k: v.cpu() for k, v in module.state_dict().items()}
+        del module
+    write_tokenizer(os.path.join(root, "tokenizer"))
+    torch.cuda.empty_cache()
+    return written, nbytes
+
+
+def check_loaded(sd, written) -> int:
+    """Every tensor the factory loaded against the one written; returns the
+    number of tensors."""
+    n = 0
+    for sub, module in (("unet", sd.unet), ("vae", sd.vae), ("text_encoder", sd.text_encoder)):
+        state = module.state_dict()
+        if set(state) != set(written[sub]):
+            raise RuntimeError(f"[prompt] {sub}: loaded keys differ from the written ones")
+        for k, v in state.items():
+            want = written[sub][k]
+            if v.dtype != want.dtype or not torch.equal(v.cpu(), want):
+                raise RuntimeError(f"[prompt] {sub}.{k} is not the tensor written")
+            n += 1
+    return n
+
+
+def counted(tag: str, fn, expected: dict):
+    """Runs `fn` with every launch count set to 0 just before it and read
+    just after, watching for plain attention and plain GroupNorm on the card;
+    checks the counts against `expected`. Returns (fn's result, seconds,
+    the counts)."""
+    from diffusion_image_editing_tpu_torch import ops
+
+    with plain_groupnorm_watch() as gn_calls, plain_attention_watch() as attn_calls:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    plain = {k: v for k, v in {**gn_calls, **attn_calls}.items() if not k.endswith("causal")}
+    log(f"[prompt] {tag}: {seconds:.3f} s; launches {counts}")
+    log(f"[prompt] {tag}: expected {expected}; plain calls on the card {plain}, CLIP's causal "
+        f"attentions {attn_calls.get('attention_reference causal', 0)}")
+    if counts != expected:
+        raise RuntimeError(f"[prompt] {tag}: launch counts {counts} differ from {expected}")
+    if any(plain.values()):
+        raise RuntimeError(f"[prompt] {tag}: a plain attention or GroupNorm ran on the card")
+    return out, seconds, counts
+
+
+def check_image(tag: str, imgs, size: int) -> None:
+    finite = bool(torch.isfinite(imgs).all())
+    log(f"[prompt] {tag} image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
+        f"[{imgs.min().item():.3f}, {imgs.max().item():.3f}], red mean "
+        f"{imgs[:, 0].float().mean().item():.4f}")
+    if not finite or tuple(imgs.shape) != (1, 3, size, size):
+        raise RuntimeError(f"[prompt] {tag}: not a finite (1, 3, {size}, {size}) image")
+
+
+def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
+    """The SD path from a checkpoint directory and a prompt; returns the
+    launch counts of the generation, the inversion and the edit."""
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+    from diffusion_image_editing_tpu_torch.pipeline import SD, EditPipeline, create_diffusion_model
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="sd_ckpt_") as root:
+        t0 = time.perf_counter()
+        written, nbytes = write_sd_checkpoint(root, dev)
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                      for f in fs)
+        log(f"[prompt] wrote an SD-1.5 checkpoint directory: {nbytes / 1e9:.3f} GB of bf16 "
+            f"weights, {on_disk} bytes on disk, in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sd = create_diffusion_model("sd", checkpoint_dir=root, num_inference_steps=STEPS,
+                                    device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    n_tensors = check_loaded(sd, written)
+    del written
+    n_params = {name: sum(p.numel() for p in m.parameters())
+                for name, m in (("unet", sd.unet), ("vae", sd.vae), ("clip", sd.text_encoder))}
+    log(f"[prompt] loaded by create_diffusion_model('sd', checkpoint_dir=...) in {load_s:.3f} s: "
+        f"{n_tensors} tensors bit-equal to those written; parameters "
+        + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n_params.items()))
+    ids = sd.tokenizer.encode(PROMPT)
+    log(f"[prompt] {PROMPT!r} -> {ids[:ids.index(sd.tokenizer.eos) + 1]} (padded to {len(ids)})")
+    size = sd.vae.config.sample_size
+    per = per_forward_launches(forward_pieces(
+        fixed_text_sd(sd.unet, sd.vae, sd.schedule, sd.prep_text(ids), dev), dev))
+
+    # Generation: STEPS CFG UNet calls and one decode.
+    (img, _, _, _), gen_s, gen_counts = counted(
+        f"generate ({STEPS} steps, CFG {CFG}, {size} px)",
+        lambda: sd.generate_images(num_images=1, num_inference_steps=STEPS, prompt_ids=ids,
+                                   cfg_scale=CFG),
+        implied_launches(per, STEPS, 0, 1, 0))
+    check_image("generate", img, size)
+
+    # DDIM inversion of a random image, then the fused resynthesized edit.
+    pipe = EditPipeline(sd)
+    rng = np.random.default_rng(3)
+    photo = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
+    lat = size // 2 ** (len(sd.vae.config.block_out_channels) - 1)
+    box = torch.zeros(1, 4, lat, lat, device=dev)
+    box[..., lat // 4:3 * lat // 4, lat // 4:3 * lat // 4] = 1.0
+    (xt, zs, xts, _, _), inv_s, inv_counts = counted(
+        f"DDIM inversion ({STEPS} steps)",
+        lambda: pipe.prepare_real_image_edit(photo, inversion_method="ddim", prompt_ids=ids,
+                                             cfg_scale=CFG),
+        implied_launches(per, STEPS, 0, 0, 1))
+    if zs is not None or xts is not None or not bool(torch.isfinite(xt).all()):
+        raise RuntimeError("[prompt] the DDIM inversion gave noise maps or a non-finite x_T")
+
+    def edit(pipeline, steps, mode, t1):
+        attr = SingleColorAttrFunc(target=0.9, color_idx=0, loss_scale=20.0, t1=t1, t2=steps)
+        return pipeline.edit_image(
+            xt, mask=box, attr_func=attr, prompt_ids=ids, cfg_scale=CFG, resynthesize=True,
+            generator=torch.Generator(device=dev).manual_seed(9), mode=mode)
+
+    out, edit_s, edit_counts = counted(
+        f"fused edit ({GUIDED} guided of {STEPS} steps, resynthesis in a latent box)",
+        lambda: edit(pipe, STEPS, "fused", STEPS - GUIDED),
+        implied_launches(per, STEPS, GUIDED, GUIDED + 1, 0))
+    check_image("fused edit", out.imgs, size)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[prompt] load {load_s:.3f} s, generate {gen_s:.3f} s, DDIM inversion {inv_s:.3f} s, "
+        f"fused edit {edit_s:.3f} s, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+
+    # The rerun check: the "split" mode beside the "fused" one, MODE_STEPS
+    # guided steps from the same inputs and noise (RERUN_TOL).
+    sd5 = SD(sd.unet, sd.vae, sd.schedule.with_num_inference_steps(MODE_STEPS),
+             sd.text_encoder, sd.tokenizer, device=dev)
+    runs = {mode: edit(EditPipeline(sd5), MODE_STEPS, mode, 0) for mode in ("fused", "split")}
+    errs, same = {}, {}
+    for k in ("imgs", "model_outputs", "pred_original_samples"):
+        a, b = getattr(runs["fused"], k).float(), getattr(runs["split"], k).float()
+        errs[k] = ((b - a).abs().max() / a.abs().max()).item()
+        same[k] = torch.equal(a, b)
+    ok = all(e <= RERUN_TOL for e in errs.values())
+    log(f"[prompt] rerun of the guided loop ({MODE_STEPS} steps, mode 'split' after 'fused', "
+        f"one loop): max|rerun - run| / max|run| "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {RERUN_TOL}); bit-equal {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("[prompt] a rerun of the guided loop differs beyond RERUN_TOL")
+    return {"generate": gen_counts, "invert": inv_counts, "edit": edit_counts}
+
+
+# ---------------------------------------------------------------------------
+# 8. seg
 # ---------------------------------------------------------------------------
 
 
@@ -1155,6 +1433,9 @@ def main() -> int:
     counts = phase_main_path(smi, unet, vae)
     fused_counts = phase_fused(smi, unet, vae)
     del unet, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_prompt(smi)
     gc.collect()
     torch.cuda.empty_cache()
     seg_counts = phase_seg(smi)

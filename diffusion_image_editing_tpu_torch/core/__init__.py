@@ -7,6 +7,8 @@ from .schedule import (  # noqa: F401
     ddim_step,
     forward_step,
     make_schedule,
+    mu_tilde,
+    next_step,
     posterior_mean_from_eps,
     pred_original_sample,
     prev_timestep,

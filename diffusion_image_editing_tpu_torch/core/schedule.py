@@ -96,10 +96,16 @@ class Schedule:
     def with_clip_sample(self, clip_sample: bool) -> "Schedule":
         return dataclasses.replace(self, clip_sample=clip_sample)
 
-    def with_num_inference_steps(self, num_inference_steps: int) -> "Schedule":
-        ts = _inference_timesteps(self.num_train_timesteps, num_inference_steps,
-                                  self.timestep_spacing, self.steps_offset)
-        return dataclasses.replace(self, timesteps=ts, num_inference_steps=num_inference_steps)
+    def with_num_inference_steps(self, num_inference_steps: int,
+                                 timestep_spacing: Optional[str] = None,
+                                 steps_offset: Optional[int] = None) -> "Schedule":
+        """The same schedule at another step count; the spacing and offset
+        are the schedule's own unless overridden."""
+        spacing = self.timestep_spacing if timestep_spacing is None else timestep_spacing
+        offset = self.steps_offset if steps_offset is None else steps_offset
+        ts = _inference_timesteps(self.num_train_timesteps, num_inference_steps, spacing, offset)
+        return dataclasses.replace(self, timesteps=ts, num_inference_steps=num_inference_steps,
+                                   steps_offset=offset, timestep_spacing=spacing)
 
 
 def make_schedule(
@@ -215,6 +221,16 @@ def reverse_step(s: Schedule, sample, eps, t, eta: float = 0.0,
     return prev, x0
 
 
+def next_step(s: Schedule, sample, eps, t) -> torch.Tensor:
+    """DDIM-inversion step x_{t-1} -> x_t at timestep t: the inverse of
+    `ddim_step` (eta 0) at equal eps."""
+    cur_t = torch.clamp(_as_t(s, t) - s.step_ratio, max=s.num_train_timesteps - 1)
+    a_t = bcast(alpha_bar(s, cur_t), sample)
+    a_next = bcast(alpha_bar(s, t), sample)
+    x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    return torch.sqrt(a_next) * x0 + torch.sqrt(1.0 - a_next) * eps
+
+
 def forward_step(s: Schedule, sample, eps, t) -> torch.Tensor:
     """eta = 0 forward step of the DDPM inversion."""
     next_t = torch.clamp(_as_t(s, t) + s.step_ratio, max=s.num_train_timesteps - 2)
@@ -227,6 +243,16 @@ def add_noise(s: Schedule, x0, noise, t) -> torch.Tensor:
     """q(x_t | x_0) mean path: sqrt(a_t) x0 + sqrt(1 - a_t) noise."""
     a_t = bcast(alpha_bar(s, t), x0)
     return torch.sqrt(a_t) * x0 + torch.sqrt(1.0 - a_t) * noise
+
+
+def mu_tilde(s: Schedule, xt, x0, t) -> torch.Tensor:
+    """Posterior mean mu~(x_t, x_0) in the reference's form (DDPM eq. 7 with
+    beta_t taken as 1 - alpha_bar_t, as the JAX package keeps it)."""
+    a_t = bcast(alpha_bar(s, t), xt)
+    a_prev = bcast(alpha_bar(s, prev_timestep(s, t)), xt)
+    beta_t = 1.0 - a_t
+    return ((torch.sqrt(a_prev) * beta_t / (1.0 - a_t)) * x0
+            + (torch.sqrt(a_t) * (1.0 - a_prev) / (1.0 - a_t)) * xt)
 
 
 def posterior_mean_from_eps(s: Schedule, sample, eps, t,

@@ -1,3 +1,17 @@
-from .denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClosure  # noqa: F401
+from .denoise import (  # noqa: F401
+    CfgEpsClosure,
+    DecodeClosure,
+    EncodeClosure,
+    EpsClosure,
+    Trajectory,
+    generate,
+)
 from .edit import EditResult, edit_split  # noqa: F401
-from .invert import InversionResult, ddpm_invert, ddpm_invert_batched, sample_xts  # noqa: F401
+from .invert import (  # noqa: F401
+    InversionResult,
+    ddim_invert,
+    ddpm_invert,
+    ddpm_invert_batched,
+    ddpm_sample,
+    sample_xts,
+)

@@ -1,15 +1,18 @@
-"""Denoiser and codec closures: the port of `engine/denoise.py`.
+"""Denoiser and codec closures and the generation loop: the port of
+`engine/denoise.py`.
 
 UNet calls run under `torch.no_grad()`: the guidance gradient flows through
 the decoder only, never through the UNet."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..core import schedule as S
 
 EpsFn = Callable[[torch.Tensor, object], torch.Tensor]  # (x_t, t) -> eps
 
@@ -74,3 +77,36 @@ class EncodeClosure:
             return x
         with torch.no_grad():
             return self.vae.encode(x) * self.scale
+
+
+class Trajectory(NamedTuple):
+    """Final latent plus optional per-step traces (stacked on axis 0)."""
+
+    x0: torch.Tensor
+    xts: Optional[torch.Tensor] = None
+    model_outputs: Optional[torch.Tensor] = None
+    pred_original_samples: Optional[torch.Tensor] = None
+
+
+def generate(
+    sched: S.Schedule,
+    eps_fn: EpsFn,
+    xt: torch.Tensor,
+    eta: float = 0.0,
+    zs: Optional[torch.Tensor] = None,
+    num_steps: Optional[int] = None,
+    step_rule: str = "ddim",
+    collect: bool = False,
+    encoder_reuse: int = 1,
+) -> Trajectory:
+    """The denoising loop x_T -> x_0: `engine.edit.edit_split` with no
+    attribute function. Only the last n timesteps run, n = `num_steps`,
+    else len(zs), else the schedule's (the reference's truncation); zs[-n:]
+    (S', B, C, H, W) is the per-step variance noise, required when eta > 0.
+    `step_rule` "ddim" takes `ddim_step`, "ddpm" the edit-friendly
+    `reverse_step`."""
+    from .edit import edit_split, refuse_encoder_reuse  # engine.edit imports this module
+
+    refuse_encoder_reuse(encoder_reuse)
+    return Trajectory(*edit_split(sched, eps_fn, xt, eta=eta, zs=zs, step_rule=step_rule,
+                                  collect=collect, num_steps=num_steps))

@@ -1,8 +1,13 @@
-"""Guided editing loop: the port of `engine/edit.py::edit_split`.
+"""Guided editing loop: the port of `engine/edit.py` (`edit_split` and
+`edit`).
 
 Each step runs the (CFG) UNet without gradient, takes a `reverse_step`
 ("ddpm", the DDPM + t_skip branch) or `ddim_step` ("ddim") update, then the
-attribute function's nudge: a gradient through decode and loss."""
+attribute function's nudge: a gradient through decode and loss. The JAX
+package has two forms of the loop, one jitted scan (`edit`) and a host loop
+of jitted steps (`edit_split`); in torch there is one host loop,
+`edit_split`, which also serves unguided generation, and `edit` only adds
+the JAX signature's `encoder_reuse` check to it."""
 
 from __future__ import annotations
 
@@ -34,15 +39,20 @@ def edit_split(
     x0_ref: Optional[torch.Tensor] = None,
     step_rule: str = "ddim",
     collect: bool = False,
+    num_steps: Optional[int] = None,
 ) -> EditResult:
-    """Guided denoising over the last len(zs) (or all) timesteps, one host
-    step at a time. t_skip is applied by the caller slicing xt = xts[t_skip]
-    and zs = zs[t_skip:]."""
+    """Guided denoising over the last n timesteps, one host step at a time:
+    n = `num_steps`, else len(zs), else the schedule's; zs[-n:] is the
+    per-step variance noise. t_skip is applied by the caller slicing
+    xt = xts[t_skip] and zs = zs[t_skip:]. With no `attr_func` this is the
+    generation loop (`engine.denoise.generate`)."""
     if eta > 0 and zs is None:
         raise ValueError("eta > 0 requires zs")
     if step_rule not in ("ddim", "ddpm"):
         raise ValueError(f"Unknown step rule {step_rule!r}")
-    n = zs.shape[0] if zs is not None else sched.num_inference_steps
+    n = num_steps if num_steps is not None else (
+        zs.shape[0] if zs is not None else sched.num_inference_steps)
+    zs = zs[-n:] if zs is not None else None
     step = S.reverse_step if step_rule == "ddpm" else S.ddim_step
     if decode_fn is None:
         decode_fn = DecodeClosure()  # identity codec
@@ -63,3 +73,31 @@ def edit_split(
     if collect:
         return EditResult(x, torch.stack(xts_out), torch.stack(eps_out), torch.stack(px0_out))
     return EditResult(x)
+
+
+def edit(
+    sched: S.Schedule,
+    eps_fn: EpsFn,
+    xt: torch.Tensor,
+    eta: float = 0.0,
+    zs: Optional[torch.Tensor] = None,
+    attr_func: Optional[AttrFunc] = None,
+    decode_fn: Optional[DecodeFn] = None,
+    mask: Optional[torch.Tensor] = None,
+    x0_ref: Optional[torch.Tensor] = None,
+    step_rule: str = "ddim",
+    collect: bool = False,
+    encoder_reuse: int = 1,
+) -> EditResult:
+    """The whole guided loop in one call (the JAX package's `mode="fused"`
+form): `edit_split`'s loop."""
+    refuse_encoder_reuse(encoder_reuse)
+    return edit_split(sched, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func,
+                      decode_fn=decode_fn, mask=mask, x0_ref=x0_ref, step_rule=step_rule,
+                      collect=collect)
+
+
+def refuse_encoder_reuse(encoder_reuse: int) -> None:
+    if encoder_reuse > 1:
+        raise NotImplementedError("encoder_reuse > 1 (encoder propagation) comes with "
+                                  "Queue A item 16")

@@ -1,10 +1,16 @@
-"""Edit-friendly DDPM inversion (arXiv 2304.06140): the port of
-`engine/invert.py` (`sample_xts`, `ddpm_invert`, `ddpm_invert_batched`).
+"""Inversion loops: the port of `engine/invert.py`.
 
-The forward trajectory x_1:T is sampled independently per timestep, then
-each step's noise map z_t = (x_{t-1} - mu_hat_t) / sigma_t is extracted.
-The random draw is an explicit `noise` tensor or a `torch.Generator`, so a
-test can hand both frameworks the same numbers.
+* `ddim_invert`: deterministic x_0 -> x_T, with optional fixed-point
+  refinement toward the exact inverse of the DDIM step.
+* Edit-friendly DDPM inversion (arXiv 2304.06140): the forward trajectory
+  x_1:T is sampled independently per timestep, then each step's noise map
+  z_t = (x_{t-1} - mu_hat_t) / sigma_t is extracted, one step at a time
+  (`ddpm_invert`) or timesteps batched together (`ddpm_invert_batched`);
+  `ddpm_sample` re-generates from the extracted maps.
+
+One host loop serves each of the JAX package's scan and split forms. The
+random draw is an explicit `noise` tensor or a `torch.Generator`, so a test
+can hand both frameworks the same numbers.
 """
 
 from __future__ import annotations
@@ -15,6 +21,29 @@ import torch
 
 from ..core import schedule as S
 from .denoise import EpsFn
+
+
+def ddim_invert(
+    sched: S.Schedule,
+    eps_fn: EpsFn,
+    x0: torch.Tensor,
+    num_steps: Optional[int] = None,
+    refine_iters: int = 0,
+) -> torch.Tensor:
+    """x_T <- x_0 by DDIM inversion over the last `num_steps` (default all)
+    timesteps, ascending. `refine_iters` = m > 0 refines each step m times,
+    eps <- eps_fn(x_t_est, t); x_t_est <- next_step(x_{t-1}, eps, t), toward
+    the x_t whose DDIM step reproduces x_{t-1} exactly: m more UNet calls a
+    step."""
+    n = num_steps or sched.num_inference_steps
+    x = x0
+    for t in sched.timesteps[-n:][::-1]:
+        t = int(t)
+        x_next = S.next_step(sched, x, eps_fn(x, t), t)
+        for _ in range(refine_iters):
+            x_next = S.next_step(sched, x, eps_fn(x_next, t), t)
+        x = x_next
+    return x
 
 
 class InversionResult(NamedTuple):
@@ -58,11 +87,17 @@ def ddpm_invert(
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
     xts: Optional[torch.Tensor] = None,
+    start: int = 0,
 ) -> InversionResult:
     """Sequential edit-friendly DDPM inversion, one UNet call per timestep.
     eta == 0 degenerates to the deterministic forward-step loop; eta > 0
-    needs `generator`, `noise` or a precomputed `xts`."""
+    needs `generator`, `noise` or a precomputed `xts`. `start=k` extracts z
+    only for timestep indices >= k, as `ddpm_invert_batched` does."""
     ts = sched.timesteps
+    n = sched.num_inference_steps
+    start = int(start)
+    if not 0 <= start < n:
+        raise ValueError(f"start must be in [0, {n}), got {start}")
     if eta == 0:
         x = x0
         for t in ts[::-1]:
@@ -70,15 +105,19 @@ def ddpm_invert(
         return InversionResult(x, None, None)
     xts = _trajectory(sched, x0, generator, noise, xts)
     zs, xtm1 = [], []
-    for idx, t in enumerate(ts):
-        eps = eps_fn(xts[idx], int(t))
-        mu, sigma = S.posterior_mean_from_eps(sched, xts[idx], eps, int(t), eta)
+    for idx in range(start, n):
+        t = int(ts[idx])
+        eps = eps_fn(xts[idx], t)
+        mu, sigma = S.posterior_mean_from_eps(sched, xts[idx], eps, t, eta)
         z = (xts[idx + 1] - mu) / sigma
         zs.append(z)
         xtm1.append(mu + sigma * z)  # eq.-3 correction: the identity in exact arithmetic
     zs[-1] = torch.zeros_like(zs[-1])
-    xts_out = torch.cat([xts[:1], torch.stack(xtm1)], dim=0)
-    return InversionResult(xts_out[0], torch.stack(zs), xts_out)
+    zs = torch.stack(zs)
+    if start:
+        zs = torch.cat([zs.new_zeros((start,) + tuple(zs.shape[1:])), zs])
+    xts_out = torch.cat([xts[:start + 1], torch.stack(xtm1)], dim=0)
+    return InversionResult(xts_out[0], zs, xts_out)
 
 
 def ddpm_invert_batched(
@@ -133,3 +172,31 @@ def ddpm_invert_batched(
         zs = torch.cat([zs.new_zeros((start, b) + sample_shape), zs])
     xts_out = torch.cat([xts[:start + 1], xtm1], dim=0)
     return InversionResult(xts_out[0], zs, xts_out)
+
+
+def ddpm_sample(
+    sched: S.Schedule,
+    eps_fn: EpsFn,
+    zs: torch.Tensor,
+    xts: torch.Tensor,
+    t_skip: int = 36,
+    eta: float = 1.0,
+    collect: bool = False,
+):
+    """Re-generate from extracted noise maps: start at xts[t_skip], consume
+    zs[t_skip:], one `reverse_step` a timestep. Returns x_0, and with
+    `collect` also the (S - t_skip, B, C, H, W) trajectory after each step.
+
+    The round trip reproduces the inversion's trajectory at every step but
+    the last: zs[-1] is zeroed, so the last step returns the model's pred-x0
+    rather than x_0 (as the reference)."""
+    zs_used = zs[t_skip:]
+    x = xts[t_skip]
+    traj = []
+    for i, t in enumerate(sched.timesteps[-zs_used.shape[0]:]):
+        t = int(t)
+        x, _ = S.reverse_step(sched, x, eps_fn(x, t), t, eta=eta,
+                              noise=zs_used[i] if eta > 0 else None)
+        if collect:
+            traj.append(x)
+    return (x, torch.stack(traj)) if collect else x

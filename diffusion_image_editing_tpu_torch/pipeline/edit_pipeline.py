@@ -1,17 +1,20 @@
 """EditPipeline, the top-level editing API: the port of
-`pipeline/edit_pipeline.py` for real-image edits without segmentation:
-encode -> edit-friendly DDPM inversion -> guided denoise -> decode."""
+`pipeline/edit_pipeline.py` for real-image edits with a given mask:
+encode -> DDIM or edit-friendly DDPM inversion -> optional resynthesis
+inside the mask -> guided denoise -> decode. Segmentation masks come with
+Queue A item 15a."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..engine import invert as I
-from ..engine.edit import edit_split
+from ..engine.edit import edit
 from ..guidance.attr_functions import AttrFunc
+from .masks import apply_mask
 from .wrappers import SD
 
 
@@ -23,13 +26,14 @@ class EditorOutput:
 
 
 class EditPipeline:
-    """Real-image editing with a diffusion wrapper and attribute functions.
-    Ported so far: DDPM inversion in "batched" mode and the "split" edit,
-    with a given mask; segmentation and resynthesis come in a later slice."""
+    """Real-image editing with a diffusion wrapper and attribute functions:
+    DDIM or DDPM inversion in every mode of the JAX package, then the guided
+    edit in either mode, with a given mask and resynthesis. Random draws come
+    from a `torch.Generator` or from explicit tensors."""
 
     def __init__(self, diffusion_wrapper: SD, segmentation_fn=None):
         if segmentation_fn is not None:
-            raise NotImplementedError("segmentation comes in a later slice of the port")
+            raise NotImplementedError("segmentation comes with Queue A item 15a")
         self.diffusion_wrapper = diffusion_wrapper
 
     def check_inputs(self, attr_func, eta, mask, resynthesize, zs) -> None:
@@ -40,11 +44,47 @@ class EditPipeline:
         if attr_func is None and (mask is None or resynthesize is None):
             raise ValueError("attr_func is None and mask is None implies no edit")
 
-    def prepare_for_edit(self, img: torch.Tensor, classes: Optional[Sequence[int]] = None):
-        """Encode; returns (latent, mask=None, parsing=None)."""
-        if classes is not None:
-            raise NotImplementedError("segmentation classes come in a later slice of the port")
+    def prepare_for_edit(self, img: torch.Tensor, classes: Optional[Sequence[int]] = None,
+                         dilate_mask: bool = False):
+        """Encode; returns (latent, mask=None, parsing=None). `classes` and
+        `dilate_mask`, which make and widen a segmentation mask, come with
+        Queue A item 15a."""
+        if classes is not None or dilate_mask:
+            raise NotImplementedError("segmentation classes and dilate_mask come with "
+                                      "Queue A item 15a")
         return self.diffusion_wrapper.encode(img), None, None
+
+    def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        """The caller's generator, else one on the device seeded with 0 (the
+        JAX package's default key)."""
+        if generator is not None:
+            return generator
+        return torch.Generator(device=self.diffusion_wrapper.device).manual_seed(0)
+
+    def edit_noise_map(self, noise_map: torch.Tensor, mask: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Resynthesis blend: fresh noise inside the mask, for a (B, C, H, W)
+        x_T or (S, B, C, H, W) noise maps. The fresh noise is `noise`, or is
+        drawn from `generator`."""
+        if noise is None:
+            noise = torch.randn(noise_map.shape, generator=self._generator(generator),
+                                device=noise_map.device, dtype=noise_map.dtype)
+        return apply_mask(mask, noise_map, noise.to(noise_map.device, noise_map.dtype))
+
+    def edit_noise_maps(self, xt, zs, mask, resynthesize,
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None):
+        """x_T and zs with fresh noise inside the mask when `resynthesize`;
+        `noise` = (fresh x_T, fresh zs) replaces the draws (x_T's first, then
+        zs's, from one generator)."""
+        if mask is not None and resynthesize:
+            fresh_xt, fresh_zs = noise if noise is not None else (None, None)
+            gen = self._generator(generator) if noise is None else None
+            xt = self.edit_noise_map(xt, mask, gen, fresh_xt)
+            if zs is not None:
+                zs = self.edit_noise_map(zs, mask, gen, fresh_zs)
+        return xt, zs
 
     def prepare_real_image_edit(
         self,
@@ -52,11 +92,13 @@ class EditPipeline:
         eta: float = 0.0,
         inversion_method: str = "ddim",
         classes: Optional[Sequence[int]] = None,
+        dilate_mask: bool = False,
         prompt_ids=None,
         cfg_scale: float = 3.5,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
         mode: Optional[str] = None,
+        refine_iters: int = 0,
         t_skip: Optional[int] = None,
         chunk: int = 10,
     ):
@@ -64,28 +106,38 @@ class EditPipeline:
         (xt, zs, xts, mask, parsing).
 
         The defaults are the JAX package's: DDIM inversion at eta 0, and
-        `mode=None` picks "batched" for DDPM and "split" for DDIM. DDIM
-        inversion is not ported yet, so a call that leaves them raises
-        NotImplementedError. The forward trajectory's noise is `noise`
-        (S, B, C, H, W) or drawn from `generator`. `t_skip`: the edit will
-        skip its first t_skip steps, so z is extracted only for the suffix
-        it reads."""
+        `mode=None` picks "batched" for DDPM and "split" for DDIM. DDIM's
+        modes "split" and "fused" are the same loop (`refine_iters` refines
+        each step toward the exact inverse). DDPM: "split" extracts the
+        noise maps one timestep at a time, "batched" `chunk` timesteps a
+        UNet call, "fused" one at a time over the whole trajectory (it
+        ignores `t_skip`, as the JAX package's scan does). The DDPM forward
+        trajectory's noise is `noise` (S, B, C, H, W) or drawn from
+        `generator`. `t_skip`: the edit will skip its first t_skip steps,
+        so "split" and "batched" extract z only for the suffix it reads."""
         if mode is None:
             mode = "batched" if inversion_method == "ddpm" else "split"
         if inversion_method == "ddim" and eta > 0:
             raise ValueError("eta > 0 and inversion_method == 'ddim' is not possible")
         if inversion_method not in ("ddim", "ddpm"):
             raise ValueError(f"Unknown inversion method: {inversion_method}")
-        if inversion_method != "ddpm" or mode != "batched":
-            raise NotImplementedError(
-                "ported so far: inversion_method='ddpm' with mode='batched'")
+        modes = ("split", "fused") + (("batched",) if inversion_method == "ddpm" else ())
+        if mode not in modes:
+            raise ValueError(f"Unknown mode {mode!r} for {inversion_method}; choose from {modes}")
         w = self.diffusion_wrapper
-        latent, mask, parsing = self.prepare_for_edit(img, classes)
+        latent, mask, parsing = self.prepare_for_edit(img, classes, dilate_mask)
         sched = w.schedule
         eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
+        if inversion_method == "ddim":
+            xt = I.ddim_invert(sched, eps_fn, latent, refine_iters=refine_iters)
+            return xt, None, None, mask, parsing
         start = _clamp_t_skip(t_skip, sched.num_inference_steps)
-        res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta, generator=generator,
-                                    noise=noise, chunk=chunk, start=start)
+        if mode == "batched":
+            res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta, generator=generator,
+                                        noise=noise, chunk=chunk, start=start)
+        else:
+            res = I.ddpm_invert(sched, eps_fn, latent, eta=eta, generator=generator,
+                                noise=noise, start=start if mode == "split" else 0)
         return res.xt, res.zs, res.xts, mask, parsing
 
     def edit_image(
@@ -102,22 +154,41 @@ class EditPipeline:
         t_skip: Optional[int] = None,
         resynthesize: bool = False,
         x0_ref: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
         collect: bool = True,
-        mode: str = "split",
+        mode: str = "fused",
+        decode_remat: str = "auto",
+        encoder_reuse: int = 1,
+        guidance_codec: str = "full",
     ) -> EditorOutput:
-        """Guided denoise of the inverted noise maps, then decode.
+        """Guided denoise of the (possibly resynthesized) noise maps, then
+        decode.
 
-        With `xts`, starts from xts[t_skip] and reads zs[t_skip:], with
-        t_skip clamped to the last step as `prepare_real_image_edit` clamps
-        the inversion's start. `mask` (NCHW, at latent resolution, or
-        broadcastable to the latent) goes to the attribute function's
-        masked options (`use_mask`, `mask_attr_grad`,
-        `mask_pred_original_sample`)."""
-        if mode != "split":
-            raise NotImplementedError("ported so far: mode='split'")
+        `resynthesize` with a `mask` draws fresh noise inside the mask for
+        x_T and zs (`edit_noise_maps`: from `generator`, else one seeded
+        with 0, or the explicit pair `noise`), before `xts`/`t_skip` pick
+        the start. With `xts`, starts from xts[t_skip] and reads
+        zs[t_skip:], with t_skip clamped to the last step as
+        `prepare_real_image_edit` clamps the inversion's start. `mask`
+        (NCHW, at latent resolution, or broadcastable to the latent) also
+        goes to the attribute function's masked options (`use_mask`,
+        `mask_attr_grad`, `mask_pred_original_sample`). Both modes run
+        `engine.edit.edit`: the JAX package's jitted scan ("fused") and host
+        loop ("split") are one host loop in torch."""
+        if mode not in ("fused", "split"):
+            raise ValueError(f"Unknown mode {mode!r}")
+        if decode_remat not in ("auto", "blocks", "none"):
+            raise ValueError(f"Unknown decode_remat: {decode_remat}")
+        if decode_remat == "blocks":
+            raise NotImplementedError("decode_remat='blocks' (the decoder's per-block "
+                                      "checkpointing) comes with Queue A items 6 / 9")
+        if guidance_codec not in ("full", "proxy"):
+            raise ValueError(f"Unknown guidance_codec: {guidance_codec}")
+        if guidance_codec == "proxy":
+            raise NotImplementedError("guidance_codec='proxy' comes with Queue A item 16")
         self.check_inputs(attr_func, eta, mask, resynthesize, zs)
-        if resynthesize:
-            raise NotImplementedError("resynthesis comes in a later slice of the port")
+        xt, zs = self.edit_noise_maps(xt, zs, mask, resynthesize, generator, noise)
         if xts is not None:
             if t_skip is None:
                 raise ValueError("xts given but t_skip is None")
@@ -127,10 +198,10 @@ class EditPipeline:
         w = self.diffusion_wrapper
         eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
         step_rule = "ddpm" if (inversion_method == "ddpm" and t_skip is not None) else "ddim"
-        result = edit_split(
+        result = edit(
             w.schedule, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func,
             decode_fn=w.decode_fn(), mask=mask, x0_ref=x0_ref, step_rule=step_rule,
-            collect=collect,
+            collect=collect, encoder_reuse=encoder_reuse,
         )
         return EditorOutput(imgs=w.decode(result.x0),
                             pred_original_samples=result.pred_original_samples,

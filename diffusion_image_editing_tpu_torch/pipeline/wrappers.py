@@ -1,29 +1,33 @@
 """Model-family wrappers: the port of `pipeline/wrappers.py` for Stable
-Diffusion (KL-VAE codec with the 0.18215 latent scale)."""
+Diffusion (KL-VAE codec with the 0.18215 latent scale, CLIP prompts, and
+the generation API)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
 from ..core.schedule import Schedule
+from ..engine import denoise as D
 from ..engine.denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClosure
 
 
 class SD:
-    """Stable Diffusion: UNet + schedule + KL-VAE codec on one device.
+    """Stable Diffusion: UNet + schedule + KL-VAE codec, and optionally the
+    CLIP text encoder and its tokenizer, on one device.
 
     `prep_text(None)` is None, as in the JAX package: the run is then
-    unconditional. CLIP and the tokenizer come in a later slice, so prompt
-    ids are refused; a caller with a precomputed [uncond; cond] embedding
-    (2, L, D) overrides `prep_text`, as `bench.py` does. `device=None` means
-    CUDA and raises without it; the modules and the schedule are moved
+    unconditional. Prompt ids need the text encoder; a single sequence is
+    paired with the empty prompt, which needs the tokenizer. `device=None`
+    means CUDA and raises without it; the modules and the schedule are moved
     there."""
 
-    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule, device=None):
+    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
+                 text_encoder: Optional[nn.Module] = None, tokenizer=None, device=None):
         self.device = resolve_device(device)
         # Inference only: the guidance gradient is taken with respect to the
         # latent, so no weight needs one (XLA drops the weights' gradients in
@@ -31,11 +35,17 @@ class SD:
         # dw included).
         self.unet = unet.to(self.device).requires_grad_(False)
         self.vae = vae.to(self.device).requires_grad_(False)
+        self.text_encoder = (None if text_encoder is None
+                             else text_encoder.to(self.device).requires_grad_(False))
+        self.tokenizer = tokenizer
         self.schedule = sched.to(self.device)
+        self.data_dimensionality = unet.config.sample_size
+        self.latent_channels = unet.config.in_channels
         scale = vae.config.scaling_factor
         self._encode = EncodeClosure(self.vae, scale)
         self._decode = DecodeClosure(self.vae, scale)
 
+    # ---- codec boundary --------------------------------------------------
     def decode_fn(self) -> DecodeClosure:
         """Differentiable latent -> image callable for guidance."""
         return self._decode
@@ -47,12 +57,106 @@ class SD:
         with torch.no_grad():
             return self._decode(latent)
 
+    # ---- text ------------------------------------------------------------
+    def encode_text_ids(self, input_ids) -> torch.Tensor:
+        """(B, L) token ids -> (B, L, D) f32 CLIP hidden states."""
+        if self.text_encoder is None:
+            raise ValueError("prompt ids need a text encoder")
+        ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids)
+                              else input_ids, device=self.device)
+        with torch.no_grad():
+            return self.text_encoder(ids)
+
     def prep_text(self, prompt_ids=None) -> Optional[torch.Tensor]:
+        """prompt_ids: (L,) or (2, L) token ids, or None. A single sequence
+        is paired with the empty prompt's ids: the embedding is always
+        [uncond; cond]."""
         if prompt_ids is None:
             return None
-        raise NotImplementedError("prompt ids need the CLIP text encoder (a later slice)")
+        ids = torch.as_tensor(np.asarray(prompt_ids) if not torch.is_tensor(prompt_ids)
+                              else prompt_ids).long()
+        if ids.dim() == 1:
+            if self.tokenizer is None:
+                raise ValueError("pairing with the empty prompt requires a tokenizer")
+            uncond = torch.as_tensor(self.tokenizer.encode(""), dtype=torch.long)
+            ids = torch.stack([uncond, ids.cpu()])
+        return self.encode_text_ids(ids)
 
+    # ---- denoiser --------------------------------------------------------
     def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
         if text_emb is None:
             return EpsClosure(self.unet)
         return CfgEpsClosure(self.unet, text_emb, cfg_scale)
+
+    # ---- sampling helpers --------------------------------------------------
+    def latent_shape(self, batch: int = 1) -> Tuple[int, ...]:
+        d = self.data_dimensionality
+        return (batch, self.latent_channels, d, d)
+
+    def initialize_random_samples(self, generator: Optional[torch.Generator],
+                                  num_inference_steps: int, eta: float,
+                                  batch: int = 1) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x_T (and the per-step noise zs when eta > 0), f32 on the device,
+        drawn from `generator` (which lives on the same device)."""
+        shape = self.latent_shape(batch)
+        xt = torch.randn(shape, generator=generator, device=self.device)
+        zs = None
+        if eta > 0:
+            zs = torch.randn((num_inference_steps,) + shape, generator=generator,
+                             device=self.device)
+        return xt, zs
+
+    # ---- generation API ----------------------------------------------------
+    def generate_image(
+        self,
+        xt: torch.Tensor,
+        eta: float = 0.0,
+        zs: Optional[torch.Tensor] = None,
+        num_inference_steps: int = 50,
+        prompt_ids=None,
+        cfg_scale: float = 3.5,
+        collect: bool = False,
+        mode: str = "fused",
+        encoder_reuse: int = 1,
+    ) -> Tuple[torch.Tensor, D.Trajectory]:
+        """One denoising run; returns (decoded image NCHW in [-1, 1],
+        Trajectory). Both modes run `engine.denoise.generate`: the JAX
+        package's jitted scan ("fused") and host loop ("split") are one host
+        loop in torch."""
+        if mode not in ("fused", "split"):
+            raise ValueError(f"Unknown mode {mode!r}")
+        sched = self._sched_for(num_inference_steps)
+        eps_fn = self.eps_fn(self.prep_text(prompt_ids), cfg_scale)
+        zs = None if zs is None else zs.to(self.device)
+        traj = D.generate(sched, eps_fn, xt.to(self.device), eta=eta, zs=zs, collect=collect,
+                          encoder_reuse=encoder_reuse)
+        return self.decode(traj.x0), traj
+
+    def generate_images(
+        self,
+        num_images: int = 1,
+        eta: float = 0.0,
+        num_inference_steps: int = 50,
+        seed: Optional[int] = None,
+        prompt_ids=None,
+        cfg_scale: float = 3.5,
+        collect: bool = False,
+        encoder_reuse: int = 1,
+    ):
+        """A batch of `num_images` from one batched run, its noise drawn from
+        a generator on the device seeded with `seed` (0 when None). Returns
+        (images, Trajectory, xt, zs)."""
+        generator = torch.Generator(device=self.device).manual_seed(
+            0 if seed is None else int(seed))
+        xt, zs = self.initialize_random_samples(generator, num_inference_steps, eta,
+                                                batch=num_images)
+        img, traj = self.generate_image(
+            xt, eta=eta, zs=zs, num_inference_steps=num_inference_steps,
+            prompt_ids=prompt_ids, cfg_scale=cfg_scale, collect=collect,
+            encoder_reuse=encoder_reuse)
+        return img, traj, xt, zs
+
+    def _sched_for(self, num_inference_steps: int) -> Schedule:
+        if num_inference_steps == self.schedule.num_inference_steps:
+            return self.schedule
+        return self.schedule.with_num_inference_steps(num_inference_steps)

@@ -1,5 +1,6 @@
-"""The port's engine (inversion, guided edit, guidance nudges, CFG closure)
-against the JAX package's, with the same numpy inputs.
+"""The port's engine (DDIM and DDPM inversion, re-generation, the generation
+loop, the guided edit in both forms, guidance nudges, CFG closure) against
+the JAX package's, with the same numpy inputs.
 
 The denoiser and the codec are small analytic functions written for both
 frameworks (a channel mix under tanh, scaled by the timestep), so these
@@ -24,6 +25,7 @@ from diffusion_image_editing_tpu.core import schedule_for_model as j_schedule
 from diffusion_image_editing_tpu.engine import denoise as JD
 from diffusion_image_editing_tpu.engine import invert as JI
 from diffusion_image_editing_tpu.guidance import attr_functions as JA
+from diffusion_image_editing_tpu_torch.core import schedule as TS
 from diffusion_image_editing_tpu_torch.core import schedule_for_model as t_schedule
 from diffusion_image_editing_tpu_torch.engine import denoise as TD
 from diffusion_image_editing_tpu_torch.engine import edit as TE
@@ -251,3 +253,133 @@ def test_registry_builds_ported_strategies():
     assert isinstance(af, TA.SingleColorAttrFunc) and af.target == 0.3
     with pytest.raises(ValueError):
         reg.get("NetAttrFunc")
+
+
+@pytest.mark.parametrize("refine", [0, 2])
+def test_ddim_invert_matches_jax(traj, refine):
+    js, ts, x0, _, _ = traj
+    ref = JI.ddim_invert(js, J_EPS, jnp.asarray(x0), refine_iters=refine)
+    split = JI.ddim_invert_split(js, J_EPS, jnp.asarray(x0), refine_iters=refine)
+    out = TI.ddim_invert(ts, t_eps, torch.from_numpy(nchw(x0)), refine_iters=refine)
+    _close(out, ref, ALG)
+    _close(out, split, ALG)
+    part = TI.ddim_invert(ts, t_eps, torch.from_numpy(nchw(x0)), num_steps=3)
+    _close(part, JI.ddim_invert(js, J_EPS, jnp.asarray(x0), num_steps=3), ALG)
+
+
+def test_refined_ddim_inversion_is_closer_to_exact(traj):
+    """With refinement, one DDIM step from the inverted x_T lands nearer
+    the x_{t-1} it came from (the fixed point of `next_step`)."""
+    _, ts, x0, _, _ = traj
+    x = torch.from_numpy(nchw(x0))
+    t = int(ts.timesteps[-1])
+    errs = []
+    for refine in (0, 3):
+        xt = TI.ddim_invert(ts, t_eps, x, num_steps=1, refine_iters=refine)
+        back, _ = TS.ddim_step(ts, xt, t_eps(xt, t), t)
+        errs.append((back - x).abs().max().item())
+    assert errs[1] < 0.1 * errs[0], errs
+
+
+@pytest.mark.parametrize("start", [0, 3])
+def test_ddpm_invert_sequential_start_matches_jax_split(traj, start):
+    js, ts, x0, xts, _ = traj
+    ref = JI.ddpm_invert_split(js, J_EPS, jnp.asarray(x0), eta=1.0, xts=xts, start=start)
+    out = TI.ddpm_invert(ts, t_eps, torch.from_numpy(nchw(x0)), eta=1.0,
+                         xts=torch.from_numpy(nchw(xts)), start=start)
+    _close(out.xt, ref.xt, ALG)
+    _close(out.zs, ref.zs, ALG)
+    _close(out.xts, ref.xts, ALG)
+    batched = TI.ddpm_invert_batched(ts, t_eps, torch.from_numpy(nchw(x0)), eta=1.0,
+                                     xts=torch.from_numpy(nchw(xts)), start=start, chunk=3)
+    torch.testing.assert_close(batched.zs, out.zs, **ALG)
+    torch.testing.assert_close(batched.xts, out.xts, **ALG)
+    with pytest.raises(ValueError):
+        TI.ddpm_invert(ts, t_eps, torch.from_numpy(nchw(x0)), eta=1.0,
+                       xts=torch.from_numpy(nchw(xts)), start=STEPS)
+
+
+@pytest.mark.parametrize("t_skip,collect", [(0, True), (3, False)])
+def test_ddpm_sample_matches_jax(traj, t_skip, collect):
+    js, ts, x0, xts, _ = traj
+    inv = JI.ddpm_invert(js, J_EPS, jnp.asarray(x0), eta=1.0, xts=xts)
+    ref = JI.ddpm_sample(js, J_EPS, inv.zs, inv.xts, t_skip=t_skip, collect=collect)
+    out = TI.ddpm_sample(ts, t_eps, torch.from_numpy(nchw(inv.zs)),
+                         torch.from_numpy(nchw(inv.xts)), t_skip=t_skip, collect=collect)
+    if collect:
+        _close(out[0], ref[0], ALG)
+        _close(out[1], ref[1], ALG)
+    else:
+        _close(out, ref, ALG)
+
+
+def test_invert_then_sample_reproduces_the_trajectory(traj):
+    """eta 1: re-generating from the extracted maps walks the inverted
+    trajectory at every step but the last (zs[-1] is zeroed)."""
+    _, ts, x0, xts, _ = traj
+    inv = TI.ddpm_invert(ts, t_eps, torch.from_numpy(nchw(x0)), eta=1.0,
+                         xts=torch.from_numpy(nchw(xts)))
+    _, path = TI.ddpm_sample(ts, t_eps, inv.zs, inv.xts, t_skip=0, collect=True)
+    torch.testing.assert_close(path[:-1], inv.xts[1:-1], **ALG)
+    assert (path[-1] - inv.xts[-1]).abs().max() > 1e-3
+
+
+GEN_CASES = {"eta0": (0.0, False, None), "eta1_zs": (1.0, True, None),
+             "truncated": (1.0, True, 3), "eta0_num_steps": (0.0, False, 5)}
+
+
+@pytest.mark.parametrize("case", sorted(GEN_CASES))
+def test_generate_matches_jax(traj, case):
+    js, ts, *_ = traj
+    eta, with_zs, num_steps = GEN_CASES[case]
+    rng = np.random.default_rng(11)
+    xt = rng.standard_normal((B, H, H, C)).astype(np.float32)
+    zs = rng.standard_normal((STEPS, B, H, H, C)).astype(np.float32) if with_zs else None
+    ref = JD.generate(js, J_EPS, jnp.asarray(xt), eta=eta,
+                      zs=None if zs is None else jnp.asarray(zs), num_steps=num_steps,
+                      collect=True)
+    out = TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), eta=eta,
+                      zs=None if zs is None else torch.from_numpy(nchw(zs)),
+                      num_steps=num_steps, collect=True)
+    for name in ("x0", "xts", "model_outputs", "pred_original_samples"):
+        _close(getattr(out, name), getattr(ref, name), ALG)
+    assert out.xts.shape[0] == (num_steps or STEPS)
+
+
+def test_generate_step_rule_and_refusals(traj):
+    js, ts, *_ = traj
+    rng = np.random.default_rng(12)
+    xt = rng.standard_normal((B, H, H, C)).astype(np.float32)
+    zs = rng.standard_normal((4, B, H, H, C)).astype(np.float32)
+    ref = JD.generate(js, J_EPS, jnp.asarray(xt), eta=1.0, zs=jnp.asarray(zs),
+                      step_rule="ddpm")
+    out = TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), eta=1.0,
+                      zs=torch.from_numpy(nchw(zs)), step_rule="ddpm")
+    _close(out.x0, ref.x0, ALG)
+    assert out.xts is None
+    with pytest.raises(ValueError):
+        TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), eta=1.0)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), encoder_reuse=2)
+
+
+@pytest.mark.parametrize("rule", ["ddim", "ddpm"])
+def test_edit_matches_jax_and_the_split_loop(traj, rule):
+    """`edit` (the pipeline's fused mode) against the JAX scan, and bit-equal
+    to `edit_split` on the same inputs."""
+    js, ts, x0, xts, _ = traj
+    inv = JI.ddpm_invert_batched(js, J_EPS, jnp.asarray(x0), eta=1.0, xts=xts)
+    eta, zs = (1.0, inv.zs[2:]) if rule == "ddpm" else (0.0, None)
+    x_start = inv.xts[2]
+    ref = JE.edit(js, J_EPS, x_start, eta=eta, zs=zs, attr_func=JA.SingleColorAttrFunc(**ATTR),
+                  decode_fn=J_DEC, step_rule=rule, collect=True)
+    kw = dict(eta=eta, zs=None if zs is None else torch.from_numpy(nchw(zs)),
+              attr_func=TA.SingleColorAttrFunc(**ATTR), decode_fn=t_decode, step_rule=rule,
+              collect=True)
+    out = TE.edit(ts, t_eps, torch.from_numpy(nchw(x_start)), **kw)
+    split = TE.edit_split(ts, t_eps, torch.from_numpy(nchw(x_start)), **kw)
+    for name in ("x0", "xts", "model_outputs", "pred_original_samples"):
+        _close(getattr(out, name), getattr(ref, name), GRAD)
+        torch.testing.assert_close(getattr(out, name), getattr(split, name), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        TE.edit(ts, t_eps, torch.from_numpy(nchw(x_start)), encoder_reuse=2)

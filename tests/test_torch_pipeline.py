@@ -55,31 +55,49 @@ def test_wrapper_places_everything_on_its_device(pipe):
     assert sd.prep_text(None).shape == (2, 7, 32)  # the caller's fixed embedding
     plain = SD(sd.unet, sd.vae, sd.schedule, device="cpu")
     assert plain.prep_text(None) is None  # as JAX: no prompt, an unconditional run
-    with pytest.raises(NotImplementedError):
-        plain.prep_text(np.zeros(77, np.int32))
+    with pytest.raises(ValueError, match="text encoder"):  # prompt ids need CLIP
+        plain.prep_text(np.zeros((2, 77), np.int32))
 
 
 @pytest.mark.parametrize("kwargs", [dict(), dict(inversion_method="ddim"), dict(mode="split"),
                                     dict(inversion_method="ddpm", eta=1.0, mode="split"),
-                                    dict(classes=[17], inversion_method="ddpm", eta=1.0)])
+                                    dict(classes=[17], inversion_method="ddpm", eta=1.0),
+                                    dict(dilate_mask=True)])
 def test_unported_options_raise(pipe, kwargs):
-    """With no arguments the JAX defaults ask for DDIM inversion, not ported yet."""
-    with pytest.raises(NotImplementedError):
-        pipe.prepare_real_image_edit(torch.zeros(1, 3, 32, 32), **kwargs)
+    """Each option of `prepare_real_image_edit` runs to a finite inversion of
+    the latent's shape (DDIM by default, as the JAX package); `classes` and
+    `dilate_mask` (segmentation, Queue A item 15a) still raise."""
+    img = torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    gen = torch.Generator().manual_seed(1)
+    if "classes" in kwargs or "dilate_mask" in kwargs:
+        with pytest.raises(NotImplementedError, match="15a"):
+            pipe.prepare_real_image_edit(img, generator=gen, **kwargs)
+        return
+    xt, zs, xts, mask, parsing = pipe.prepare_real_image_edit(img, generator=gen, **kwargs)
+    assert tuple(xt.shape) == (1, 4, 16, 16) and torch.isfinite(xt).all()
+    assert mask is None and parsing is None
+    if kwargs.get("inversion_method") == "ddpm":
+        assert tuple(zs.shape) == (STEPS, 1, 4, 16, 16) and tuple(xts.shape)[0] == STEPS + 1
+        assert torch.isfinite(zs).all() and torch.equal(xts[0], xt)
+    else:
+        assert zs is None and xts is None
 
 
 @pytest.mark.parametrize("method,names", [
     ("prepare_real_image_edit",
-     ("eta", "inversion_method", "mode", "t_skip", "cfg_scale", "classes", "prompt_ids")),
-    # edit_image's mode stays "split": JAX's "fused" scan is not ported.
+     ("eta", "inversion_method", "mode", "t_skip", "cfg_scale", "classes", "prompt_ids",
+      "refine_iters", "dilate_mask", ("generator", "key"))),
     ("edit_image", ("eta", "inversion_method", "t_skip", "cfg_scale", "prompt_ids", "mask",
-                    "resynthesize", "collect")),
+                    "resynthesize", "collect", "mode", "x0_ref", "decode_remat",
+                    "encoder_reuse", "guidance_codec", ("generator", "key"))),
 ])
 def test_defaults_are_the_jax_package_s(method, names):
+    """(port name, JAX name) where the port takes a torch.Generator for a key."""
     port = inspect.signature(getattr(EditPipeline, method)).parameters
     ref = inspect.signature(getattr(JEditPipeline, method)).parameters
     for name in names:
-        assert port[name].default == ref[name].default, (method, name)
+        pname, jname = name if isinstance(name, tuple) else (name, name)
+        assert port[pname].default == ref[jname].default, (method, name)
 
 
 def test_ddim_inversion_refuses_eta(pipe):
@@ -88,8 +106,8 @@ def test_ddim_inversion_refuses_eta(pipe):
 
 
 def test_edit_image_checks_its_inputs(pipe):
-    xt = torch.zeros(1, 4, 16, 16)
-    attr = SingleColorAttrFunc()
+    xt = torch.randn(1, 4, 16, 16, generator=torch.Generator().manual_seed(3))
+    attr = SingleColorAttrFunc(t2=STEPS)
     with pytest.raises(ValueError):
         pipe.edit_image(xt, eta=1.0, zs=None, attr_func=attr)
     with pytest.raises(ValueError):
@@ -97,10 +115,24 @@ def test_edit_image_checks_its_inputs(pipe):
     with pytest.raises(ValueError):
         pipe.edit_image(xt, eta=1.0, zs=torch.zeros(4, 1, 4, 16, 16), xts=torch.zeros(5),
                         attr_func=attr)
-    with pytest.raises(NotImplementedError):
-        pipe.edit_image(xt, attr_func=attr, mode="fused")
-    with pytest.raises(NotImplementedError):
-        pipe.edit_image(xt, mask=torch.ones(1, 4, 16, 16), resynthesize=True)
+    # Both modes run, and run the same loop.
+    fused = pipe.edit_image(xt, attr_func=attr, mode="fused")
+    split = pipe.edit_image(xt, attr_func=attr, mode="split")
+    assert torch.isfinite(fused.imgs).all()
+    torch.testing.assert_close(fused.imgs, split.imgs, rtol=0, atol=0)
+    # Resynthesis: a mask alone is an edit; the fresh noise changes the image.
+    box = torch.zeros(1, 4, 16, 16)
+    box[..., 4:12, 4:12] = 1.0
+    plain = pipe.edit_image(xt, mask=box, collect=False)
+    resyn = pipe.edit_image(xt, mask=box, resynthesize=True, collect=False)
+    assert torch.isfinite(resyn.imgs).all()
+    assert (resyn.imgs - plain.imgs).abs().max() > 1e-3
+    with pytest.raises(ValueError):
+        pipe.edit_image(xt, attr_func=attr, mode="scan")
+    for kwargs in (dict(decode_remat="blocks"), dict(guidance_codec="proxy"),
+                   dict(encoder_reuse=2)):
+        with pytest.raises(NotImplementedError, match="item"):
+            pipe.edit_image(xt, attr_func=attr, **kwargs)
     with pytest.raises(NotImplementedError):
         EditPipeline(pipe.diffusion_wrapper, segmentation_fn=lambda img: img)
 
@@ -180,3 +212,159 @@ def test_masked_edit_matches_jax(masked_edits):
     np.testing.assert_allclose(tout.imgs.numpy(), nchw(jout.imgs), **EDIT)
     # The mask reached the guidance: the masked edit differs from the unmasked one.
     assert (tout.imgs - unmasked.imgs).abs().max().item() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The slice as a user starts it: a checkpoint directory -> factory -> prompt
+# -> generate; DDIM prepare -> resynthesized fused edit. Both packages load
+# the same TINY directory, f32, and take the same noise.
+# ---------------------------------------------------------------------------
+
+PROMPT = "the red cat"
+
+
+@pytest.fixture(scope="module")
+def sd_pair(tmp_path_factory):
+    from diffusion_image_editing_tpu.pipeline.factory import create_diffusion_model as j_create
+    from diffusion_image_editing_tpu_torch.pipeline import create_diffusion_model
+    from tests.torch_port_helpers import write_tiny_sd_dir
+
+    root = str(tmp_path_factory.mktemp("sd"))
+    write_tiny_sd_dir(root, "bin", legacy_vae_names=True)
+    jsd = j_create("sd", checkpoint_dir=root, num_inference_steps=STEPS, dtype=jnp.float32)
+    tsd = create_diffusion_model("sd", checkpoint_dir=root, num_inference_steps=STEPS,
+                                 dtype=torch.float32, device="cpu")
+    ids = tsd.tokenizer.encode(PROMPT)
+    assert ids == jsd.tokenizer.encode(PROMPT)
+    return jsd, tsd, np.asarray(ids, np.int32)
+
+
+def test_prep_text_pairs_a_single_sequence_with_the_empty_prompt(sd_pair):
+    jsd, tsd, ids = sd_pair
+    emb = tsd.prep_text(ids)
+    pair = np.stack([np.asarray(tsd.tokenizer.encode(""), np.int32), ids])
+    torch.testing.assert_close(emb, tsd.encode_text_ids(pair), rtol=0, atol=0)
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jsd.prep_text(jnp.asarray(ids))),
+                               rtol=1e-4, atol=1e-5)
+    no_tok = SD(tsd.unet, tsd.vae, tsd.schedule, tsd.text_encoder, None, device="cpu")
+    with pytest.raises(ValueError, match="tokenizer"):
+        no_tok.prep_text(ids)
+    torch.testing.assert_close(no_tok.prep_text(pair), emb, rtol=0, atol=0)
+
+
+def test_generate_image_split_fused_and_jax(sd_pair):
+    jsd, tsd, ids = sd_pair
+    xt = np.random.default_rng(4).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    jimg, jtraj = jsd.generate_image(jnp.asarray(xt), prompt_ids=jnp.asarray(ids),
+                                     num_inference_steps=STEPS, collect=True)
+    runs = {mode: tsd.generate_image(torch.from_numpy(nchw(xt)), prompt_ids=ids,
+                                     num_inference_steps=STEPS, collect=True, mode=mode)
+            for mode in ("split", "fused")}
+    (simg, straj), (fimg, ftraj) = runs["split"], runs["fused"]
+    torch.testing.assert_close(fimg, simg, rtol=0, atol=0)
+    torch.testing.assert_close(ftraj.xts, straj.xts, rtol=0, atol=0)
+    assert tuple(fimg.shape) == (1, 3, 16, 16)  # the UNet's 8 x 8 latent
+    np.testing.assert_allclose(fimg.numpy(), nchw(jimg), **EDIT)
+    np.testing.assert_allclose(ftraj.xts.numpy(), np.asarray(jtraj.xts).transpose(0, 1, 4, 2, 3),
+                               **EDIT)
+
+
+def test_generate_images_draws_from_its_seed(sd_pair):
+    _, tsd, ids = sd_pair
+    a, traj, xt, zs = tsd.generate_images(num_images=2, eta=1.0, num_inference_steps=3,
+                                          seed=5, prompt_ids=ids)
+    b, _, xt_b, _ = tsd.generate_images(num_images=2, eta=1.0, num_inference_steps=3,
+                                        seed=5, prompt_ids=ids)
+    assert tuple(a.shape) == (2, 3, 16, 16) and tuple(zs.shape) == (3, 2, 4, 8, 8)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert torch.isfinite(a).all() and traj.xts is None
+    c, _, xt_c, _ = tsd.generate_images(num_images=2, num_inference_steps=3, seed=6,
+                                        prompt_ids=ids)
+    assert not torch.equal(xt_c, xt)
+
+
+def test_resynthesis_with_explicit_noise_matches_jax(sd_pair):
+    import jax
+
+    jsd, tsd, _ = sd_pair
+    rng = np.random.default_rng(6)
+    xt = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
+    zs = rng.standard_normal((STEPS, 1, 8, 8, 4)).astype(np.float32)
+    mask = np.zeros((1, 8, 8, 4), np.float32)
+    mask[:, 2:6, 1:5] = 1.0
+    key = jax.random.PRNGKey(9)
+    jxt, jzs = JEditPipeline(jsd).edit_noise_maps(jnp.asarray(xt), jnp.asarray(zs),
+                                                  jnp.asarray(mask), True, key)
+    k1, k2 = jax.random.split(key)
+    fresh = (torch.from_numpy(nchw(np.array(jax.random.normal(k1, xt.shape)))),
+             torch.from_numpy(np.array(jax.random.normal(k2, zs.shape)).transpose(0, 1, 4, 2, 3)))
+    pipe = EditPipeline(tsd)
+    txt, tzs = pipe.edit_noise_maps(torch.from_numpy(nchw(xt)),
+                                    torch.from_numpy(zs.transpose(0, 1, 4, 2, 3)),
+                                    torch.from_numpy(nchw(mask)), True, noise=fresh)
+    np.testing.assert_allclose(txt.numpy(), nchw(jxt), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tzs.numpy(), np.asarray(jzs).transpose(0, 1, 4, 2, 3), rtol=0,
+                               atol=1e-6)
+    # From a generator: fresh noise inside the mask, the maps kept outside.
+    gxt, _ = pipe.edit_noise_maps(torch.from_numpy(nchw(xt)), None, torch.from_numpy(nchw(mask)),
+                                  True, generator=torch.Generator().manual_seed(1))
+    inside = torch.from_numpy(nchw(mask)).bool()
+    assert torch.equal(gxt[~inside], torch.from_numpy(nchw(xt))[~inside])
+    assert not torch.equal(gxt[inside], torch.from_numpy(nchw(xt))[inside])
+    same, _ = pipe.edit_noise_maps(txt, None, torch.from_numpy(nchw(mask)), False)
+    assert torch.equal(same, txt)
+
+
+def test_ddim_prepare_then_fused_edit_matches_jax(sd_pair):
+    """DDIM inversion (refined twice) under the prompt, then the fused edit
+    with resynthesis inside a latent box, colour guidance and the same fresh
+    noise, in both packages."""
+    import jax
+
+    jsd, tsd, ids = sd_pair
+    rng = np.random.default_rng(7)
+    img = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((1, 16, 16, 4), np.float32)
+    mask[:, 4:12, 4:12] = 1.0
+    attr = dict(target=0.9, color_idx=0, loss_scale=20.0, t1=1, t2=STEPS)
+    jpipe, tpipe = JEditPipeline(jsd), EditPipeline(tsd)
+    jxt, _, _, _, _ = jpipe.prepare_real_image_edit(jnp.asarray(img), prompt_ids=jnp.asarray(ids),
+                                                    refine_iters=2)
+    txt, zs, xts, _, _ = tpipe.prepare_real_image_edit(torch.from_numpy(nchw(img)),
+                                                       prompt_ids=ids, refine_iters=2)
+    assert zs is None and xts is None
+    np.testing.assert_allclose(txt.numpy(), nchw(jxt), **EDIT)
+    fused_xt, _ = tpipe.prepare_real_image_edit(torch.from_numpy(nchw(img)), prompt_ids=ids,
+                                                refine_iters=2, mode="fused")[:2]
+    torch.testing.assert_close(fused_xt, txt, rtol=0, atol=0)
+
+    key = jax.random.PRNGKey(11)
+    jout = jpipe.edit_image(jxt, mask=jnp.asarray(mask), attr_func=JSingleColor(**attr),
+                            prompt_ids=jnp.asarray(ids), resynthesize=True, key=key)
+    fresh = torch.from_numpy(nchw(np.array(jax.random.normal(jax.random.split(key)[0], jxt.shape))))
+    tout = tpipe.edit_image(txt, mask=torch.from_numpy(nchw(mask)),
+                            attr_func=SingleColorAttrFunc(**attr), prompt_ids=ids,
+                            resynthesize=True, noise=(fresh, None), mode="fused")
+    np.testing.assert_allclose(tout.imgs.numpy(), nchw(jout.imgs), **EDIT)
+    np.testing.assert_allclose(tout.pred_original_samples.numpy(),
+                               np.asarray(jout.pred_original_samples).transpose(0, 1, 4, 2, 3),
+                               **EDIT)
+
+
+@pytest.mark.parametrize("mode", ["split", "fused", "batched"])
+def test_ddpm_prepare_in_every_mode_matches_jax(sd_pair, mode):
+    import jax
+
+    jsd, tsd, ids = sd_pair
+    img = np.random.default_rng(8).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    jxt, jzs, jxts, _, _ = JEditPipeline(jsd).prepare_real_image_edit(
+        jnp.asarray(img), eta=1.0, inversion_method="ddpm", prompt_ids=jnp.asarray(ids),
+        key=key, mode=mode, t_skip=1)
+    noise = np.asarray(jax.random.normal(key, (STEPS, 1, 16, 16, 4))).transpose(0, 1, 4, 2, 3)
+    txt, tzs, txts, _, _ = EditPipeline(tsd).prepare_real_image_edit(
+        torch.from_numpy(nchw(img)), eta=1.0, inversion_method="ddpm", prompt_ids=ids,
+        noise=torch.from_numpy(np.ascontiguousarray(noise)), mode=mode, t_skip=1)
+    np.testing.assert_allclose(tzs.numpy(), np.asarray(jzs).transpose(0, 1, 4, 2, 3), **EDIT)
+    np.testing.assert_allclose(txts.numpy(), np.asarray(jxts).transpose(0, 1, 4, 2, 3), **EDIT)
+    assert (float(tzs[0].abs().sum()) == 0.0) == (mode != "fused")  # t_skip's rows

@@ -16,6 +16,9 @@ CASES = {
                   lambda: TM.UNet2DCondition(TM.TINY_SD_UNET, device="cpu")),
     "vae": (lambda: TorchAutoencoderKL(TM.TINY_VAE, attn_naming="modern"), "vae",
             lambda: TM.AutoencoderKL(TM.TINY_VAE, device="cpu")),
+    # The port's CLIP carries transformers' names: it is its own mirror.
+    "clip_text": (lambda: TM.CLIPTextEncoder(TM.TINY_CLIP_TEXT, device="cpu"), "clip_text",
+                  lambda: TM.CLIPTextEncoder(TM.TINY_CLIP_TEXT, device="cpu")),
 }
 
 
@@ -46,4 +49,4 @@ def test_port_modules_use_diffusers_keys(kind):
 
 def test_unknown_kind_raises():
     with pytest.raises(ValueError, match="Unknown kind"):
-        TM.state_dict_from_jax({}, "clip_text")
+        TM.state_dict_from_jax({}, "unet2d")  # the DDPM UNet: Queue A item 14

@@ -77,6 +77,8 @@ STEP_FNS = {
     "add_noise": (T.add_noise, J.add_noise, {}),
     "posterior_mean_from_eps": (T.posterior_mean_from_eps, J.posterior_mean_from_eps,
                                 {"eta": 1.0}),
+    "next_step": (T.next_step, J.next_step, {}),
+    "mu_tilde": (T.mu_tilde, J.mu_tilde, {}),  # (xt, x0) in the (sample, eps) slots
 }
 
 
@@ -130,3 +132,25 @@ def test_schedule_moves_and_resteps():
     assert not ts.with_clip_sample(False).clip_sample
     with pytest.raises(ValueError):
         tpresets.schedule_for_model("nope")
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_next_step_inverts_ddim_step(per_sample):
+    """At equal eps, the DDIM inversion step undoes the eta-0 DDIM step."""
+    _, ts = _scheds("sd")
+    x, eps, _ = (torch.from_numpy(a) for a in _inputs(5))
+    t = np.array([801, 41], np.int32) if per_sample else 401
+    prev, _ = T.ddim_step(ts, x, eps, t)
+    torch.testing.assert_close(T.next_step(ts, prev, eps, t), x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("spacing,offset", [(None, None), ("trailing", None),
+                                            ("linspace", 0), ("leading", 3)])
+def test_resteps_with_spacing_and_offset_overrides(spacing, offset):
+    js, ts = _scheds("sd")
+    tout = ts.with_num_inference_steps(20, timestep_spacing=spacing, steps_offset=offset)
+    jout = js.with_num_inference_steps(20, timestep_spacing=spacing, steps_offset=offset)
+    np.testing.assert_array_equal(tout.timesteps, np.asarray(jout.timesteps))
+    assert (tout.timestep_spacing, tout.steps_offset) == (jout.timestep_spacing,
+                                                          jout.steps_offset)
+    assert tout.with_num_inference_steps(10).timestep_spacing == tout.timestep_spacing
