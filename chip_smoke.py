@@ -38,7 +38,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              against f32 on the CPU with the same weights and inputs, in the
              default and the fused-conv configuration; then the TINY CLIP
              text encoder and a 3-step TINY `generate_image` under a prompt,
-             the same way.
+             the same way; segmentation guidance: the TINY BiSeNet's f32
+             logits and the gradient of NetAttrFunc's loss at one image, card
+             against CPU, one NetAttrFunc nudge through the TINY decode, bf16
+             on both, and class masks made on the card and on the CPU from
+             one parsing map, which must be bit-equal.
    seg-tiny - two BiSeNet train steps with norm="abn" at width 8, 64 px,
              batch 2, f32 on the card (TF32 off) against the same on the CPU
              from the same weights and batches: losses, weights, running
@@ -56,7 +60,22 @@ Phases, each printing its own lines; any failure exits non-zero:
              default configuration, then the whole path, with the fused conv's
              and the remaining GroupNorms' launch counts checked and a finite
              image.
-7. prompt  - the SD path as a user starts it, at full width, after the [main]
+7. seg_edit - segmentation guidance (bench.py's e2e_seg, face alignment
+             left out) on the [main] models: a face-parsing BiSeNet (width
+             64, 19 classes, norm bn, f32, seeded random weights with class
+             17's logit raised so that the hair mask covers part of the
+             latent) written as a checkpoint, loaded by
+             `create_segmentation_model` and checked bit-equal; a random
+             512 px image -> BiSeNet parsing -> hair mask (class 17) ->
+             encode -> DDPM inversion as [main] -> the masked, resynthesized
+             edit with 40 steps guided by NetAttrFunc(loss_scale=200), each
+             with a gradient through the VAE decoder and the BiSeNet ->
+             decode. Checks the launch counts ([main]'s: BiSeNet runs no
+             kernel), no plain attention, GroupNorm or ABN on the card, the
+             mask's shape and coverage (1-99 % of the latent), a finite image
+             that differs from the unguided edit; prints the segment + mask +
+             encode, inversion, edit and whole seconds and the peak memory.
+8. prompt  - the SD path as a user starts it, at full width, after the [main]
              models are freed: an HF-layout SD-1.5 checkpoint directory
              (UNet, VAE under the legacy attention names, CLIP ViT-L/14
              text encoder, bf16 `torch.save` files from seeded random
@@ -73,7 +92,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              (but CLIP's causal one) and no plain GroupNorm ran on the card,
              and finite images; prints the load, generation, inversion and
              edit seconds and the peak memory.
-8. seg     - the segmentation trainer's path after the SD models are freed:
+9. seg     - the segmentation trainer's path after the SD models are freed:
              `seg.train_loop` (the `seg-train` CLI's entry point) at the
              reference recipe (BiSeNet, ResNet-18, width 64, 19 classes,
              448 px, batch 16, OHEM 3-head loss, warmup -> poly SGD) with
@@ -121,6 +140,17 @@ TINY_TOL = {"eps": 0.1, "latent": 0.05, "decode": 0.05, "decode_vjp": 0.05}
 # The same for CLIP's states and a 3-step CFG generation's image: the CPU
 # spread of the same computations was 0.0061-0.0068 and 0.009-0.016.
 TINY_PROMPT_TOL = {"clip": 0.02, "generate": 0.05}
+# Segmentation guidance at the TINY sizes, card against CPU from the same
+# weights and inputs, max |card - cpu| / max |cpu|: the f32 BiSeNet's logits
+# (width 8, 64 px) and the gradient of NetAttrFunc's loss at one f32 image
+# (TF32 is off, so only the order of the sums differs); one NetAttrFunc
+# nudge through the TINY decode, the VAE bf16 on the card and f32 on the
+# CPU, as TINY_TOL's decode_vjp. For the nudge the CPU's decode takes the
+# card's decoded image as its value (and keeps its own gradient): BiSeNet's
+# input gradient is not smooth (ReLU and max-pool routing, the [0, 1] clamp),
+# and at two decodes 1.5 % apart it differs by 0.2-0.28 (CPU bf16 against
+# f32; 0.18 card bf16 against CPU bf16), which no tolerance here would pass.
+TINY_SEG_TOL = {"logits": 1e-4, "seg_grad": 1e-3, "nudge": 0.05}
 
 FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 64x64", (2, 4096, 8, 40), (2, 4096, 8, 40)),
@@ -685,6 +715,8 @@ def phase_tiny() -> None:
             if not ok:
                 failed.append(f"{config} {name}")
     failed += _tiny_prompt()
+    failed += _tiny_seg()
+    failed += _tiny_masks()
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
 
@@ -721,6 +753,119 @@ def _tiny_prompt() -> list:
             f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"prompt {name}")
+    return failed
+
+
+class _Pinned(torch.autograd.Function):
+    """Forward: the given value; backward: the gradient passed to x."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _tiny_seg(devices=(("cuda", torch.bfloat16), ("cpu", torch.float32))) -> list:
+    """Segmentation guidance at the TINY sizes, the first device (the card,
+    the VAE bf16) against the second (the CPU, f32), from the same weights
+    and inputs: the f32 BiSeNet's first-head logits, the gradient of
+    NetAttrFunc's loss at one f32 image, and one NetAttrFunc nudge through
+    the TINY SD decode. The second device's decode gives the first's decoded
+    image as its value and its own f32 gradient (`_Pinned`), so that both
+    differentiate the BiSeNet at one image. Returns the names that
+    disagree."""
+    import copy
+
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.guidance import NetAttrFunc
+    from diffusion_image_editing_tpu_torch.models import (
+        TINY_SD_UNET, TINY_VAE, AutoencoderKL, BiSeNet, SegmentationModel, UNet2DCondition)
+    from diffusion_image_editing_tpu_torch.ops.resize import (
+        imagenet_normalize, resize_bilinear, to_unit_range)
+    from diffusion_image_editing_tpu_torch.pipeline import SD
+
+    torch.manual_seed(2)
+    rng = np.random.default_rng(2)
+    modules = (BiSeNet(n_classes=19, norm="bn", width=8, device="cpu"),
+               UNet2DCondition(TINY_SD_UNET, device="cpu"), AutoencoderKL(TINY_VAE, device="cpu"))
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64), dtype=np.float32))
+    img = torch.from_numpy(rng.uniform(-0.9, 0.9, (1, 3, 32, 32)).astype(np.float32))
+    xt, eps = (torch.from_numpy(rng.standard_normal((1, 4, 16, 16), dtype=np.float32))
+               for _ in range(2))
+    sched = schedule_for_model("sd", 4)
+    runs, decoded = [], []
+    for dev, dtype in devices:
+        seg = SegmentationModel(copy.deepcopy(modules[0]).to(dev), image_size=64)
+        sd = SD(*(copy.deepcopy(m).to(dtype=dtype) for m in modules[1:]), sched, device=dev)
+
+        def seg_apply(image, seg=seg):  # the 32 px decode, resized to the BiSeNet's 64 px
+            image = resize_bilinear(image.float(), 64, 64)
+            return seg.logits_fn(imagenet_normalize(to_unit_range(image)))
+
+        def decode(z, dev=dev, decode_fn=sd.decode_fn()):
+            out = decode_fn(z)
+            if decoded:  # the second device: the first's value, its own gradient
+                return _Pinned.apply(out, decoded[0].to(dev, out.dtype))
+            decoded.append(out.detach())
+            return out
+
+        attr = NetAttrFunc(loss_scale=200.0, t1=0, t2=4, seg_apply_fn=seg_apply,
+                           idx_for_class=(17,))
+        image = img.to(dev).requires_grad_(True)
+        (seg_grad,) = torch.autograd.grad(attr.loss(image), image)
+        nudged, _ = attr.apply(xt.to(dev), None, eps.to(dev), int(sd.schedule.timesteps[1]), 1,
+                               sd.schedule, decode)
+        runs.append({"logits": seg.logits_fn(x.to(dev)), "seg_grad": seg_grad,
+                     "nudge": nudged - xt.to(dev)})
+    got, ref = runs
+    failed = []
+    (d0, t0), (d1, t1) = ((d, str(t).removeprefix("torch.")) for d, t in devices)
+    for name, tol in TINY_SEG_TOL.items():
+        want = ref[name].float().cpu()
+        err = ((got[name].float().cpu() - want).abs().max() / want.abs().max()).item()
+        ok = err <= tol and math.isfinite(err)
+        log(f"[tiny] seg {name} {tuple(want.shape)}: max|{d0} {t0} - {d1} {t1}| / max|{d1}| "
+            f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"seg {name}")
+    return failed
+
+
+def parsing_map(size: int, seed: int) -> np.ndarray:
+    """A face-parsing-like (size, size) map of the 19 classes: random
+    classes in 8-pixel cells, a disc of class 17 (hair) reaching the top
+    border, a smaller disc of class 1."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 19, (size // 8 + 1, size // 8 + 1))
+    out = np.kron(cells, np.ones((8, 8), np.int64))[:size, :size]
+    yy, xx = np.mgrid[:size, :size]
+    out[(yy - 0.1 * size) ** 2 + (xx - 0.6 * size) ** 2 < (0.35 * size) ** 2] = 17
+    out[(yy - 0.7 * size) ** 2 + (xx - 0.3 * size) ** 2 < (0.15 * size) ** 2] = 1
+    return out
+
+
+def _tiny_masks(dev=torch.device("cuda")) -> list:
+    """Class masks made on the card and on the CPU from the same parsing
+    map must be bit-equal: at the path's 512 -> 64 and at a factor that is
+    not a power of two, with and without dilation, one class and three."""
+    from diffusion_image_editing_tpu_torch.pipeline import MaskCreator
+
+    failed = []
+    for size, out in ((512, 64), (100, 37)):
+        parsing = torch.from_numpy(parsing_map(size, size))
+        for dilate, classes in itertools.product((False, True), ((17,), (17, 1, 4))):
+            creator = MaskCreator(dilate_mask=dilate, resize_size=(out, out))
+            cpu = creator.create_mask(parsing, classes)
+            card = creator.create_mask(parsing.to(dev), classes).cpu()
+            same = torch.equal(card, cpu)
+            log(f"[tiny] mask {size} -> {out} classes {classes} dilate {dilate}: coverage "
+                f"{cpu[0, 0].mean().item():.4f}, {dev.type} and cpu bit-equal {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                failed.append(f"mask {size}->{out} {classes} dilate {dilate}")
     return failed
 
 
@@ -1093,7 +1238,170 @@ def phase_fused(smi: str, unet, vae) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. prompt
+# 7. seg_edit
+# ---------------------------------------------------------------------------
+
+SEG_CLASS = 17  # hair, bench.py's e2e_seg class
+SEG_LOSS_SCALE = 200.0
+SEG_COVERAGE = (0.01, 0.99)  # bounds on the mask's share of the latent
+
+
+def write_seg_checkpoint(path: str, image, lat: int, dev) -> tuple:
+    """A face-parsing BiSeNet (ResNet-18, width 64, 19 classes, norm="bn",
+    f32) from seeded random weights, saved as the published checkpoint is
+    (`{"state_dict": {"module." + key: tensor}}`). One stated choice of the
+    weights: channel 0 of the main head's hidden layer is made the constant
+    1 (its norm's weight 0, bias 1), read by class 17 alone, so that its
+    weight there raises class 17's logit by a constant. The raise is the
+    quantile of class 17's margin on `image` (at the BiSeNet's 512 px) whose
+    hair mask at the latent's `lat` x `lat` covers nearest half the latent:
+    random weights alone may leave class 17 nowhere. Returns (the state dict written, on the CPU; the raise;
+    the coverage it was chosen for)."""
+    from diffusion_image_editing_tpu_torch.models import BiSeNet
+    from diffusion_image_editing_tpu_torch.ops.resize import (
+        imagenet_normalize, resize_bilinear, to_unit_range)
+    from diffusion_image_editing_tpu_torch.pipeline import MaskCreator
+
+    torch.manual_seed(11)
+    model = BiSeNet(n_classes=19, norm="bn", width=64, device=dev).eval()
+    head = model.conv_out
+    with torch.no_grad():
+        head.conv.bn.weight[0] = 0.0
+        head.conv.bn.bias[0] = 1.0
+        head.conv_out.weight[:, 0] = 0.0
+        x = resize_bilinear(image.to(dev), 512, 512)
+        logits = model(imagenet_normalize(to_unit_range(x)))[0][0]
+        others = torch.cat([logits[:SEG_CLASS], logits[SEG_CLASS + 1:]]).amax(dim=0)
+        margin = (others - logits[SEG_CLASS]).flatten()
+        creator = MaskCreator(dilate_mask=False, resize_size=(lat, lat))
+        choices = []
+        for q in (0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.97, 0.99):
+            raise_ = torch.quantile(margin, q).item()
+            parsing = torch.where(margin.view(logits.shape[1:]) < raise_, SEG_CLASS, 0)
+            cover = creator.create_mask(parsing, [SEG_CLASS])[0, 0].mean().item()
+            choices.append((abs(cover - 0.5), raise_, cover))
+        _, raise_, cover = min(choices)
+        head.conv_out.weight[SEG_CLASS, 0] = raise_
+    written = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": {"module." + k: v for k, v in written.items()}}, path)
+    return written, raise_, cover
+
+
+def phase_seg_edit(smi: str, unet, vae) -> dict:
+    """bench.py's e2e_seg workload on the [main] models, face alignment
+    left out: BiSeNet parsing of a random 512 px image -> hair mask ->
+    encode -> edit-friendly DDPM inversion (batched, chunk 10, t_skip 10)
+    -> the masked, resynthesized edit with 40 NetAttrFunc-guided steps, each
+    with a gradient through the full VAE decoder and the BiSeNet -> decode.
+    Returns the launch counts of the run."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.guidance import NetAttrFunc
+    from diffusion_image_editing_tpu_torch.ops.resize import imagenet_normalize, to_unit_range
+    from diffusion_image_editing_tpu_torch.pipeline import EditPipeline, create_segmentation_model
+
+    dev = next(unet.parameters()).device
+    sd, _, img = make_pipeline(unet, vae, dev)
+    with tempfile.TemporaryDirectory(prefix="seg_ckpt_") as root:
+        path = os.path.join(root, "79999_iter.pth")
+        written, raise_, cover = write_seg_checkpoint(path, img, sd.data_dimensionality, dev)
+        t0 = time.perf_counter()
+        seg = create_segmentation_model(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    state = seg.module.state_dict()
+    if set(state) != set(written) or not all(
+            v.dtype == written[k].dtype and torch.equal(v.cpu(), written[k])
+            for k, v in state.items()):
+        raise RuntimeError("[seg_edit] the loaded BiSeNet is not the checkpoint written")
+    n_params = sum(p.numel() for p in seg.module.parameters())
+    log(f"[seg_edit] BiSeNet width 64, 19 classes, norm bn, f32, {n_params / 1e6:.1f} M "
+        f"parameters, seeded random weights with class {SEG_CLASS}'s logit raised by "
+        f"{raise_:.4f} (chosen for a coverage of {cover:.4f}); written as a face-parsing "
+        f"checkpoint and loaded by create_segmentation_model in {load_s:.3f} s, {len(state)} "
+        f"tensors bit-equal to those written")
+
+    def seg_apply(image):  # bench.py:350-354
+        return seg.logits_fn(imagenet_normalize(to_unit_range(image.float())))
+
+    attr = NetAttrFunc(loss_scale=SEG_LOSS_SCALE, t1=0, t2=STEPS, seg_apply_fn=seg_apply,
+                       idx_for_class=(SEG_CLASS,))
+    pipe = EditPipeline(sd, segmentation_fn=seg)
+    prepare = pipe.prepare_for_edit
+    prep_s = []
+
+    def timed_prepare(*args, **kwargs):  # segment + mask + encode, inside the inversion call
+        t = time.perf_counter()
+        out = prepare(*args, **kwargs)
+        torch.cuda.synchronize()
+        prep_s.append(time.perf_counter() - t)
+        return out
+
+    pipe.prepare_for_edit = timed_prepare
+    expected = path_launches(per_forward_launches(forward_pieces(sd, dev)))
+
+    def edit(attr_func):
+        return pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, mask=mask, attr_func=attr_func,
+                               inversion_method="ddpm", t_skip=T_SKIP, resynthesize=True,
+                               generator=torch.Generator(device=dev).manual_seed(9),
+                               collect=False, mode="split")
+
+    torch.cuda.reset_peak_memory_stats()
+    with plain_groupnorm_watch() as gn_calls, plain_attention_watch() as attn_calls, \
+            plain_abn_watch() as abn_calls:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        xt, zs, xts, mask, parsing = pipe.prepare_real_image_edit(
+            img, eta=1.0, inversion_method="ddpm", classes=[SEG_CLASS], mode="batched",
+            t_skip=T_SKIP, chunk=CHUNK, generator=torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter()
+        out = edit(attr)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    inv_s, edit_s = t_inv - t0 - prep_s[0], t_end - t_inv
+    log(f"[seg_edit] segment + mask + encode {prep_s[0]:.3f} s, inversion {inv_s:.3f} s, "
+        f"{GUIDED} NetAttrFunc-guided steps {edit_s:.3f} s = {GUIDED / edit_s:.3f} steps/s, whole "
+        f"run {t_end - t0:.3f} s, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    plain = {k: v for k, v in {**gn_calls, **attn_calls, **abn_calls}.items()
+             if not k.endswith("causal")}
+    log(f"[seg_edit] launches {counts}")
+    log(f"[seg_edit] expected {expected} (the [main] path's: BiSeNet runs no kernel); plain "
+        f"attention, GroupNorm and ABN calls on the card {plain}")
+    if counts != expected:
+        raise RuntimeError(f"[seg_edit] launch counts {counts} differ from the path's {expected}")
+    if any(plain.values()):
+        raise RuntimeError(f"[seg_edit] a plain attention, GroupNorm or ABN ran on the card: "
+                           f"{plain}")
+
+    lat = sd.data_dimensionality
+    coverage = mask[:, 0].float().mean().item()
+    hair = (parsing == SEG_CLASS).float().mean().item()
+    log(f"[seg_edit] parsing map {tuple(parsing.shape)}: class {SEG_CLASS} on {hair:.4f} of it; "
+        f"mask {tuple(mask.shape)} covers {coverage:.4f} of the latent (bounds {SEG_COVERAGE}), "
+        f"alpha channel all ones {bool((mask[:, 3] == 1).all())}")
+    if tuple(mask.shape) != (1, 4, lat, lat) or not bool((mask[:, 3] == 1).all()) or not (
+            SEG_COVERAGE[0] <= coverage <= SEG_COVERAGE[1]):
+        raise RuntimeError(f"[seg_edit] the mask {tuple(mask.shape)} covers {coverage:.4f}")
+    imgs = out.imgs
+    size = vae.config.sample_size
+    finite = bool(torch.isfinite(imgs).all())
+    unguided = edit(None).imgs
+    moved = (imgs.float() - unguided.float()).abs().max().item()
+    with torch.no_grad():
+        mass = [attr.loss(x).item() for x in (imgs, unguided)]
+    log(f"[seg_edit] image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
+        f"[{imgs.min().item():.3f}, {imgs.max().item():.3f}]; max |guided - unguided| {moved:.4f} "
+        f"(the same inversion, mask and noise); class {SEG_CLASS} mass guided {mass[0]:.5f}, "
+        f"unguided {mass[1]:.5f}")
+    if not finite or tuple(imgs.shape) != (1, 3, size, size) or not moved > 0:
+        raise RuntimeError("[seg_edit] the edit is not a finite image that the guidance moved")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 8. prompt
 # ---------------------------------------------------------------------------
 
 PROMPT = "a photo of the red cat"
@@ -1294,7 +1602,7 @@ def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8. seg
+# 9. seg
 # ---------------------------------------------------------------------------
 
 
@@ -1432,6 +1740,7 @@ def main() -> int:
     log(f"[main] models built in {time.perf_counter() - t0:.1f} s")
     counts = phase_main_path(smi, unet, vae)
     fused_counts = phase_fused(smi, unet, vae)
+    phase_seg_edit(smi, unet, vae)
     del unet, vae
     gc.collect()
     torch.cuda.empty_cache()

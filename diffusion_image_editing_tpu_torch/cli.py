@@ -8,7 +8,9 @@
 directory (`unet/`, `vae/`, `text_encoder/`, `tokenizer/`), which they
 require: the prompt is tokenized, and an empty `--prompt` runs CFG between
 two empty prompts. (The JAX package's CLI passes no prompt ids for an empty
-prompt, and its SD UNet cannot run without a context.) `seg-train` trains BiSeNet
+prompt, and its SD UNet cannot run without a context.) `edit --classes 17`
+masks the edit to face-parsing classes, from a BiSeNet checkpoint
+(`--bisenet-ckpt`) or seeded random weights. `seg-train` trains BiSeNet
 on CelebAMask-HQ (`--data-root`) or, without it, on synthetic data. Each
 runs on one CUDA device unless `--device cpu` asks for the CPU; none falls
 back to the CPU on its own. The flags are the JAX package's; the options
@@ -31,9 +33,6 @@ import torch
 UNPORTED = {
     "align": ("--align", "20 (host/alignment.py)"),
     "landmarks": ("--landmarks", "20 (host/alignment.py)"),
-    "classes": ("--classes", "15a (segmentation guidance)"),
-    "bisenet_ckpt": ("--bisenet-ckpt", "15a (segmentation guidance)"),
-    "dilate_mask": ("--dilate-mask", "15a (segmentation guidance)"),
     "sample_clipping": ("--sample-clipping", "14 (the ddpm and ldm families; SD never clips)"),
     "shard": ("--shard", "18 (parallel/)"),
 }
@@ -86,10 +85,13 @@ def cmd_edit(args) -> None:
 
     from .guidance import create_attr_func_registry
     from .host.transforms import pil_to_tensor, tensor_to_pil
-    from .pipeline import EditPipeline
+    from .pipeline import EditPipeline, create_segmentation_model
 
     w = _build_wrapper(args)
-    pipe = EditPipeline(w)
+    seg_fn = None
+    if args.classes:
+        seg_fn = create_segmentation_model(args.bisenet_ckpt, device=args.device)
+    pipe = EditPipeline(w, seg_fn)
     size = args.image_size or w.vae.config.sample_size
     img = pil_to_tensor(Image.open(args.image).convert("RGB").resize((size, size)))
     attr = None
@@ -102,12 +104,11 @@ def cmd_edit(args) -> None:
     ids = _prompt_ids(w, args.prompt)
     t_skip = args.t_skip if args.inversion_method == "ddpm" else None
     xt, zs, xts, mask, _ = pipe.prepare_real_image_edit(
-        img, eta=args.eta, inversion_method=args.inversion_method, prompt_ids=ids,
-        cfg_scale=args.cfg_scale, t_skip=t_skip,
+        img, eta=args.eta, inversion_method=args.inversion_method, classes=args.classes,
+        dilate_mask=args.dilate_mask, prompt_ids=ids, cfg_scale=args.cfg_scale, t_skip=t_skip,
         generator=torch.Generator(device=w.device).manual_seed(args.seed))
-    if args.resynthesize:
-        # No segmentation mask before Queue A item 15a: resynthesis covers
-        # the whole latent.
+    if args.resynthesize and mask is None:
+        # Without --classes, resynthesis covers the whole latent.
         mask = torch.ones_like(xt)
     out = pipe.edit_image(
         xt, eta=args.eta, zs=zs, xts=xts, mask=mask, attr_func=attr, prompt_ids=ids,
@@ -186,10 +187,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--color-target", type=float, default=0.9)
     e.add_argument("--color-idx", type=int, default=0)
     e.add_argument("--classes", type=int, nargs="*", default=None,
-                   help="segmentation class ids; not ported (item 15a)")
-    e.add_argument("--bisenet-ckpt", default=None, help="not ported (item 15a)")
-    e.add_argument("--dilate-mask", action="store_true", default=None,
-                   help="not ported (item 15a)")
+                   help="segmentation class ids to mask-edit (a face-parsing BiSeNet)")
+    e.add_argument("--bisenet-ckpt", default=None,
+                   help="the face-parsing BiSeNet's .pth (default: seeded random weights)")
+    e.add_argument("--dilate-mask", action="store_true", default=False,
+                   help="dilate each class's mask 7 x 7 before resizing it to the latent")
     e.add_argument("--resynthesize", action="store_true", default=False,
                    help="fresh noise inside the mask (the whole latent without --classes)")
     e.add_argument("--edit-mode", default="split", choices=["split", "fused"],

@@ -1,6 +1,7 @@
 from .attr_functions import (  # noqa: F401
     AttrFunc,
     MultiColorAttrFunc,
+    NetAttrFunc,
     SingleColorAttrFunc,
     color_loss,
     l2_norm,

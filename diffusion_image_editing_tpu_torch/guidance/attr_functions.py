@@ -1,6 +1,6 @@
 """Gradient-guidance attribute functions: the port of
-`guidance/attr_functions.py` (colour losses; segmentation and classifier
-guidance come later).
+`guidance/attr_functions.py`: colour and segmentation (face-parsing)
+guidance; classifier guidance comes with ROADMAP Queue A item 15b.
 
 The nudge is -grad(loss_scale * loss(decode(pred_x0(x_t)))) * alpha_bar_t^2,
 taken with `torch.autograd.grad` with respect to x_t only; eps is detached.
@@ -166,3 +166,28 @@ class MultiColorAttrFunc(AttrFunc):
 
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
         return color_loss(decoded, self.r_target, self.g_target, self.b_target)
+
+
+@dataclasses.dataclass(frozen=True)
+class NetAttrFunc(AttrFunc):
+    """Face-parsing (BiSeNet) guidance: the softmax probability mass of the
+    classes `idx_for_class`, each the mean over H and W of one image, summed
+    over the classes and the batch.
+
+    `seg_apply_fn` maps an NCHW image (the decoded one, in [-1, 1]) to NCHW
+    logits (B, n_classes, H, W), differentiably, with the segmentation
+    network's parameters inside it, e.g. `lambda img: seg.logits_fn(
+    imagenet_normalize(to_unit_range(img.float())))` for a
+    `SegmentationModel` `seg`. (The JAX package passes `seg_params` beside
+    it.) Without it, `loss` raises."""
+
+    seg_apply_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    idx_for_class: Tuple[int, ...] = (17,)
+
+    def loss(self, decoded: torch.Tensor) -> torch.Tensor:
+        if self.seg_apply_fn is None:
+            raise ValueError("NetAttrFunc needs seg_apply_fn, a callable from an NCHW image "
+                             "to NCHW segmentation logits")
+        probs = torch.softmax(self.seg_apply_fn(decoded).float(), dim=1)
+        class_mass = probs.mean(dim=(2, 3))  # (B, n_classes)
+        return class_mass[:, list(self.idx_for_class)].sum()

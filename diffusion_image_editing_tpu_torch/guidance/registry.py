@@ -1,11 +1,12 @@
 """Attribute-function registry: the port of `guidance/registry.py` for the
-strategies ported so far."""
+strategies ported so far (classifier guidance comes with ROADMAP Queue A
+item 15b)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Type, Union
 
-from .attr_functions import AttrFunc, MultiColorAttrFunc, SingleColorAttrFunc
+from .attr_functions import AttrFunc, MultiColorAttrFunc, NetAttrFunc, SingleColorAttrFunc
 
 
 class AttrFuncRegistry:
@@ -34,4 +35,5 @@ def create_attr_func_registry() -> AttrFuncRegistry:
     registry = AttrFuncRegistry()
     registry.register(SingleColorAttrFunc)
     registry.register(MultiColorAttrFunc)
+    registry.register(NetAttrFunc)
     return registry

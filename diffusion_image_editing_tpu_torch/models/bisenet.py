@@ -2,7 +2,9 @@
 `models/bisenet.py` (ContextPath on ResNet-18 with two attention refinement
 modules and global context, the stride-8 ResNet feature in place of a
 spatial path, FeatureFusionModule, three output heads upsampled to the
-input size, the heads in f32).
+input size, the heads in f32), and `SegmentationModel`, the inference
+wrapper that turns an image into a parsing map and gives segmentation
+guidance its differentiable logits.
 
 Module names follow the face-parsing checkpoint's torch keys
 (`cp.arm16.conv.bn.weight`, `cp.resnet.layer2.0.downsample.1.running_var`),
@@ -19,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.resize import imagenet_normalize, resize_bilinear, to_unit_range
 from .resnet import Conv, NormAct, Resnet18Features
 
 
@@ -152,3 +155,30 @@ class BiSeNet(nn.Module):
         out16 = self.conv_out16(feat_cp8)
         out32 = self.conv_out32(feat_cp16)
         return tuple(resize_bilinear_align_corners(o, h0, w0) for o in (out, out16, out32))
+
+
+class SegmentationModel:
+    """Inference wrapper of a BiSeNet: a (B, 3, H, W) image in [-1, 1] ->
+    bilinear resize to `image_size` -> [0, 1] -> ImageNet normalisation ->
+    BiSeNet -> the (H, W) argmax of the first image's first head: the
+    parsing map, at `image_size`.
+
+    It keeps its module, in eval mode and frozen, with its own parameters:
+    unlike the JAX package's `logits_fn(params, img)`, `logits_fn` takes no
+    parameters."""
+
+    def __init__(self, module: BiSeNet, image_size: int = 512):
+        self.module = module.eval().requires_grad_(False)
+        self.image_size = image_size
+        self.device = next(module.parameters()).device
+
+    @torch.no_grad()
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        x = resize_bilinear(img.to(self.device), self.image_size, self.image_size)
+        x = imagenet_normalize(to_unit_range(x))
+        return self.module(x)[0][0].argmax(dim=0)
+
+    def logits_fn(self, img: torch.Tensor) -> torch.Tensor:
+        """Differentiable first-head logits (B, n_classes, H, W) of an image
+        the caller has already normalised: no resize, no normalisation."""
+        return self.module(img)[0]

@@ -17,6 +17,7 @@ cast to the module's dtype. The port's modules carry the checkpoints' own
 names, so the only translations are the legacy VAE attention names and
 transformers' `position_ids` buffer. `save_checkpoint_dir` writes a module
 in that layout (`.bin`). `safetensors` is imported only for its files.
+`load_bisenet_checkpoint` reads the face-parsing BiSeNet's `.pth` file.
 """
 
 from __future__ import annotations
@@ -337,3 +338,23 @@ def save_checkpoint_dir(module: nn.Module, model_dir: str,
         state[key] = w.detach().cpu().contiguous()
     torch.save(state, os.path.join(model_dir, "pytorch_model.bin"))
     return sum(w.numel() * w.element_size() for w in state.values())
+
+
+def load_bisenet_checkpoint(path: str, device=None) -> nn.Module:
+    """The face-parsing BiSeNet checkpoint (`79999_iter.pth` of
+    zllrunning/face-parsing.PyTorch, or any state dict under its keys,
+    optionally inside "state_dict" and behind `module.`) as a
+    `BiSeNet(norm="bn")` on `device` (None = CUDA, raising without it),
+    loaded strictly; its classes and width are read from the weights."""
+    from ..core.device import resolve_device
+    from .bisenet import BiSeNet
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    module = BiSeNet(n_classes=sd["conv_out.conv_out.weight"].shape[0], norm="bn",
+                     width=sd["cp.resnet.conv1.weight"].shape[0],
+                     device=resolve_device(device))
+    module.load_state_dict(sd, strict=True)
+    return module

@@ -1,6 +1,7 @@
 """Ops: attention, GroupNorm, the fused GroupNorm+SiLU -> conv3x3 and
 activated batch norm, each with hand-written CUDA kernels and a plain torch
-version; plain convs go to cuDNN.
+version; plain convs go to cuDNN; `resize` and `morphology` (segmentation
+masks) are torch ops.
 
 `launch_counts()` / `reset_launch_counts()` read and zero every kernel
 wrapper's launch count, by kernel name."""

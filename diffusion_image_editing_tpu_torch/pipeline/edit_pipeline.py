@@ -1,20 +1,22 @@
 """EditPipeline, the top-level editing API: the port of
-`pipeline/edit_pipeline.py` for real-image edits with a given mask:
-encode -> DDIM or edit-friendly DDPM inversion -> optional resynthesis
-inside the mask -> guided denoise -> decode. Segmentation masks come with
-Queue A item 15a."""
+`pipeline/edit_pipeline.py` for real-image edits: segment -> class mask at
+latent resolution -> encode -> DDIM or edit-friendly DDPM inversion ->
+optional resynthesis inside the mask -> guided denoise -> decode. The JAX
+package runs segment, mask and encode as one jitted dispatch; here they
+are three calls in sequence."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ..engine import invert as I
 from ..engine.edit import edit
 from ..guidance.attr_functions import AttrFunc
-from .masks import apply_mask
+from ..utils.constants import ATTRS
+from .masks import MaskCreator, apply_mask
 from .wrappers import SD
 
 
@@ -26,15 +28,28 @@ class EditorOutput:
 
 
 class EditPipeline:
-    """Real-image editing with a diffusion wrapper and attribute functions:
-    DDIM or DDPM inversion in every mode of the JAX package, then the guided
-    edit in either mode, with a given mask and resynthesis. Random draws come
-    from a `torch.Generator` or from explicit tensors."""
+    """Real-image editing with a diffusion wrapper, an optional segmentation
+    model and attribute functions: a class mask from the parsing map, DDIM
+    or DDPM inversion in every mode of the JAX package, then the guided edit
+    in either mode, with the mask and resynthesis. Random draws come from a
+    `torch.Generator` or from explicit tensors.
 
-    def __init__(self, diffusion_wrapper: SD, segmentation_fn=None):
-        if segmentation_fn is not None:
-            raise NotImplementedError("segmentation comes with Queue A item 15a")
+    `segmentation_fn`: (B, 3, H, W) image in [-1, 1] -> (H, W) integer
+    parsing map (`models.bisenet.SegmentationModel.__call__`)."""
+
+    def __init__(self, diffusion_wrapper: SD,
+                 segmentation_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.diffusion_wrapper = diffusion_wrapper
+        self.segmentation_fn = segmentation_fn
+
+    def check_classes(self, classes: Optional[Sequence[int]]) -> None:
+        """Class ids must be parsing classes, `range(len(ATTRS))`; None
+        passes. Raises ValueError (the JAX package asserts)."""
+        if classes is None:
+            return
+        for x in classes:
+            if not 0 <= x < len(ATTRS):
+                raise ValueError(f"class {x} out of range")
 
     def check_inputs(self, attr_func, eta, mask, resynthesize, zs) -> None:
         if eta > 0 and zs is None:
@@ -44,15 +59,27 @@ class EditPipeline:
         if attr_func is None and (mask is None or resynthesize is None):
             raise ValueError("attr_func is None and mask is None implies no edit")
 
+    def create_mask(self, classes: Sequence[int], dilate_mask: bool, parsing: torch.Tensor,
+                    dim: int) -> torch.Tensor:
+        return MaskCreator(dilate_mask=dilate_mask, resize_size=(dim, dim)).create_mask(
+            parsing, classes)
+
     def prepare_for_edit(self, img: torch.Tensor, classes: Optional[Sequence[int]] = None,
                          dilate_mask: bool = False):
-        """Encode; returns (latent, mask=None, parsing=None). `classes` and
-        `dilate_mask`, which make and widen a segmentation mask, come with
-        Queue A item 15a."""
-        if classes is not None or dilate_mask:
-            raise NotImplementedError("segmentation classes and dilate_mask come with "
-                                      "Queue A item 15a")
-        return self.diffusion_wrapper.encode(img), None, None
+        """Segment -> mask of `classes` (each class dilated 7 x 7 first when
+        `dilate_mask`) at the latent's resolution, on the wrapper's device
+        -> encode. Returns (latent, mask, parsing); without `classes` the
+        mask and the parsing map are None, and `dilate_mask` does nothing."""
+        self.check_classes(classes)
+        w = self.diffusion_wrapper
+        mask = parsing = None
+        if classes is not None:
+            if self.segmentation_fn is None:
+                raise ValueError("classes given but no segmentation model")
+            parsing = self.segmentation_fn(img)
+            mask = self.create_mask(classes, dilate_mask, parsing,
+                                    w.data_dimensionality).to(w.device)
+        return w.encode(img), mask, parsing
 
     def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
         """The caller's generator, else one on the device seeded with 0 (the
@@ -103,7 +130,9 @@ class EditPipeline:
         chunk: int = 10,
     ):
         """Invert a real image (NCHW in [-1, 1]) for editing. Returns
-        (xt, zs, xts, mask, parsing).
+        (xt, zs, xts, mask, parsing). With `classes`, the mask
+        (`prepare_for_edit`) gains an all-ones fourth channel for SD's
+        4-channel latents: (1, 4, h, w).
 
         The defaults are the JAX package's: DDIM inversion at eta 0, and
         `mode=None` picks "batched" for DDPM and "split" for DDIM. DDIM's
@@ -130,15 +159,19 @@ class EditPipeline:
         eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
         if inversion_method == "ddim":
             xt = I.ddim_invert(sched, eps_fn, latent, refine_iters=refine_iters)
-            return xt, None, None, mask, parsing
-        start = _clamp_t_skip(t_skip, sched.num_inference_steps)
-        if mode == "batched":
-            res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta, generator=generator,
-                                        noise=noise, chunk=chunk, start=start)
+            zs = xts = None
         else:
-            res = I.ddpm_invert(sched, eps_fn, latent, eta=eta, generator=generator,
-                                noise=noise, start=start if mode == "split" else 0)
-        return res.xt, res.zs, res.xts, mask, parsing
+            start = _clamp_t_skip(t_skip, sched.num_inference_steps)
+            if mode == "batched":
+                res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta, generator=generator,
+                                            noise=noise, chunk=chunk, start=start)
+            else:
+                res = I.ddpm_invert(sched, eps_fn, latent, eta=eta, generator=generator,
+                                    noise=noise, start=start if mode == "split" else 0)
+            xt, zs, xts = res.xt, res.zs, res.xts
+        if isinstance(w, SD) and mask is not None:
+            mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
+        return xt, zs, xts, mask, parsing
 
     def edit_image(
         self,

@@ -1,10 +1,12 @@
 """Model factory: the port of `pipeline/factory.py::create_diffusion_model`
-for the SD family.
+for the SD family and of `create_segmentation_model`.
 
 Builds the wrapper from an HF-layout checkpoint directory (`unet/`, `vae/`,
 `text_encoder/`, and `tokenizer/` when present) through
 `models/port.py::load_checkpoint_dir`, or from seeded random weights with a
-warning when no directory is given. Nothing is downloaded.
+warning when no directory is given. Nothing is downloaded. The
+segmentation model is a face-parsing BiSeNet from its checkpoint file
+(`models/port.py::load_bisenet_checkpoint`) or from seeded random weights.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ from ..models import (
     SD15_UNET,
     SD_VAE,
     AutoencoderKL,
+    BiSeNet,
     CLIPTextEncoder,
     UNet2DCondition,
+    load_bisenet_checkpoint,
     load_checkpoint_dir,
 )
+from ..models.bisenet import SegmentationModel
 from .wrappers import SD
 
 
@@ -67,6 +72,26 @@ def create_diffusion_model(
         vae = AutoencoderKL(SD_VAE, device=dev, dtype=dtype)
         text = CLIPTextEncoder(CLIP_VIT_L_14_TEXT, device=dev, dtype=dtype)
     return SD(unet, vae, sched, text, None, device=dev)
+
+
+def create_segmentation_model(checkpoint_path: Optional[str] = None, n_classes: int = 19,
+                              width: int = 64, device=None) -> SegmentationModel:
+    """A `SegmentationModel` of a face-parsing `BiSeNet(norm="bn")`, f32, on
+    `device` (None = CUDA, raising without it): loaded from
+    `checkpoint_path`, whose classes and width must be `n_classes` and
+    `width`, or seeded random weights with a warning."""
+    dev = resolve_device(device)
+    if checkpoint_path is not None:
+        module = load_bisenet_checkpoint(checkpoint_path, dev)
+        if (module.n_classes, module.width) != (n_classes, width):
+            raise ValueError(f"{checkpoint_path} holds a BiSeNet of {module.n_classes} classes "
+                             f"and width {module.width}, not {n_classes} and {width}")
+        return SegmentationModel(module)
+    _warn_random_init()
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(0)
+        module = BiSeNet(n_classes=n_classes, norm="bn", width=width, device=dev)
+    return SegmentationModel(module)
 
 
 def _warn_random_init():

@@ -1,7 +1,9 @@
 """The port's `generate` and `edit` subcommands on the CPU (`--device cpu`),
 from a TINY SD checkpoint directory the test writes, each writing a PNG;
 without `--device` they ask for CUDA and raise here; the options of later
-slices exit naming their ROADMAP item. The host-side image codecs they use
+slices exit naming their ROADMAP item. The masked segmentation edit runs
+from a TINY face-parsing checkpoint the test writes, or from seeded random
+weights. The host-side image codecs they use
 against the JAX package's, exactly."""
 
 import numpy as np
@@ -10,7 +12,7 @@ import torch
 from PIL import Image
 
 from diffusion_image_editing_tpu_torch import cli
-from tests.torch_port_helpers import write_tiny_sd_dir
+from tests.torch_port_helpers import write_bisenet_checkpoint, write_tiny_sd_dir
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +56,42 @@ def test_ddpm_edit_writes_a_png(ckpt, tmp_path):
     assert out.exists()
 
 
+def test_masked_seg_edit_writes_a_png(ckpt, tmp_path, capsys):
+    """`--classes 17 --dilate-mask --bisenet-ckpt F --resynthesize`: the
+    hair mask from a face-parsing checkpoint, resynthesis inside it. The
+    mask is made at the UNet's sample size (8 for the TINY UNet), so the
+    image is 16 px."""
+    seg = tmp_path / "79999_iter.pth"
+    write_bisenet_checkpoint(str(seg), seed=0, width=64)
+    out = tmp_path / "s.png"
+    assert cli.main(["edit", "--device", "cpu", "--family", "sd", "--checkpoint-dir", str(ckpt),
+                     "--image", str(ckpt / "face.png"), "--image-size", "16", "--steps", "2",
+                     "--classes", "17", "--dilate-mask", "--bisenet-ckpt", str(seg), "--resynthesize",
+                     "--out", str(out)]) == 0
+    arr = np.asarray(Image.open(out))
+    assert arr.shape == (16, 16, 3) and np.isfinite(arr).all() and arr.std() > 0
+    assert "random-init" not in capsys.readouterr().err
+
+
+def test_classes_without_a_checkpoint_run_on_random_weights(ckpt, tmp_path, capsys):
+    out = tmp_path / "r.png"
+    assert cli.main(["edit", "--device", "cpu", "--checkpoint-dir", str(ckpt), "--image",
+                     str(ckpt / "face.png"), "--image-size", "16", "--steps", "2", "--classes",
+                     "17", "1",
+                     "--resynthesize", "--out", str(out)]) == 0
+    assert out.exists()
+    assert "WARNING: random-init weights" in capsys.readouterr().err
+
+
+def test_classes_out_of_range_are_refused(ckpt, tmp_path):
+    seg = tmp_path / "seg.pth"
+    write_bisenet_checkpoint(str(seg), seed=0, width=64)
+    with pytest.raises(ValueError, match="class 19 out of range"):
+        cli.main(["edit", "--device", "cpu", "--checkpoint-dir", str(ckpt), "--image",
+                  str(ckpt / "face.png"), "--steps", "2", "--classes", "19", "--bisenet-ckpt",
+                  str(seg), "--out", str(tmp_path / "x.png")])
+
+
 def test_without_device_the_cli_asks_for_cuda(ckpt, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -63,9 +101,8 @@ def test_without_device_the_cli_asks_for_cuda(ckpt, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cmd,flags,item", [
     ("edit", ["--align"], "item 20"), ("edit", ["--landmarks", "lm.dat"], "item 20"),
-    ("edit", ["--classes", "17"], "item 15a"), ("edit", ["--guidance-codec", "proxy"], "item 16"),
+    ("edit", ["--guidance-codec", "proxy"], "item 16"),
     ("edit", ["--encoder-reuse", "2"], "item 16"), ("edit", ["--shard", "cfg2xsp4"], "item 18"),
-    ("edit", ["--bisenet-ckpt", "b.pth"], "item 15a"), ("edit", ["--dilate-mask"], "item 15a"),
     ("generate", ["--sample-clipping"], "item 14"),
     ("generate", ["--no-sample-clipping"], "item 14"),
 ])

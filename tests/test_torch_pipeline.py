@@ -65,12 +65,13 @@ def test_wrapper_places_everything_on_its_device(pipe):
                                     dict(dilate_mask=True)])
 def test_unported_options_raise(pipe, kwargs):
     """Each option of `prepare_real_image_edit` runs to a finite inversion of
-    the latent's shape (DDIM by default, as the JAX package); `classes` and
-    `dilate_mask` (segmentation, Queue A item 15a) still raise."""
+    the latent's shape (DDIM by default, as the JAX package). As in the JAX
+    package, `classes` without a segmentation model raises ValueError, and
+    `dilate_mask` without `classes` makes no mask."""
     img = torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)) * 2 - 1
     gen = torch.Generator().manual_seed(1)
-    if "classes" in kwargs or "dilate_mask" in kwargs:
-        with pytest.raises(NotImplementedError, match="15a"):
+    if "classes" in kwargs:
+        with pytest.raises(ValueError, match="no segmentation model"):
             pipe.prepare_real_image_edit(img, generator=gen, **kwargs)
         return
     xt, zs, xts, mask, parsing = pipe.prepare_real_image_edit(img, generator=gen, **kwargs)
@@ -133,8 +134,9 @@ def test_edit_image_checks_its_inputs(pipe):
                    dict(encoder_reuse=2)):
         with pytest.raises(NotImplementedError, match="item"):
             pipe.edit_image(xt, attr_func=attr, **kwargs)
-    with pytest.raises(NotImplementedError):
-        EditPipeline(pipe.diffusion_wrapper, segmentation_fn=lambda img: img)
+    # A segmentation function is taken (tests/test_torch_segguide.py runs it).
+    seg_fn = lambda img: torch.zeros(32, 32, dtype=torch.long)  # noqa: E731
+    assert EditPipeline(pipe.diffusion_wrapper, segmentation_fn=seg_fn).segmentation_fn is seg_fn
 
 
 def test_ddim_edit_runs_without_noise_maps(pipe):

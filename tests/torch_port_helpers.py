@@ -151,3 +151,24 @@ def write_tiny_sd_dir(root, fmt="bin", legacy_vae_names=False):
         if fmt == "safetensors":
             to_safetensors(os.path.join(root, sub))
     return {"unet": uparams, "vae": vparams, "clip": cparams}
+
+
+def write_bisenet_checkpoint(path, seed=0, width=8, n_classes=19):
+    """A face-parsing-style checkpoint file, `{"state_dict": {"module." +
+    key: tensor}}`, of a seeded port `BiSeNet(norm="bn")` with non-trivial
+    norm parameters and running statistics; returns the state dict."""
+    from diffusion_image_editing_tpu_torch.models import BiSeNet
+    from diffusion_image_editing_tpu_torch.models.resnet import norm_layers
+
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        model = BiSeNet(n_classes=n_classes, norm="bn", width=width, device="cpu")
+        with torch.no_grad():
+            for m in norm_layers(model):
+                m.weight.uniform_(0.8, 1.2)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.8, 1.2)
+    state = model.state_dict()
+    torch.save({"state_dict": {"module." + k: v for k, v in state.items()}}, path)
+    return state
