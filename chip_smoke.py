@@ -92,7 +92,40 @@ Phases, each printing its own lines; any failure exits non-zero:
              (but CLIP's causal one) and no plain GroupNorm ran on the card,
              and finite images; prints the load, generation, inversion and
              edit seconds and the peak memory.
-9. seg     - the segmentation trainer's path after the SD models are freed:
+9. ldm_clf - bench.py's `ldm` workload in the port: an HF-layout LDM
+             CelebA-HQ-256 directory (UNet 274 M parameters under the current
+             attention names, VQ model 55 M under the legacy ones, bf16, seeded
+             random weights) and an anyGAN attribute predictor (ResNet-50,
+             fc -> 80, f32) saved under torchvision's keys, loaded by
+             `create_diffusion_model("ldm", sample_clipping=False)` and
+             `get_pretrained_anygan` and checked bit-equal; a random 256 px
+             image -> VQ encode -> 50-step DDIM inversion
+             (`prepare_real_image_edit`) -> bench.py's guided loop: 50 DDIM
+             steps at eta 0, each a UNet call and
+             ClassifierAttrFunc(loss_scale=50, [20][1]).apply_batched through
+             the quantizing VQ decode (straight-through) and the ResNet-50 on
+             the ImageNet-normalised image -> decode. Checks the launch counts
+             against what the pieces imply, no plain attention, GroupNorm or
+             ABN on the card, a finite image that differs from the unguided
+             loop's; prints the guided loop's steps/s (bench.py's metric), the
+             inversion's and the load's seconds and the peak memory.
+10. ddpm_edit - the DDPM CelebA-HQ-256 family: an HF-layout directory (UNet
+             114 M, legacy attention names, bf16) loaded by
+             `create_diffusion_model("ddpm", sample_clipping=True)` and checked
+             bit-equal; a 50-step 256 px generation with pred-x0 clipped (the
+             CLI's `generate --family ddpm`); on an unclipped wrapper of the
+             same modules, a random 256 px image -> edit-friendly DDPM
+             inversion (eta 1, batched, chunk 10, t_skip 10) -> 40 steps
+             guided by the same ClassifierAttrFunc, the gradient through the
+             ResNet-50 alone (the codec is the identity). Checks as [ldm_clf].
+   [tiny] also holds TINY_UNET2D (its 64-wide head), a TINY VQ model (encode,
+             codes as an agreement rate, decode and its gradient), a width-8
+             ResNet-50's logits and one ClassifierAttrFunc nudge through the
+             TINY LDM decode, card against CPU; [kernels] holds K1 at the LDM
+             and DDPM UNets' heads and at 64, K2/K3 at 64, and K4-K6 at the
+             LDM UNet's odd channels a group, the 512 KiB slabs of the VQ
+             decoder and the DDPM UNet and their 1 MiB slabs.
+11. seg    - the segmentation trainer's path after the SD models are freed:
              `seg.train_loop` (the `seg-train` CLI's entry point) at the
              reference recipe (BiSeNet, ResNet-18, width 64, 19 classes,
              448 px, batch 16, OHEM 3-head loss, warmup -> poly SGD) with
@@ -151,6 +184,15 @@ TINY_PROMPT_TOL = {"clip": 0.02, "generate": 0.05}
 # and at two decodes 1.5 % apart it differs by 0.2-0.28 (CPU bf16 against
 # f32; 0.18 card bf16 against CPU bf16), which no tolerance here would pass.
 TINY_SEG_TOL = {"logits": 1e-4, "seg_grad": 1e-3, "nudge": 0.05}
+# The DDPM / LDM pieces at the TINY sizes, card bf16 against CPU f32 (the
+# ResNet-50 f32 on both, TF32 off), max |card - cpu| / max |cpu| (codes: the
+# least share of the latent quantized to the same code). Three to five times
+# the CPU's own bf16-vs-f32 spread of the same computations (eps 0.0095,
+# latent 0.013, decode 0.011, decode VJP 0.014, nudge 0.017; codes agreeing
+# at 0.994, a miss rate of 0.6 % against the 5 % allowed); logits as
+# TINY_SEG_TOL's.
+TINY_FAMILY_TOL = {"eps": 0.05, "latent": 0.05, "codes": 0.95, "decode": 0.05,
+                   "decode_vjp": 0.05, "logits": 1e-4, "nudge": 0.05}
 
 FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 64x64", (2, 4096, 8, 40), (2, 4096, 8, 40)),
@@ -160,15 +202,27 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("unet cross 64x64", (2, 4096, 8, 40), (2, 77, 8, 40)),
     ("unet self 64x64 b20", (20, 4096, 8, 40), (20, 4096, 8, 40)),  # the batched inversion
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512)),
+    # The LDM UNet's heads of dim 32, the DDPM UNet's one 512-wide head (batch 1
+    # and the batched inversion's chunk of 10: 64 keys leave each rank of K1's
+    # wide cluster one 32-key tile), and TINY_UNET2D's 64-wide head.
+    ("ldm unet 32x32", (1, 1024, 14, 32), (1, 1024, 14, 32)),
+    ("ldm unet 16x16", (1, 256, 21, 32), (1, 256, 21, 32)),
+    ("ldm unet 8x8", (1, 64, 28, 32), (1, 64, 28, 32)),
+    ("ddpm unet 16x16", (1, 256, 1, 512), (1, 256, 1, 512)),
+    ("ddpm unet 8x8", (1, 64, 1, 512), (1, 64, 1, 512)),
+    ("ddpm unet 16x16 b10", (10, 256, 1, 512), (10, 256, 1, 512)),
+    ("ddpm unet 8x8 b10", (10, 64, 1, 512), (10, 64, 1, 512)),
+    ("tiny unet2d 8x8", (2, 64, 1, 64), (2, 64, 1, 64)),
 ]
 LSE_CASES = [  # the forward with lse: the UNet's width, and the VAE's (40 launches a run)
     ("unet self 64x64", (2, 4096, 8, 40)),
     ("vae mid 64x64", (1, 4096, 1, 512)),
 ]
 BWD_CASES = [  # queries and keys of one length; the ragged case fills no block or tile
-    ("vae mid 64x64", (1, 4096, 1, 512)),
+    ("vae mid 64x64", (1, 4096, 1, 512)),  # also the VQ decoder's, in [ldm_clf]'s gradient
     ("unet self 32x32", (2, 1024, 8, 80)),
     ("vae ragged", (1, 1000, 2, 512)),
+    ("tiny unet2d 8x8", (2, 64, 1, 64)),  # the narrow design at head dim 64
 ]
 # GroupNorm: max |kernel - plain| / max |plain|; both round the same f32 value
 # to bf16, so they differ by at most one bf16 step (2^-7 relative) where the
@@ -181,6 +235,17 @@ GN_CASES = [  # (label, (N, C, H, W)); a kernel's table entry is its first shape
     ("unet 8x8x1280 b2", (2, 1280, 8, 8)),
     ("vae 512x512x128 b1", (1, 128, 512, 512)),
     ("unet 64x64x640 b2", (2, 640, 64, 64)),  # 160 KiB slabs: K4 at a cluster of two
+    # The LDM UNet's odd channel counts a group (7, 21, 35, 49), the VQ
+    # decoder's and the DDPM UNet's slabs of exactly K4's 512 KiB limit, and
+    # their 1 MiB slabs (K5 + K6), the DDPM one at the inversion's batch 10.
+    ("ldm unet 64x64x224 b1", (1, 224, 64, 64)),
+    ("ldm unet 64x64x672 b1", (1, 672, 64, 64)),
+    ("ldm unet 32x32x1120 b1", (1, 1120, 32, 32)),
+    ("ldm unet 16x16x1568 b1", (1, 1568, 16, 16)),
+    ("vq 128x128x512 b1", (1, 512, 128, 128)),
+    ("ddpm 256x256x128 b1", (1, 128, 256, 256)),
+    ("vq 256x256x256 b1", (1, 256, 256, 256)),
+    ("ddpm 256x256x256 b10", (10, 256, 256, 256)),
 ]
 # Fused conv: max |kernel - plain| / max |plain|. f32 accumulation in another
 # order; the kernel rounds conv + bias once, the plain version rounds the
@@ -717,6 +782,7 @@ def phase_tiny() -> None:
     failed += _tiny_prompt()
     failed += _tiny_seg()
     failed += _tiny_masks()
+    failed += _tiny_families()
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
 
@@ -866,6 +932,91 @@ def _tiny_masks(dev=torch.device("cuda")) -> list:
                 f"{'ok' if same else 'FAIL'}")
             if not same:
                 failed.append(f"mask {size}->{out} {classes} dilate {dilate}")
+    return failed
+
+
+def _tiny_families(devices=(("cuda", torch.bfloat16), ("cpu", torch.float32))) -> list:
+    """The DDPM / LDM pieces at the TINY sizes, the first device (the card,
+    bf16 models) against the second (the CPU, f32), from the same weights and
+    inputs: TINY_UNET2D's eps (its single 64-wide head on K1-K3's narrow
+    design), the TINY VQ model's encode, its codes (an agreement rate: an
+    argmin near a tie may go either way between bf16 and f32 latents), its
+    quantizing decode and that decode's gradient, the width-8 ResNet-50's f32
+    logits, and one ClassifierAttrFunc nudge through the TINY LDM's decode,
+    the second device's decode pinned to the first's decoded image
+    (`_Pinned`, as `_tiny_seg`). The codebook holds bf16 values, so that
+    both devices quantize one latent to the same codes. Returns the names
+    that disagree."""
+    import copy
+
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.guidance import ClassifierAttrFunc
+    from diffusion_image_editing_tpu_torch.models import (
+        TINY_UNET2D, TINY_VQVAE, ResNet50, UNet2D, VQModel)
+    from diffusion_image_editing_tpu_torch.pipeline import LDM
+
+    torch.manual_seed(3)
+    rng = np.random.default_rng(3)
+    unet = UNet2D(TINY_UNET2D, device="cpu")
+    vq = VQModel(TINY_VQVAE, device="cpu")
+    codebook = vq.quantize.embedding.weight
+    with torch.no_grad():
+        codebook.copy_(codebook.to(torch.bfloat16).float())
+    clf = ResNet50(width=8, device="cpu").eval()
+    x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16), dtype=np.float32))
+    t = np.array([801, 41])
+    img = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32))
+    z0 = codebook.detach()[torch.from_numpy(rng.integers(0, 64, (1, 16, 16)))].permute(0, 3, 1, 2)
+    wgt = torch.from_numpy(rng.standard_normal((1, 3, 32, 32), dtype=np.float32))
+    xt, eps = (torch.from_numpy(rng.standard_normal((1, 3, 16, 16), dtype=np.float32))
+               for _ in range(2))
+    sched = schedule_for_model("ldm", 4, clip_sample=False)
+    runs, decoded = [], []
+    for dev, dtype in devices:
+        ldm = LDM(copy.deepcopy(unet).to(dtype=dtype), sched,
+                  copy.deepcopy(vq).to(dtype=dtype), device=dev)
+        net = copy.deepcopy(clf).to(dev)
+        with torch.no_grad():
+            eps_out = ldm.eps_fn()(x.to(dev), t)
+            latent = ldm.encode(img)
+            codes = ldm.vqvae.quantize.indices(latent)
+            logits = net(img.to(dev))
+        z = z0.to(dev).requires_grad_(True)
+        dec = ldm.decode_fn()(z)
+        (vjp,) = torch.autograd.grad((dec.float() * wgt.to(dev)).sum(), z)
+
+        def decode(zz, dev=dev, decode_fn=ldm.decode_fn()):
+            out = decode_fn(zz)
+            if decoded:  # the second device: the first's value, its own gradient
+                return _Pinned.apply(out, decoded[0].to(dev, out.dtype))
+            decoded.append(out.detach())
+            return out
+
+        attr = ClassifierAttrFunc(loss_scale=50.0, t1=0, t2=4, clf_apply_fn=clf_logits_fn(net),
+                                  idx_for_class=20, idx_of_interest=1)
+        nudged, _ = attr.apply(xt.to(dev), None, eps.to(dev), int(sched.timesteps[1]), 1, sched,
+                               decode)
+        runs.append({"eps": eps_out, "latent": latent, "codes": codes, "decode": dec.detach(),
+                     "decode_vjp": vjp, "logits": logits, "nudge": nudged - xt.to(dev)})
+    got, ref = runs
+    failed = []
+    (d0, t0), (d1, t1) = ((d, str(t).removeprefix("torch.")) for d, t in devices)
+    for name, tol in TINY_FAMILY_TOL.items():
+        want = ref[name].cpu()
+        if name == "codes":
+            agree = (got[name].cpu() == want).float().mean().item()
+            ok = agree >= tol
+            log(f"[tiny] families codes {tuple(want.shape)}: {d0} {t0} and {d1} {t1} pick the "
+                f"same code at {agree:.4f} of the latent (at least {tol}) "
+                f"{'ok' if ok else 'FAIL'}")
+        else:
+            want = want.float()
+            err = ((got[name].float().cpu() - want).abs().max() / want.abs().max()).item()
+            ok = err <= tol and math.isfinite(err)
+            log(f"[tiny] families {name} {tuple(want.shape)}: max|{d0} {t0} - {d1} {t1}| / "
+                f"max|{d1}| {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"families {name}")
     return failed
 
 
@@ -1437,78 +1588,105 @@ def write_tokenizer(path: str) -> int:
     return len(tokens)
 
 
-def write_sd_checkpoint(root: str, dev) -> tuple:
-    """An HF-layout SD-1.5 directory from seeded random bf16 weights: unet/,
-    vae/ (attention under the legacy names), text_encoder/ (CLIP ViT-L/14),
-    tokenizer/. Returns ({component: the state dict written, on the CPU},
-    bytes of weights)."""
-    from diffusion_image_editing_tpu_torch.models import (
-        CLIP_VIT_L_14_TEXT, SD15_UNET, SD_VAE, AutoencoderKL, CLIPTextEncoder, UNet2DCondition)
+def write_components(root: str, parts, seed: int, dev) -> tuple:
+    """HF-layout component directories under `root` from seeded random bf16
+    weights, one for each (subdirectory, module class, config, legacy
+    attention names) of `parts`. Returns ({subdirectory: the state dict
+    written, on the CPU}, bytes of weights)."""
     from diffusion_image_editing_tpu_torch.models.port import save_checkpoint_dir
 
-    torch.manual_seed(7)
+    torch.manual_seed(seed)
     written, nbytes = {}, 0
-    for sub, cls, cfg, legacy in (("unet", UNet2DCondition, SD15_UNET, False),
-                                  ("vae", AutoencoderKL, SD_VAE, True),
-                                  ("text_encoder", CLIPTextEncoder, CLIP_VIT_L_14_TEXT, False)):
+    for sub, cls, cfg, legacy in parts:
         module = cls(cfg, device=dev, dtype=torch.bfloat16)
         nbytes += save_checkpoint_dir(module, os.path.join(root, sub),
                                       legacy_attention_names=legacy)
         written[sub] = {k: v.cpu() for k, v in module.state_dict().items()}
         del module
-    write_tokenizer(os.path.join(root, "tokenizer"))
     torch.cuda.empty_cache()
     return written, nbytes
 
 
-def check_loaded(sd, written) -> int:
-    """Every tensor the factory loaded against the one written; returns the
-    number of tensors."""
+def write_sd_checkpoint(root: str, dev) -> tuple:
+    """An HF-layout SD-1.5 directory: unet/, vae/ (attention under the legacy
+    names), text_encoder/ (CLIP ViT-L/14), tokenizer/ (`write_components`)."""
+    from diffusion_image_editing_tpu_torch.models import (
+        CLIP_VIT_L_14_TEXT, SD15_UNET, SD_VAE, AutoencoderKL, CLIPTextEncoder, UNet2DCondition)
+
+    out = write_components(root, (("unet", UNet2DCondition, SD15_UNET, False),
+                                  ("vae", AutoencoderKL, SD_VAE, True),
+                                  ("text_encoder", CLIPTextEncoder, CLIP_VIT_L_14_TEXT, False)),
+                           7, dev)
+    write_tokenizer(os.path.join(root, "tokenizer"))
+    return out
+
+
+def check_loaded(tag: str, modules: dict, written: dict) -> int:
+    """Every tensor of each loaded module against the one written; returns
+    the number of tensors."""
     n = 0
-    for sub, module in (("unet", sd.unet), ("vae", sd.vae), ("text_encoder", sd.text_encoder)):
+    for sub, module in modules.items():
         state = module.state_dict()
         if set(state) != set(written[sub]):
-            raise RuntimeError(f"[prompt] {sub}: loaded keys differ from the written ones")
+            raise RuntimeError(f"[{tag}] {sub}: loaded keys differ from the written ones")
         for k, v in state.items():
             want = written[sub][k]
             if v.dtype != want.dtype or not torch.equal(v.cpu(), want):
-                raise RuntimeError(f"[prompt] {sub}.{k} is not the tensor written")
+                raise RuntimeError(f"[{tag}] {sub}.{k} is not the tensor written")
             n += 1
     return n
 
 
-def counted(tag: str, fn, expected: dict):
-    """Runs `fn` with every launch count set to 0 just before it and read
-    just after, watching for plain attention and plain GroupNorm on the card;
-    checks the counts against `expected`. Returns (fn's result, seconds,
-    the counts)."""
+@contextlib.contextmanager
+def counted_block(label: str, expected: dict):
+    """Every launch count set to 0 just before the block and read just
+    after, while plain attention (CLIP's causal one apart), GroupNorm and ABN
+    are watched on the card; checks the counts against `expected` and that no
+    plain version ran. Yields a dict that holds "seconds" and "counts" once
+    the block has ended."""
     from diffusion_image_editing_tpu_torch import ops
 
-    with plain_groupnorm_watch() as gn_calls, plain_attention_watch() as attn_calls:
+    run = {}
+    with plain_groupnorm_watch() as gn_calls, plain_attention_watch() as attn_calls, \
+            plain_abn_watch() as abn_calls:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        out = fn()
+        yield run
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = ops.launch_counts()
-    plain = {k: v for k, v in {**gn_calls, **attn_calls}.items() if not k.endswith("causal")}
-    log(f"[prompt] {tag}: {seconds:.3f} s; launches {counts}")
-    log(f"[prompt] {tag}: expected {expected}; plain calls on the card {plain}, CLIP's causal "
-        f"attentions {attn_calls.get('attention_reference causal', 0)}")
+        run["seconds"] = time.perf_counter() - t0
+        run["counts"] = counts = ops.launch_counts()
+    plain = {k: v for k, v in {**gn_calls, **attn_calls, **abn_calls}.items()
+             if not k.endswith("causal")}
+    log(f"{label} {run['seconds']:.3f} s; launches {counts}")
+    log(f"{label} expected {expected}; plain attention, GroupNorm and ABN calls on the card "
+        f"{plain}, causal attentions {attn_calls.get('attention_reference causal', 0)}")
     if counts != expected:
-        raise RuntimeError(f"[prompt] {tag}: launch counts {counts} differ from {expected}")
+        raise RuntimeError(f"{label}: launch counts {counts} differ from {expected}")
     if any(plain.values()):
-        raise RuntimeError(f"[prompt] {tag}: a plain attention or GroupNorm ran on the card")
-    return out, seconds, counts
+        raise RuntimeError(f"{label}: a plain attention, GroupNorm or ABN ran on the card: {plain}")
 
 
-def check_image(tag: str, imgs, size: int) -> None:
+def counted(tag: str, fn, expected: dict):
+    """`fn` inside `counted_block`; returns (fn's result, seconds, the counts)."""
+    with counted_block(f"[prompt] {tag}:", expected) as run:
+        out = fn()
+    return out, run["seconds"], run["counts"]
+
+
+def check_image(label: str, imgs, size: int, other=None) -> float:
+    """A finite (1, 3, size, size) image; with `other` (the unguided run's),
+    one that differs from it. Returns max |imgs - other| (0 without it)."""
     finite = bool(torch.isfinite(imgs).all())
-    log(f"[prompt] {tag} image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
+    moved = (imgs.float() - other.float()).abs().max().item() if other is not None else 0.0
+    log(f"{label} image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
         f"[{imgs.min().item():.3f}, {imgs.max().item():.3f}], red mean "
-        f"{imgs[:, 0].float().mean().item():.4f}")
-    if not finite or tuple(imgs.shape) != (1, 3, size, size):
-        raise RuntimeError(f"[prompt] {tag}: not a finite (1, 3, {size}, {size}) image")
+        f"{imgs[:, 0].float().mean().item():.4f}"
+        + (f"; max |guided - unguided| {moved:.4f}" if other is not None else ""))
+    if not finite or tuple(imgs.shape) != (1, 3, size, size) or (
+            other is not None and not moved > 0):
+        raise RuntimeError(f"{label}: not a finite (1, 3, {size}, {size}) image"
+                           + (" that the guidance moved" if other is not None else ""))
+    return moved
 
 
 def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
@@ -1530,7 +1708,8 @@ def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
                                     device=dev)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-    n_tensors = check_loaded(sd, written)
+    n_tensors = check_loaded("prompt", {"unet": sd.unet, "vae": sd.vae,
+                                        "text_encoder": sd.text_encoder}, written)
     del written
     n_params = {name: sum(p.numel() for p in m.parameters())
                 for name, m in (("unet", sd.unet), ("vae", sd.vae), ("clip", sd.text_encoder))}
@@ -1549,7 +1728,7 @@ def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
         lambda: sd.generate_images(num_images=1, num_inference_steps=STEPS, prompt_ids=ids,
                                    cfg_scale=CFG),
         implied_launches(per, STEPS, 0, 1, 0))
-    check_image("generate", img, size)
+    check_image("[prompt] generate", img, size)
 
     # DDIM inversion of a random image, then the fused resynthesized edit.
     pipe = EditPipeline(sd)
@@ -1576,7 +1755,7 @@ def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
         f"fused edit ({GUIDED} guided of {STEPS} steps, resynthesis in a latent box)",
         lambda: edit(pipe, STEPS, "fused", STEPS - GUIDED),
         implied_launches(per, STEPS, GUIDED, GUIDED + 1, 0))
-    check_image("fused edit", out.imgs, size)
+    check_image("[prompt] fused edit", out.imgs, size)
     peak = torch.cuda.max_memory_allocated()
     log(f"[prompt] load {load_s:.3f} s, generate {gen_s:.3f} s, DDIM inversion {inv_s:.3f} s, "
         f"fused edit {edit_s:.3f} s, peak memory {peak / 2**30:.2f} GiB, on {smi}")
@@ -1602,7 +1781,278 @@ def phase_prompt(smi: str, dev=torch.device("cuda")) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 9. seg
+# 9. ldm_clf and 10. ddpm_edit
+# ---------------------------------------------------------------------------
+
+# ClassifierAttrFunc as bench.py's ldm phase sets it (bench.py:651-654): the
+# logit [20][1] of the anyGAN attributes, at loss scale 50.
+CLF = dict(loss_scale=50.0, idx_for_class=20, idx_of_interest=1)
+ANYGAN_WIDTH = 64
+
+
+def clf_logits_fn(clf):
+    """The decoded image in [-1, 1] -> anyGAN logits (bench.py's `clf_logits`)."""
+    from diffusion_image_editing_tpu_torch.ops.resize import imagenet_normalize, to_unit_range
+
+    def apply(img):
+        return clf(imagenet_normalize(to_unit_range(img.float())))
+
+    return apply
+
+
+def write_anygan(path: str, dev) -> dict:
+    """The anyGAN attribute predictor (a ResNet-50 with fc -> 80, f32) from
+    seeded random weights with non-trivial running statistics, saved under
+    torchvision's keys in "state_dict", as the published `.pth`; returns the
+    state dict written, on the CPU."""
+    from diffusion_image_editing_tpu_torch.models import ResNet50
+    from diffusion_image_editing_tpu_torch.models.resnet import norm_layers
+
+    torch.manual_seed(13)
+    model = ResNet50(num_outputs=80, width=ANYGAN_WIDTH, device=dev)
+    with torch.no_grad():
+        for m in norm_layers(model):
+            m.running_mean.normal_(0.0, 0.1)
+            m.running_var.uniform_(0.8, 1.2)
+    written = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": written}, path)
+    return written
+
+
+def write_family_checkpoint(root: str, family: str, dev) -> tuple:
+    """An HF-layout DDPM (`unet/`) or LDM (`unet/`, `vqvae/`) directory
+    (`write_components`): the DDPM UNet and the LDM VQ model under the
+    legacy attention names, the LDM UNet under the current ones, so that both
+    namings load at full size."""
+    from diffusion_image_editing_tpu_torch.models import (
+        DDPM_CELEBAHQ_256, LDM_CELEBAHQ_256_UNET, LDM_CELEBAHQ_VQVAE, UNet2D, VQModel)
+
+    parts = ([("unet", UNet2D, DDPM_CELEBAHQ_256, True)] if family == "ddpm" else
+             [("unet", UNet2D, LDM_CELEBAHQ_256_UNET, False),
+              ("vqvae", VQModel, LDM_CELEBAHQ_VQVAE, True)])
+    return write_components(root, parts, 17, dev)
+
+
+def family_pieces(w, dev):
+    """One UNet call, one decode with its latent gradient, one encode of a
+    DDPM or LDM wrapper, on fixed inputs (the pieces `per_forward_launches`
+    counts); DDPM's identity codec launches nothing."""
+    size = w.vqvae.config.sample_size if w.family == "ldm" else w.data_dimensionality
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(w.latent_shape(1), dtype=np.float32)).to(dev)
+    wgt = torch.from_numpy(rng.standard_normal((1, 3, size, size), dtype=np.float32)).to(dev)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 3, size, size)).astype(np.float32)).to(dev)
+
+    def eps():
+        return w.eps_fn()(x, np.array([501]))
+
+    def decode():
+        z = x.clone().requires_grad_(True)
+        (vjp,) = torch.autograd.grad((w.decode_fn()(z).float() * wgt).sum(), z)
+        return vjp
+
+    def encode():
+        return w.encode(img)
+
+    return {"eps": eps, "decode": decode, "encode": encode}
+
+
+def check_family_pieces(tag: str, w, per: dict) -> None:
+    """Every GroupNorm layer of a piece ran K4 or K5 + K6, and K1-K3 as its
+    attention blocks imply: one K1 an attention block (with the lse where a
+    gradient follows), one K2 and one K3 for the decoder's attention in the
+    decode's gradient."""
+    from diffusion_image_editing_tpu_torch.models.layers import AttentionBlock2D, GroupNormLayer
+
+    codec = getattr(w, "vqvae", None)
+    parts = {"eps": w.unet, "decode": codec and codec.decoder, "encode": codec and codec.encoder}
+    for piece, module in parts.items():
+        n_gn = count_modules(module, GroupNormLayer) if module is not None else 0
+        n_attn = count_modules(module, AttentionBlock2D) if module is not None else 0
+        c = per[piece]
+        log(f"[{tag}] one {piece}: {n_gn} GroupNorm layers, {n_attn} attention blocks; {c}")
+        grad = n_attn if piece == "decode" else 0
+        if (c["group_norm_fused"] + c["group_norm_stats"] != n_gn
+                or c["group_norm_stats"] != c["group_norm_apply"]
+                or (c["flash_attn_fwd"], c["flash_attn_bwd_dq"], c["flash_attn_bwd_dkv"])
+                != (n_attn, grad, grad) or c["affine_silu_conv3x3"] or c["abn_apply"]):
+            raise RuntimeError(f"[{tag}] one {piece} ran {c} for {n_gn} GroupNorm layers and "
+                               f"{n_attn} attention blocks")
+
+
+def guided_ddim_loop(w, xt, attr):
+    """bench.py's guided loop (bench.py:663-687): for each of the schedule's
+    steps a UNet call (no gradient), `ddim_step` at eta 0, then the
+    attribute function's `apply_batched` through the wrapper's decode (no
+    nudge when `attr` is None)."""
+    from diffusion_image_editing_tpu_torch.core import ddim_step
+
+    sched, eps_fn, decode_fn = w.schedule, w.eps_fn(), w.decode_fn()
+    x = xt
+    for i, t in enumerate(sched.timesteps.tolist()):
+        eps = eps_fn(x, t).detach()
+        x, _ = ddim_step(sched, x, eps, t, eta=0.0)
+        if attr is not None:
+            x, _ = attr.apply_batched(x, None, eps, t, i, sched, decode_fn)
+    return x
+
+
+def phase_ldm_clf(smi: str, dev=torch.device("cuda")) -> dict:
+    """bench.py's `ldm` workload in the port: LDM CelebA-HQ-256 from a
+    checkpoint directory, DDIM inversion of a random 256 px image, STEPS
+    anyGAN-guided DDIM steps through the VQ decoder, decode. Returns the
+    counted run's launch counts."""
+    from diffusion_image_editing_tpu_torch.guidance import ClassifierAttrFunc
+    from diffusion_image_editing_tpu_torch.pipeline import (
+        EditPipeline, create_diffusion_model, get_pretrained_anygan)
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="ldm_ckpt_") as root:
+        t0 = time.perf_counter()
+        written, nbytes = write_family_checkpoint(root, "ldm", dev)
+        clf_path = os.path.join(root, "anygan.pth")
+        written["anygan"] = write_anygan(clf_path, dev)
+        log(f"[ldm_clf] wrote an LDM CelebA-HQ-256 checkpoint directory ({nbytes / 1e9:.3f} GB "
+            f"of bf16 weights) and an anyGAN .pth in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        w = create_diffusion_model("ldm", sample_clipping=False, checkpoint_dir=root,
+                                   num_inference_steps=STEPS, device=dev)
+        clf_fn, clf = get_pretrained_anygan(clf_path, width=ANYGAN_WIDTH, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    n_tensors = check_loaded("ldm_clf", {"unet": w.unet, "vqvae": w.vqvae, "anygan": clf},
+                                written)
+    del written
+    n_params = {name: sum(p.numel() for p in m.parameters())
+                for name, m in (("unet", w.unet), ("vqvae", w.vqvae), ("anygan", clf))}
+    log(f"[ldm_clf] loaded by create_diffusion_model('ldm', sample_clipping=False, "
+        f"checkpoint_dir=...) and get_pretrained_anygan in {load_s:.3f} s: {n_tensors} tensors "
+        f"bit-equal to those written; parameters "
+        + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n_params.items())
+        + " (UNet and VQ bf16, anyGAN f32)")
+
+    per = per_forward_launches(family_pieces(w, dev))
+    check_family_pieces("ldm_clf", w, per)
+    attr = ClassifierAttrFunc(t1=0, t2=STEPS, clf_apply_fn=clf_logits_fn(clf), **CLF)
+    pipe = EditPipeline(w)
+    size = w.vqvae.config.sample_size
+    rng = np.random.default_rng(21)
+    img = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
+    expected = implied_launches(per, 2 * STEPS, STEPS, STEPS + 1, 1)
+    with counted_block("[ldm_clf]", expected) as run:
+        t_start = time.perf_counter()
+        xt, _, _, _, _ = pipe.prepare_real_image_edit(img, inversion_method="ddim")
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter()
+        x = guided_ddim_loop(w, xt, attr)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter()
+        out = w.decode(x)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    inv_s, loop_s = t_inv - t_start, t_loop - t_inv
+    rms = [v.float().pow(2).mean().sqrt().item() for v in (xt, x)]
+    log(f"[ldm_clf] VQ encode + DDIM inversion ({STEPS} steps) {inv_s:.3f} s; guided loop "
+        f"({STEPS} steps) {loop_s:.3f} s = {STEPS / loop_s:.3f} steps/s (bench.py's metric); "
+        f"decode {t_dec - t_loop:.3f} s; whole run {run['seconds']:.3f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB, on {smi}")
+    log(f"[ldm_clf] latent RMS: x_T {rms[0]:.4g} after the inversion, x_0 {rms[1]:.4g} after "
+        f"the guided loop (no renormalisation)")
+    unguided = w.decode(guided_ddim_loop(w, xt, None))
+    check_image("[ldm_clf]", out, size, unguided)
+    with torch.no_grad():
+        score = [float(attr.loss(im)) for im in (out, unguided)]
+    log(f"[ldm_clf] anyGAN logit [{CLF['idx_for_class']}][{CLF['idx_of_interest']}]: guided "
+        f"{score[0]:.4f}, unguided {score[1]:.4f}")
+    return run["counts"]
+
+
+def phase_ddpm_edit(smi: str, dev=torch.device("cuda")) -> dict:
+    """The DDPM CelebA-HQ-256 family from a checkpoint directory: a STEPS-step
+    generation with clipping (the CLI's `generate --family ddpm`), then a
+    real-image edit on an unclipped wrapper of the same modules:
+    edit-friendly DDPM inversion (eta 1, batched, chunk CHUNK, t_skip
+    T_SKIP) and GUIDED ClassifierAttrFunc-guided steps, the gradient through
+    the anyGAN ResNet-50 alone (the codec is the identity). Returns the
+    edit's launch counts."""
+    from diffusion_image_editing_tpu_torch.guidance import ClassifierAttrFunc
+    from diffusion_image_editing_tpu_torch.pipeline import (
+        DDPM, EditPipeline, create_diffusion_model, get_pretrained_anygan)
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="ddpm_ckpt_") as root:
+        t0 = time.perf_counter()
+        written, nbytes = write_family_checkpoint(root, "ddpm", dev)
+        clf_path = os.path.join(root, "anygan.pth")
+        written["anygan"] = write_anygan(clf_path, dev)
+        log(f"[ddpm_edit] wrote a DDPM CelebA-HQ-256 checkpoint directory ({nbytes / 1e9:.3f} "
+            f"GB of bf16 weights) and an anyGAN .pth in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        w = create_diffusion_model("ddpm", sample_clipping=True, checkpoint_dir=root,
+                                   num_inference_steps=STEPS, device=dev)
+        clf_fn, clf = get_pretrained_anygan(clf_path, width=ANYGAN_WIDTH, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    n_tensors = check_loaded("ddpm_edit", {"unet": w.unet, "anygan": clf}, written)
+    del written
+    n_params = sum(p.numel() for p in w.unet.parameters())
+    log(f"[ddpm_edit] loaded by create_diffusion_model('ddpm', sample_clipping=True, "
+        f"checkpoint_dir=...) and get_pretrained_anygan in {load_s:.3f} s: {n_tensors} tensors "
+        f"bit-equal to those written; UNet {n_params / 1e6:.1f} M parameters, bf16")
+    per = per_forward_launches(family_pieces(w, dev))
+    check_family_pieces("ddpm_edit", w, per)
+    size = w.data_dimensionality
+
+    with counted_block("[ddpm_edit] generation", implied_launches(per, STEPS, 0, 0, 0)) as gen:
+        img, traj, _, _ = w.generate_images(num_images=1, num_inference_steps=STEPS, seed=0,
+                                            collect=True)
+    check_image("[ddpm_edit] generation", img, size)
+    clipped = traj.pred_original_samples.abs().max().item()
+    log(f"[ddpm_edit] generation ({STEPS} steps, {size} px, clip_sample on) {gen['seconds']:.3f} "
+        f"s = {STEPS / gen['seconds']:.3f} steps/s; max |pred-x0| {clipped:.4f}")
+    if clipped > 1.0:
+        raise RuntimeError("[ddpm_edit] the clipping schedule left pred-x0 outside [-1, 1]")
+    del traj
+
+    edit_w = DDPM(w.unet, w.schedule.with_clip_sample(False), device=dev)
+    pipe = EditPipeline(edit_w)
+    attr = ClassifierAttrFunc(t1=0, t2=STEPS, clf_apply_fn=clf_logits_fn(clf), **CLF)
+    rng = np.random.default_rng(23)
+    photo = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
+    calls = math.ceil((STEPS - T_SKIP) / CHUNK) + GUIDED
+    torch.cuda.reset_peak_memory_stats()
+    expected = implied_launches(per, calls, 0, 0, 0)
+    with counted_block("[ddpm_edit] inversion + edit", expected) as run:
+        t_start = time.perf_counter()
+        xt, zs, xts, _, _ = pipe.prepare_real_image_edit(
+            photo, eta=1.0, inversion_method="ddpm", mode="batched", chunk=CHUNK, t_skip=T_SKIP,
+            generator=torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter()
+        out = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr,
+                              inversion_method="ddpm", t_skip=T_SKIP, collect=False)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    inv_s, edit_s = t_inv - t_start, t_end - t_inv
+    log(f"[ddpm_edit] DDPM inversion (batched, chunk {CHUNK}, t_skip {T_SKIP}) {inv_s:.3f} s; "
+        f"{GUIDED} ClassifierAttrFunc-guided steps + identity decode {edit_s:.3f} s = "
+        f"{GUIDED / edit_s:.3f} steps/s; whole edit {run['seconds']:.3f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB, on {smi}")
+    unguided = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts,
+                               attr_func=ClassifierAttrFunc(t1=STEPS, t2=STEPS, **CLF),
+                               inversion_method="ddpm", t_skip=T_SKIP, collect=False).imgs
+    check_image("[ddpm_edit] edit", out.imgs, size, unguided)
+    with torch.no_grad():
+        score = [float(attr.loss(im)) for im in (out.imgs, unguided)]
+    log(f"[ddpm_edit] anyGAN logit [{CLF['idx_for_class']}][{CLF['idx_of_interest']}]: guided "
+        f"{score[0]:.4f}, unguided {score[1]:.4f}")
+    return run["counts"]
+
+
+# ---------------------------------------------------------------------------
+# 11. seg
 # ---------------------------------------------------------------------------
 
 
@@ -1745,6 +2195,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_prompt(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ldm_clf(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ddpm_edit(smi)
     gc.collect()
     torch.cuda.empty_cache()
     seg_counts = phase_seg(smi)

@@ -2,13 +2,18 @@
 
     python -m diffusion_image_editing_tpu_torch.cli generate --checkpoint-dir SD --prompt ...
     python -m diffusion_image_editing_tpu_torch.cli edit --checkpoint-dir SD --image in.png ...
+    python -m diffusion_image_editing_tpu_torch.cli generate --family ddpm|ldm ...
     python -m diffusion_image_editing_tpu_torch.cli seg-train [--norm abn] ...
 
-`generate` and `edit` run the SD family from an HF-layout checkpoint
-directory (`unet/`, `vae/`, `text_encoder/`, `tokenizer/`), which they
-require: the prompt is tokenized, and an empty `--prompt` runs CFG between
-two empty prompts. (The JAX package's CLI passes no prompt ids for an empty
-prompt, and its SD UNet cannot run without a context.) `edit --classes 17`
+`generate` and `edit` run the SD family (the default) from an HF-layout
+checkpoint directory (`unet/`, `vae/`, `text_encoder/`, `tokenizer/`),
+which they require: the prompt is tokenized, and an empty `--prompt` runs
+CFG between two empty prompts. (The JAX package's CLI passes no prompt ids
+for an empty prompt, and its SD UNet cannot run without a context.) The
+unconditional families take no prompt: `--family ddpm` reads `unet/`,
+`--family ldm` `unet/` and `vqvae/`, or seeded random weights without
+`--checkpoint-dir`; generation clips pred-x0 unless `--no-sample-clipping`,
+and a real-image edit never clips, as in the JAX package. `edit --classes 17`
 masks the edit to face-parsing classes, from a BiSeNet checkpoint
 (`--bisenet-ckpt`) or seeded random weights. `seg-train` trains BiSeNet
 on CelebAMask-HQ (`--data-root`) or, without it, on synthetic data. Each
@@ -33,7 +38,6 @@ import torch
 UNPORTED = {
     "align": ("--align", "20 (host/alignment.py)"),
     "landmarks": ("--landmarks", "20 (host/alignment.py)"),
-    "sample_clipping": ("--sample-clipping", "14 (the ddpm and ldm families; SD never clips)"),
     "shard": ("--shard", "18 (parallel/)"),
 }
 
@@ -48,7 +52,7 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--guidance-codec proxy is not ported yet: Queue A item 16")
 
 
-def _build_wrapper(args):
+def _build_wrapper(args, sample_clipping: bool):
     from .pipeline import create_diffusion_model
 
     _refuse_unported(args)
@@ -57,20 +61,29 @@ def _build_wrapper(args):
         raise SystemExit("--family sd needs --checkpoint-dir with a tokenizer/ directory to "
                          "encode the prompt")
     return create_diffusion_model(
-        args.family, checkpoint_dir=args.checkpoint_dir, num_inference_steps=args.steps,
-        device=args.device)
+        args.family, sample_clipping=sample_clipping, checkpoint_dir=args.checkpoint_dir,
+        num_inference_steps=args.steps, device=args.device)
 
 
 def _prompt_ids(w, prompt: str):
-    """The prompt's ids, paired with the empty prompt's by `SD.prep_text`:
-    an empty prompt runs CFG between two empty prompts."""
+    """SD: the prompt's ids, paired with the empty prompt's by
+    `SD.prep_text` (an empty prompt runs CFG between two empty prompts).
+    The unconditional families take none."""
+    if w.family != "sd":
+        return None
     return torch.tensor(w.tokenizer.encode(prompt), dtype=torch.long)
+
+
+def _image_size(w) -> int:
+    """The codec's sample size (the UNet's for DDPM's pixel space)."""
+    codec = {"sd": "vae", "ldm": "vqvae"}.get(w.family)
+    return getattr(w, codec).config.sample_size if codec else w.data_dimensionality
 
 
 def cmd_generate(args) -> None:
     from .host.transforms import tensors_to_pils
 
-    w = _build_wrapper(args)
+    w = _build_wrapper(args, args.sample_clipping)
     imgs, *_ = w.generate_images(
         num_images=args.num_images, eta=args.eta, num_inference_steps=args.steps,
         seed=args.seed, prompt_ids=_prompt_ids(w, args.prompt), cfg_scale=args.cfg_scale)
@@ -87,12 +100,14 @@ def cmd_edit(args) -> None:
     from .host.transforms import pil_to_tensor, tensor_to_pil
     from .pipeline import EditPipeline, create_segmentation_model
 
-    w = _build_wrapper(args)
+    if args.sample_clipping:
+        raise SystemExit("--sample-clipping: a real-image edit runs unclipped")
+    w = _build_wrapper(args, False)
     seg_fn = None
     if args.classes:
         seg_fn = create_segmentation_model(args.bisenet_ckpt, device=args.device)
     pipe = EditPipeline(w, seg_fn)
-    size = args.image_size or w.vae.config.sample_size
+    size = args.image_size or _image_size(w)
     img = pil_to_tensor(Image.open(args.image).convert("RGB").resize((size, size)))
     attr = None
     if args.attr_func:
@@ -144,7 +159,7 @@ def cmd_seg_train(args) -> None:
 
 def _common(sp) -> None:
     sp.add_argument("--family", default="sd", choices=["ddpm", "ldm", "sd"],
-                    help="model family; ddpm and ldm come with Queue A item 14")
+                    help="model family (ddpm and ldm take no prompt)")
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--steps", type=int, default=50)
     sp.add_argument("--seed", type=int, default=0)
@@ -165,9 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
     g = sub.add_parser("generate")
     _common(g)
     g.add_argument("--num-images", type=int, default=1)
-    g.add_argument("--sample-clipping", action=argparse.BooleanOptionalAction, default=None,
-                   help="clip pred-x0 to [-1, 1]: the ddpm and ldm families only, not ported "
-                        "(item 14)")
+    g.add_argument("--sample-clipping", action=argparse.BooleanOptionalAction, default=True,
+                   help="clip pred-x0 to [-1, 1] (ddpm and ldm; SD never clips)")
     g.add_argument("--out-prefix", default="generated")
     g.set_defaults(fn=cmd_generate)
 
@@ -175,7 +189,9 @@ def build_parser() -> argparse.ArgumentParser:
     _common(e)
     e.add_argument("--image", required=True)
     e.add_argument("--image-size", type=int, default=None,
-                   help="pixels a side (default: the VAE's sample size)")
+                   help="pixels a side (default: the codec's sample size, 256 for ddpm and ldm)")
+    e.add_argument("--sample-clipping", action=argparse.BooleanOptionalAction, default=False,
+                   help="a real-image edit runs unclipped: --sample-clipping is refused")
     e.add_argument("--align", action="store_true", default=None, help="not ported (item 20)")
     e.add_argument("--landmarks", default=None, help="not ported (item 20)")
     e.add_argument("--inversion-method", default="ddim", choices=["ddim", "ddpm"])

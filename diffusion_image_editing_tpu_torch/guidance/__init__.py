@@ -1,5 +1,7 @@
 from .attr_functions import (  # noqa: F401
+    AnyGANAttrFunc,
     AttrFunc,
+    ClassifierAttrFunc,
     MultiColorAttrFunc,
     NetAttrFunc,
     SingleColorAttrFunc,

@@ -1,6 +1,6 @@
 """Gradient-guidance attribute functions: the port of
-`guidance/attr_functions.py`: colour and segmentation (face-parsing)
-guidance; classifier guidance comes with ROADMAP Queue A item 15b.
+`guidance/attr_functions.py`: colour, segmentation (face-parsing) and
+attribute-classifier (anyGAN) guidance.
 
 The nudge is -grad(loss_scale * loss(decode(pred_x0(x_t)))) * alpha_bar_t^2,
 taken with `torch.autograd.grad` with respect to x_t only; eps is detached.
@@ -191,3 +191,42 @@ class NetAttrFunc(AttrFunc):
         probs = torch.softmax(self.seg_apply_fn(decoded).float(), dim=1)
         class_mass = probs.mean(dim=(2, 3))  # (B, n_classes)
         return class_mass[:, list(self.idx_for_class)].sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierAttrFunc(AttrFunc):
+    """Attribute-classifier (anyGAN ResNet-50) guidance: the logits
+    reshaped (B, 40, 2), the logit [idx_for_class][idx_of_interest] of each
+    image summed over the batch (each row depends on its own image, so the
+    gradient stays per sample), plus, with `regularize_idx`, the quadratic
+    term sum((logit[regularize_idx][regularize_pred_idx] +
+    regularize_score[regularize_pred_idx]) ** 2).
+
+    `clf_apply_fn` maps the decoded NCHW image in [-1, 1] to (B, 80) logits,
+    differentiably, with the classifier's parameters inside it, e.g.
+    `lambda img: clf(imagenet_normalize(to_unit_range(img.float())))` for
+    the module of `get_pretrained_anygan`. (The JAX package passes
+    `clf_params` beside it.) Without it, `loss` raises."""
+
+    clf_apply_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    idx_for_class: int = 0
+    idx_of_interest: int = 0
+    regularize_idx: Optional[int] = None
+    regularize_pred_idx: Optional[int] = None
+    regularize_score: Optional[Tuple[float, float]] = None
+
+    def loss(self, decoded: torch.Tensor) -> torch.Tensor:
+        if self.clf_apply_fn is None:
+            raise ValueError("ClassifierAttrFunc needs clf_apply_fn, a callable from an NCHW "
+                             "image to (B, 80) attribute logits")
+        logits = self.clf_apply_fn(decoded).float().reshape(-1, 40, 2)
+        value = logits[:, self.idx_for_class, self.idx_of_interest].sum()
+        if self.regularize_idx is not None:
+            other = logits[:, self.regularize_idx, self.regularize_pred_idx]
+            score = self.regularize_score[self.regularize_pred_idx]
+            value = value + ((other + score) ** 2).sum()
+        return value
+
+
+# The reference's other name for it.
+AnyGANAttrFunc = ClassifierAttrFunc

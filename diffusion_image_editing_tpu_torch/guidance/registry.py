@@ -1,12 +1,17 @@
-"""Attribute-function registry: the port of `guidance/registry.py` for the
-strategies ported so far (classifier guidance comes with ROADMAP Queue A
-item 15b)."""
+"""Attribute-function registry: the port of `guidance/registry.py`."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Type, Union
 
-from .attr_functions import AttrFunc, MultiColorAttrFunc, NetAttrFunc, SingleColorAttrFunc
+from .attr_functions import (
+    AnyGANAttrFunc,
+    AttrFunc,
+    ClassifierAttrFunc,
+    MultiColorAttrFunc,
+    NetAttrFunc,
+    SingleColorAttrFunc,
+)
 
 
 class AttrFuncRegistry:
@@ -32,8 +37,12 @@ class AttrFuncRegistry:
 
 
 def create_attr_func_registry() -> AttrFuncRegistry:
+    """The four strategies, the classifier's also under the reference's
+    `AnyGANAttrFunc` name."""
     registry = AttrFuncRegistry()
     registry.register(SingleColorAttrFunc)
     registry.register(MultiColorAttrFunc)
     registry.register(NetAttrFunc)
+    registry.register(ClassifierAttrFunc)
+    registry._registry["AnyGANAttrFunc"] = AnyGANAttrFunc
     return registry

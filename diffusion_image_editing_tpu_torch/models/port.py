@@ -3,21 +3,24 @@ directories -> the port's modules.
 
 `state_dict_from_jax` is the inverse of the JAX package's `port_state_dict`
 (diffusers or torch state dict -> Flax params) for the kinds this port has:
-`"unet_cond"` (UNet2DCondition), `"vae"` (AutoencoderKL, modern attention
-names), `"clip_text"` (CLIPTextEncoder, transformers' names) and `"bisenet"`
-(BiSeNet, from Flax `{"params", "batch_stats"}`, to the face-parsing
-checkpoint's keys). Conv kernels go HWIO -> OIHW, Dense kernels (in, out) ->
-(out, in); scales and biases stay.
+`"unet_cond"` (UNet2DCondition), `"unet2d"` (UNet2D), `"vae"`
+(AutoencoderKL) and `"vq"` (VQModel), all under the modern attention names;
+`"clip_text"` (CLIPTextEncoder, transformers' names); `"bisenet"` (BiSeNet)
+and `"resnet50"` (the anyGAN ResNet50), from Flax `{"params",
+"batch_stats"}` to the torchvision-style checkpoints' keys. Conv kernels go
+HWIO -> OIHW, Dense kernels (in, out) -> (out, in); scales and biases stay.
 
 `load_checkpoint_dir(model_dir, kind)` is the port of the JAX package's
 checkpoint-directory loader: config.json + `.safetensors` (one file, or
 shards listed by a `*.safetensors.index.json`) or `.bin`/`.pt`/`.pth`,
 built into the module of the config and loaded strictly, the file's tensors
 cast to the module's dtype. The port's modules carry the checkpoints' own
-names, so the only translations are the legacy VAE attention names and
+names, so the only translations are the legacy attention names
+(`query/key/value/proj_attn`, of the UNet2D and both autoencoders) and
 transformers' `position_ids` buffer. `save_checkpoint_dir` writes a module
 in that layout (`.bin`). `safetensors` is imported only for its files.
-`load_bisenet_checkpoint` reads the face-parsing BiSeNet's `.pth` file.
+`load_bisenet_checkpoint` reads the face-parsing BiSeNet's `.pth` file and
+`load_anygan_checkpoint` the anyGAN ResNet-50's.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-KINDS = ("unet_cond", "vae", "clip_text", "bisenet")
+KINDS = ("unet_cond", "unet2d", "vae", "vq", "clip_text", "bisenet", "resnet50")
 
 # (pattern, replacement) applied in order to the '/'-joined Flax path.
 _PREFIX_RULES = (
@@ -50,6 +53,7 @@ _PREFIX_RULES = (
     (r"(^|\.)key/", r"\1to_k."),
     (r"(^|\.)value/", r"\1to_v."),
     (r"(^|\.)proj_attn/", r"\1to_out.0."),
+    (r"^quantize/embedding$", "quantize.embedding.weight"),
     (r"(norm1|norm2|group_norm)_(scale|bias)$", r"\1/\2"),
 )
 
@@ -99,12 +103,13 @@ def _bisenet_module(path: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _bisenet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax BiSeNet `{"params", "batch_stats"}` -> the port's BiSeNet keys.
-    A NormAct's inner `bn` (BatchNorm) or `abn` (FusedABNorm) level drops:
-    `.../bn1/bn/scale` and `.../bn1/abn/weight` -> `...bn1.weight`,
-    `mean`/`var` -> `running_mean`/`running_var`; a BatchNorm also gets the
-    `num_batches_tracked` buffer (0) that torch's checkpoint keys carry."""
+def _torchvision_state_dict(variables: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor]:
+    """Flax BiSeNet or ResNet50 `{"params", "batch_stats"}` -> the port's
+    torchvision-style keys. A NormAct's inner `bn` (BatchNorm) or `abn`
+    (FusedABNorm) level drops: `.../bn1/bn/scale` and `.../bn1/abn/weight`
+    -> `...bn1.weight`, `mean`/`var` -> `running_mean`/`running_var`; a
+    BatchNorm also gets the `num_batches_tracked` buffer (0) that torch's
+    checkpoint keys carry. Dense and conv biases keep their name."""
     out = {}
     for coll in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(coll, {})):
@@ -117,8 +122,10 @@ def _bisenet_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                 mod, name = mod[:-1], _NORM_LEAVES[leaf]
             elif leaf == "kernel":
                 w, name = _to_torch_layout(path, w), "weight"
+            elif leaf == "bias" and coll == "params":
+                name = "bias"
             else:
-                raise ValueError(f"unexpected BiSeNet variable {coll}/{'/'.join(path)}")
+                raise ValueError(f"unexpected {kind} variable {coll}/{'/'.join(path)}")
             out[".".join(_bisenet_module(tuple(mod)) + (name,))] = torch.tensor(w)
     return out
 
@@ -139,12 +146,12 @@ def clip_key(path: Tuple[str, ...]) -> str:
 
 def state_dict_from_jax(params: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor]:
     """Flax params (nested dict of arrays, with or without the top-level
-    'params' key; for "bisenet" the variables with their 'batch_stats')
-    -> the port's state dict for `kind` in KINDS."""
+    'params' key; for "bisenet" and "resnet50" the variables with their
+    'batch_stats') -> the port's state dict for `kind` in KINDS."""
     if kind not in KINDS:
         raise ValueError(f"Unknown kind {kind!r}; choose from {KINDS}")
-    if kind == "bisenet":
-        return _bisenet_state_dict(params)
+    if kind in ("bisenet", "resnet50"):
+        return _torchvision_state_dict(params, kind)
     if "params" in params:
         params = params["params"]
     key = clip_key if kind == "clip_text" else torch_key
@@ -159,7 +166,7 @@ def state_dict_from_jax(params: Mapping[str, Any], kind: str) -> Dict[str, torch
 # Checkpoint directories (HF layout: config.json + weights)
 # ---------------------------------------------------------------------------
 
-LOADER_KINDS = ("unet2d_cond", "vae", "clip_text")  # the JAX loader's names
+LOADER_KINDS = ("unet2d", "unet2d_cond", "vae", "vq", "clip_text")  # the JAX loader's names
 _LEGACY_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
 
 
@@ -189,6 +196,27 @@ def load_weights(model_dir: str) -> Dict[str, torch.Tensor]:
     raise FileNotFoundError(f"No weights found in {model_dir}")
 
 
+def unet2d_config_from_json(cfg: Dict[str, Any]):
+    from .unet2d import UNet2DConfig
+
+    return UNet2DConfig(
+        sample_size=cfg["sample_size"],
+        in_channels=cfg["in_channels"],
+        out_channels=cfg["out_channels"],
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        down_block_types=tuple(cfg["down_block_types"]),
+        up_block_types=tuple(cfg["up_block_types"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        attention_head_dim=cfg.get("attention_head_dim"),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        norm_eps=cfg.get("norm_eps", 1e-6),
+        downsample_padding=cfg.get("downsample_padding", 1),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", False),
+        freq_shift=cfg.get("freq_shift", 1),
+        add_mid_attention=cfg.get("add_attention", True),
+    )
+
+
 def unet2d_cond_config_from_json(cfg: Dict[str, Any]):
     from .unet2d_cond import UNet2DConditionConfig
 
@@ -209,8 +237,8 @@ def unet2d_cond_config_from_json(cfg: Dict[str, Any]):
     )
 
 
-def vae_config_from_json(cfg: Dict[str, Any]):
-    """The KL autoencoder's config (the VQ model comes with Queue A item 14)."""
+def vae_config_from_json(cfg: Dict[str, Any], vq: bool = False):
+    """The KL autoencoder's config, or with `vq` the VQ autoencoder's."""
     from .vae import AutoencoderConfig
 
     return AutoencoderConfig(
@@ -221,7 +249,10 @@ def vae_config_from_json(cfg: Dict[str, Any]):
         layers_per_block=cfg.get("layers_per_block", 2),
         norm_num_groups=cfg.get("norm_num_groups", 32),
         sample_size=cfg.get("sample_size", 512),
-        scaling_factor=cfg.get("scaling_factor", 0.18215),
+        scaling_factor=cfg.get("scaling_factor", 1.0 if vq else 0.18215),
+        double_z=not vq,
+        num_vq_embeddings=cfg.get("num_vq_embeddings", 8192),
+        vq_embed_dim=cfg.get("vq_embed_dim") or cfg.get("latent_channels", 3),
     )
 
 
@@ -242,7 +273,7 @@ def clip_text_config_from_json(cfg: Dict[str, Any]):
 def _checkpoint_key(key: str, kind: str):
     """A checkpoint key under the port's name, or None for a buffer the port
     does not keep."""
-    if kind == "vae":
+    if kind in ("unet2d", "vae", "vq"):
         m = re.match(r"(.*\.attentions\.\d+\.)(query|key|value|proj_attn)\.(weight|bias)$", key)
         if m:
             key = f"{m.group(1)}{_LEGACY_ATTN[m.group(2)]}.{m.group(3)}"
@@ -256,16 +287,18 @@ def load_checkpoint_dir(model_dir: str, kind: str, device=None,
     """Build `kind`'s module from `model_dir`/config.json on `device` (None =
     CUDA, raising without it) in `dtype`, and load the directory's weights
     into it strictly: a checkpoint key the module lacks, or a module key the
-    checkpoint lacks, raises ValueError."""
-    if kind in ("unet2d", "vq"):
-        raise NotImplementedError(
-            f"kind {kind!r} (the DDPM and LDM families) comes with Queue A item 14")
+    checkpoint lacks, raises ValueError. The UNet2D's and the autoencoders'
+    attention weights load under either naming."""
     if kind not in LOADER_KINDS:
         raise ValueError(f"Unknown kind {kind!r}; choose from {LOADER_KINDS}")
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg = json.load(f)
     weights = load_weights(model_dir)
-    if kind == "unet2d_cond":
+    if kind == "unet2d":
+        from .unet2d import UNet2D
+
+        module = UNet2D(unet2d_config_from_json(cfg), device=device, dtype=dtype)
+    elif kind == "unet2d_cond":
         from .unet2d_cond import UNet2DCondition
 
         module = UNet2DCondition(unet2d_cond_config_from_json(cfg), device=device, dtype=dtype)
@@ -273,6 +306,10 @@ def load_checkpoint_dir(model_dir: str, kind: str, device=None,
         from .vae import AutoencoderKL
 
         module = AutoencoderKL(vae_config_from_json(cfg), device=device, dtype=dtype)
+    elif kind == "vq":
+        from .vae import VQModel
+
+        module = VQModel(vae_config_from_json(cfg, vq=True), device=device, dtype=dtype)
     else:
         from .clip_text import CLIPTextEncoder
 
@@ -295,6 +332,7 @@ def load_checkpoint_dir(model_dir: str, kind: str, device=None,
 def config_to_json(config) -> Dict[str, Any]:
     """A module config under the HF config.json names the loader reads."""
     from .clip_text import CLIPTextConfig
+    from .unet2d import UNet2DConfig
     from .unet2d_cond import UNet2DConditionConfig
     from .vae import AutoencoderConfig
 
@@ -304,17 +342,26 @@ def config_to_json(config) -> Dict[str, Any]:
                     intermediate_size=config.intermediate_size,
                     max_position_embeddings=config.max_position_embeddings,
                     hidden_act=config.hidden_act)
-    if isinstance(config, UNet2DConditionConfig):
+    if isinstance(config, UNet2DConfig):
+        keys = ("sample_size", "in_channels", "out_channels", "block_out_channels",
+                "down_block_types", "up_block_types", "layers_per_block", "attention_head_dim",
+                "norm_num_groups", "norm_eps", "downsample_padding", "flip_sin_to_cos",
+                "freq_shift")
+        extra = {"add_attention": config.add_mid_attention}
+    elif isinstance(config, UNet2DConditionConfig):
         keys = ("sample_size", "in_channels", "out_channels", "block_out_channels",
                 "down_block_types", "up_block_types", "layers_per_block", "attention_head_dim",
                 "cross_attention_dim", "norm_num_groups", "norm_eps", "flip_sin_to_cos",
                 "freq_shift")
+        extra = {}
     elif isinstance(config, AutoencoderConfig):
         keys = ("in_channels", "out_channels", "latent_channels", "block_out_channels",
                 "layers_per_block", "norm_num_groups", "sample_size", "scaling_factor")
+        keys += () if config.double_z else ("num_vq_embeddings", "vq_embed_dim")
+        extra = {}
     else:
         raise ValueError(f"no config.json form for {type(config).__name__}")
-    values = {k: getattr(config, k) for k in keys}
+    values = dict({k: getattr(config, k) for k in keys}, **extra)
     return {k: list(v) if isinstance(v, tuple) else v for k, v in values.items()}
 
 
@@ -322,8 +369,9 @@ def save_checkpoint_dir(module: nn.Module, model_dir: str,
                         legacy_attention_names: bool = False) -> int:
     """Write `module` as an HF-layout component directory: config.json and
     its weights as they are (dtype kept) in `pytorch_model.bin`. With
-    `legacy_attention_names`, a VAE's attention weights go under the old
-    `query/key/value/proj_attn` names. Returns the bytes of the weights."""
+    `legacy_attention_names`, the attention weights of a UNet2D or an
+    autoencoder go under the old `query/key/value/proj_attn` names. Returns
+    the bytes of the weights."""
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(config_to_json(module.config), f, indent=1)
@@ -358,3 +406,21 @@ def load_bisenet_checkpoint(path: str, device=None) -> nn.Module:
                      device=resolve_device(device))
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def load_anygan_checkpoint(path: str, device=None) -> nn.Module:
+    """The MIT anycost-gan attribute predictor's `.pth` (a torchvision
+    ResNet-50 with fc -> 80 logits, or any state dict under its keys,
+    optionally inside "state_dict") as a `ResNet50(norm="bn")` on `device`
+    (None = CUDA, raising without it), loaded strictly, in eval mode; its
+    width is read from the weights."""
+    from ..core.device import resolve_device
+    from .resnet import ResNet50
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    module = ResNet50(num_outputs=sd["fc.weight"].shape[0], norm="bn",
+                      width=sd["conv1.weight"].shape[0], device=resolve_device(device))
+    module.load_state_dict(sd, strict=True)
+    return module.eval()

@@ -1,11 +1,12 @@
-"""ResNet-18 feature extractor for BiSeNet, NCHW: the port of the JAX
-package's `models/resnet.py` (`NormAct`, `max_pool_3x3_s2`, `BasicBlock`,
-`Resnet18Features`).
+"""ResNet backbones, NCHW: the port of the JAX package's `models/resnet.py`
+(`NormAct`, `max_pool_3x3_s2`, `BasicBlock`, `Resnet18Features` for BiSeNet;
+`Bottleneck`, `ResNet50` for the anyGAN attribute predictor).
 
 Module names follow the torch attribute paths of the face-parsing
-checkpoint (`layer2.0.downsample.1.running_var`), so its state dict loads
+checkpoint (`layer2.0.downsample.1.running_var`) and of torchvision's
+ResNet-50 (`layer3.5.conv3.weight`, `fc.bias`), so their state dicts load
 with `load_state_dict` into `norm="bn"`. A `NormAct` holds its norm's
-parameters and buffers itself, as the checkpoint's BatchNorm2d does.
+parameters and buffers itself, as the checkpoints' BatchNorm2d does.
 
 Mixed precision as in the JAX package: `dtype` is the conv COMPUTE dtype.
 Convs cast their input and weight to it; parameters and norm statistics
@@ -138,6 +139,57 @@ class Resnet18Features(nn.Module):
         f8 = self.layer2(self.layer1(h))
         f16 = self.layer3(f8)
         return f8, f16, self.layer4(f16)
+
+
+class Bottleneck(nn.Module):
+    """torchvision's ResNet-50 block (stride on the 3 x 3 conv), f32."""
+
+    def __init__(self, in_chan: int, planes: int, stride: int = 1, downsample: bool = False,
+                 norm: str = "bn", device=None):
+        super().__init__()
+        self.conv1 = Conv(in_chan, planes, 1, device=device)
+        self.bn1 = NormAct(planes, norm, True, device=device)
+        self.conv2 = Conv(planes, planes, 3, stride, 1, device=device)
+        self.bn2 = NormAct(planes, norm, True, device=device)
+        self.conv3 = Conv(planes, planes * 4, 1, device=device)
+        self.bn3 = NormAct(planes * 4, norm, False, device=device)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(Conv(in_chan, planes * 4, 1, stride, device=device),
+                                            NormAct(planes * 4, norm, False, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv2(self.bn1(self.conv1(x))))
+        out = self.bn3(self.conv3(out))
+        shortcut = x if self.downsample is None else self.downsample(x)
+        return torch.relu(shortcut + out)
+
+
+class ResNet50(nn.Module):
+    """torchvision-style ResNet-50 with a head of `num_outputs` (the anyGAN
+    attribute predictor: 40 attributes x 2 logits), f32, NCHW. `width`
+    shrinks it for tests (64 is torchvision's)."""
+
+    def __init__(self, num_outputs: int = 80, norm: str = "bn", width: int = 64, device=None):
+        super().__init__()
+        self.width = w = width
+        self.conv1 = Conv(3, w, 7, 2, 3, device=device)
+        self.bn1 = NormAct(w, norm, True, device=device)
+        cin = w
+        for i, (planes, blocks, stride) in enumerate(
+                [(w, 3, 1), (w * 2, 4, 2), (w * 4, 6, 2), (w * 8, 3, 2)], start=1):
+            layer = []
+            for j in range(blocks):
+                layer.append(Bottleneck(cin, planes, stride if j == 0 else 1, j == 0, norm,
+                                        device))
+                cin = planes * 4
+            setattr(self, f"layer{i}", nn.Sequential(*layer))
+        self.fc = nn.Linear(cin, num_outputs, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = max_pool_3x3_s2(self.bn1(self.conv1(x.float())))
+        h = self.layer4(self.layer3(self.layer2(self.layer1(h))))
+        return self.fc(h.mean(dim=(2, 3)))
 
 
 def norm_layers(module: nn.Module, norm: Optional[str] = None):

@@ -1,9 +1,12 @@
-"""SD's KL autoencoder in torch, NCHW: the port of `models/vae.py`
-(`AutoencoderKL`; VQ comes later), with diffusers' key names and the modern
-`to_q/to_k/to_v/to_out.0` attention naming.
+"""SD's KL autoencoder and LDM's VQ autoencoder in torch, NCHW: the port of
+`models/vae.py` (`AutoencoderKL`, `VectorQuantizer`, `VQModel`), with
+diffusers' key names and the modern `to_q/to_k/to_v/to_out.0` attention
+naming.
 
-`encode` returns the distribution mode (the latent mean); `decode` is
-differentiable end to end, the path of the guidance gradient."""
+KL: `encode` returns the distribution mode (the latent mean). VQ: `encode`
+returns the pre-quantization latent and `decode` quantizes first, with a
+straight-through gradient. Both decodes are differentiable end to end, the
+path of the guidance gradient."""
 
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ class AutoencoderConfig:
     sample_size: int = 512
     scaling_factor: float = 0.18215
     double_z: bool = True  # KL: the encoder emits mean and log-variance
+    # VQ only: the codebook's size and width
+    num_vq_embeddings: int = 8192
+    vq_embed_dim: int = 3
     mid_attention: bool = True
     # Fold each ResnetBlock's GroupNorm+SiLU into its conv where the shape
     # allows (`ops.fused_conv`): the JAX package's DIE_TPU_FUSED_CONV=1.
@@ -39,12 +45,37 @@ class AutoencoderConfig:
 
 SD_VAE = AutoencoderConfig()  # CompVis/stable-diffusion-v1-4 `vae`
 
+LDM_CELEBAHQ_VQVAE = AutoencoderConfig(  # CompVis/ldm-celebahq-256 `vqvae`
+    latent_channels=3,
+    block_out_channels=(128, 256, 512),
+    layers_per_block=2,
+    sample_size=256,
+    scaling_factor=1.0,
+    double_z=False,
+    num_vq_embeddings=8192,
+    vq_embed_dim=3,
+)
+
 TINY_VAE = AutoencoderConfig(
     latent_channels=4,
     block_out_channels=(16, 32),
     layers_per_block=1,
     norm_num_groups=8,
     sample_size=32,
+)
+
+# A VQ autoencoder at TINY_VAE's widths: 32 px images, 16 x 16 x 3 latents
+# (TINY_UNET2D's sample), a codebook of 64 codes.
+TINY_VQVAE = AutoencoderConfig(
+    latent_channels=3,
+    block_out_channels=(16, 32),
+    layers_per_block=1,
+    norm_num_groups=8,
+    sample_size=32,
+    scaling_factor=1.0,
+    double_z=False,
+    num_vq_embeddings=64,
+    vq_embed_dim=3,
 )
 
 
@@ -145,12 +176,82 @@ class AutoencoderKL(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.post_quant_conv.weight.dtype
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, log-variance), the log-variance clipped to [-30, 20]."""
         moments = self.quant_conv(self.encoder(x.to(self.dtype)))
-        return moments.chunk(2, dim=1)[0]
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encode_moments(x)[0]
+
+    def encode_sample(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """A draw from the posterior: mean + exp(logvar / 2) * `noise`, the
+        standard normal noise given as a tensor of the latent's shape."""
+        mean, logvar = self.encode_moments(x)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.device, mean.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-neighbour codebook quantizer with a straight-through gradient.
+
+    Distances and the argmin are f32 whatever the codebook's dtype (the JAX
+    package's f32 codebook promotes a bf16 latent). Returns the quantized
+    latent in f32, NCHW; its gradient is the identity to `z`."""
+
+    def __init__(self, num_embeddings: int, embed_dim: int, **factory):
+        super().__init__()
+        self.embedding = nn.Embedding(num_embeddings, embed_dim, **factory)
+
+    def indices(self, z: torch.Tensor) -> torch.Tensor:
+        """(N, H, W) codebook indices of the NCHW latent."""
+        codes = self.embedding.weight.detach().float()
+        n, d, h, w = z.shape
+        flat = z.detach().float().permute(0, 2, 3, 1).reshape(-1, d)
+        dist = ((flat * flat).sum(1, keepdim=True) - 2.0 * flat @ codes.T
+                + (codes * codes).sum(1)[None, :])
+        return dist.argmin(dim=1).reshape(n, h, w)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        quantized = self.embedding.weight.float()[self.indices(z)].permute(0, 3, 1, 2)
+        zf = z.float()
+        return zf + (quantized - zf).detach()
+
+
+class VQModel(nn.Module):
+    """VQ autoencoder (diffusers `VQModel`), NCHW: `encode` returns the
+    pre-quantization latent, `decode` quantizes it (unless
+    `force_not_quantize`) and decodes. Built on `device` (None = CUDA,
+    raising without it) with parameters in `dtype`."""
+
+    def __init__(self, config: AutoencoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        fk = dict(device=resolve_device(device), dtype=dtype)
+        zc = config.latent_channels
+        self.encoder = Encoder(config, **fk)
+        self.decoder = Decoder(config, **fk)
+        self.quant_conv = nn.Conv2d(zc * (2 if config.double_z else 1), config.vq_embed_dim, 1,
+                                    **fk)
+        self.post_quant_conv = nn.Conv2d(config.vq_embed_dim, zc, 1, **fk)
+        self.quantize = VectorQuantizer(config.num_vq_embeddings, config.vq_embed_dim, **fk)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.post_quant_conv.weight.dtype
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.quant_conv(self.encoder(x.to(self.dtype)))
+
+    def decode(self, h: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
+        q = h if force_not_quantize else self.quantize(h)
+        return self.decoder(self.post_quant_conv(q.to(self.dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))

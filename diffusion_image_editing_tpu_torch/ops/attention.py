@@ -128,7 +128,7 @@ _ARGTYPES = {
 # FA_WIDE_SLICES in csrc/flash_attn_common.cuh): a head dim is zero-padded
 # to a multiple of 16 up to 160, or above that to a multiple of 64 cut in
 # four slices.
-NARROW_HEAD_DIMS = (16, 32, 48, 80, 160)
+NARROW_HEAD_DIMS = (16, 32, 48, 64, 80, 160)
 WIDE_SLICE_DIMS = (128,)
 # The padded narrow widths whose forward takes the 128-row design
 # (FA_FWD_ROWS128_DIMS in csrc/flash_attn_fwd.cu), where the bench script

@@ -44,11 +44,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The padded head dims each kernel is built for, those of the models the port
-// runs: SD-1.5's UNet (40, 80, 160 -> 48, 80, 160) and VAE (512, four slices
-// of 128), and the tiny test configs (16, 32). Head dims round up to the
-// next of these (narrow: a multiple of 16; wide: a quarter of a multiple of
-// 64); any other is refused. ops/attention.py lists the same widths.
-#define FA_NARROW_DIMS(X) X(16) X(32) X(48) X(80) X(160)
+// runs: SD-1.5's UNet (40, 80, 160 -> 48, 80, 160), the LDM UNet (32), the
+// VAEs' and the DDPM UNet's single head (512, four slices of 128), and the
+// tiny test configs (16, 32, and TINY_UNET2D's single head, 64). Head dims
+// round up to the next of these (narrow: a multiple of 16; wide: a quarter of
+// a multiple of 64); any other is refused. ops/attention.py lists the same
+// widths.
+#define FA_NARROW_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(160)
 #define FA_WIDE_SLICES(X) X(128)
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }

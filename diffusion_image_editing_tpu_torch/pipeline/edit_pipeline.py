@@ -1,5 +1,6 @@
 """EditPipeline, the top-level editing API: the port of
-`pipeline/edit_pipeline.py` for real-image edits: segment -> class mask at
+`pipeline/edit_pipeline.py` for real-image edits with any model family
+(DDPM, LDM, SD): segment -> class mask at
 latent resolution -> encode -> DDIM or edit-friendly DDPM inversion ->
 optional resynthesis inside the mask -> guided denoise -> decode. The JAX
 package runs segment, mask and encode as one jitted dispatch; here they
@@ -17,7 +18,7 @@ from ..engine.edit import edit
 from ..guidance.attr_functions import AttrFunc
 from ..utils.constants import ATTRS
 from .masks import MaskCreator, apply_mask
-from .wrappers import SD
+from .wrappers import DDPM, LDM, SD, DiffusionWrapper
 
 
 @dataclasses.dataclass
@@ -37,7 +38,7 @@ class EditPipeline:
     `segmentation_fn`: (B, 3, H, W) image in [-1, 1] -> (H, W) integer
     parsing map (`models.bisenet.SegmentationModel.__call__`)."""
 
-    def __init__(self, diffusion_wrapper: SD,
+    def __init__(self, diffusion_wrapper: DiffusionWrapper,
                  segmentation_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.diffusion_wrapper = diffusion_wrapper
         self.segmentation_fn = segmentation_fn
@@ -132,7 +133,10 @@ class EditPipeline:
         """Invert a real image (NCHW in [-1, 1]) for editing. Returns
         (xt, zs, xts, mask, parsing). With `classes`, the mask
         (`prepare_for_edit`) gains an all-ones fourth channel for SD's
-        4-channel latents: (1, 4, h, w).
+        4-channel latents: (1, 4, h, w). A DDPM or LDM wrapper must have an
+        unclipped schedule (`create_diffusion_model(...,
+        sample_clipping=False)`): a real image's pred-x0 is not clipped, and
+        a clipping schedule raises ValueError (the JAX package asserts).
 
         The defaults are the JAX package's: DDIM inversion at eta 0, and
         `mode=None` picks "batched" for DDPM and "split" for DDIM. DDIM's
@@ -155,6 +159,8 @@ class EditPipeline:
             raise ValueError(f"Unknown mode {mode!r} for {inversion_method}; choose from {modes}")
         w = self.diffusion_wrapper
         latent, mask, parsing = self.prepare_for_edit(img, classes, dilate_mask)
+        if isinstance(w, (DDPM, LDM)) and w.schedule.clip_sample:
+            raise ValueError("real-image edit requires clip_sample=False")
         sched = w.schedule
         eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
         if inversion_method == "ddim":

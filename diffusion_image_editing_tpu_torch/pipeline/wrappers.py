@@ -1,6 +1,8 @@
-"""Model-family wrappers: the port of `pipeline/wrappers.py` for Stable
-Diffusion (KL-VAE codec with the 0.18215 latent scale, CLIP prompts, and
-the generation API)."""
+"""Model-family wrappers: the port of `pipeline/wrappers.py`. A wrapper holds
+the UNet, the schedule and the codec on one device: the identity for DDPM
+(pixel space), the VQ autoencoder for LDM (latent scale 1.0), and the KL
+autoencoder with the 0.18215 latent scale plus CLIP prompts for SD; and
+the generation API."""
 
 from __future__ import annotations
 
@@ -16,34 +18,31 @@ from ..engine import denoise as D
 from ..engine.denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClosure
 
 
-class SD:
-    """Stable Diffusion: UNet + schedule + KL-VAE codec, and optionally the
-    CLIP text encoder and its tokenizer, on one device.
+class DiffusionWrapper:
+    """UNet + schedule + codec on one device. The base class's codec is the
+    identity and it takes no prompt (`prep_text` is None), as the JAX
+    package's. `device=None` means CUDA and raises without it; the modules
+    and the schedule are moved there, in eval mode and without gradients
+    of their own (the guidance gradient is taken with respect to the
+    latent: XLA drops the weights' gradients in the JAX package; here
+    autograd then skips them, the fused conv's dw included). Whether pred-x0
+    is clipped is the schedule's `clip_sample`."""
 
-    `prep_text(None)` is None, as in the JAX package: the run is then
-    unconditional. Prompt ids need the text encoder; a single sequence is
-    paired with the empty prompt, which needs the tokenizer. `device=None`
-    means CUDA and raises without it; the modules and the schedule are moved
-    there."""
+    family = "base"
 
-    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
-                 text_encoder: Optional[nn.Module] = None, tokenizer=None, device=None):
+    def __init__(self, unet: nn.Module, sched: Schedule, device=None):
         self.device = resolve_device(device)
-        # Inference only: the guidance gradient is taken with respect to the
-        # latent, so no weight needs one (XLA drops the weights' gradients in
-        # the JAX package; here autograd then skips them, the fused conv's
-        # dw included).
-        self.unet = unet.to(self.device).requires_grad_(False)
-        self.vae = vae.to(self.device).requires_grad_(False)
-        self.text_encoder = (None if text_encoder is None
-                             else text_encoder.to(self.device).requires_grad_(False))
-        self.tokenizer = tokenizer
+        self.unet = self._frozen(unet)
         self.schedule = sched.to(self.device)
         self.data_dimensionality = unet.config.sample_size
         self.latent_channels = unet.config.in_channels
-        scale = vae.config.scaling_factor
-        self._encode = EncodeClosure(self.vae, scale)
-        self._decode = DecodeClosure(self.vae, scale)
+        self._encode = EncodeClosure()
+        self._decode = DecodeClosure()
+
+    def _frozen(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
+        if module is None:
+            return None
+        return module.to(self.device).eval().requires_grad_(False)
 
     # ---- codec boundary --------------------------------------------------
     def decode_fn(self) -> DecodeClosure:
@@ -58,29 +57,9 @@ class SD:
             return self._decode(latent)
 
     # ---- text ------------------------------------------------------------
-    def encode_text_ids(self, input_ids) -> torch.Tensor:
-        """(B, L) token ids -> (B, L, D) f32 CLIP hidden states."""
-        if self.text_encoder is None:
-            raise ValueError("prompt ids need a text encoder")
-        ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids)
-                              else input_ids, device=self.device)
-        with torch.no_grad():
-            return self.text_encoder(ids)
-
     def prep_text(self, prompt_ids=None) -> Optional[torch.Tensor]:
-        """prompt_ids: (L,) or (2, L) token ids, or None. A single sequence
-        is paired with the empty prompt's ids: the embedding is always
-        [uncond; cond]."""
-        if prompt_ids is None:
-            return None
-        ids = torch.as_tensor(np.asarray(prompt_ids) if not torch.is_tensor(prompt_ids)
-                              else prompt_ids).long()
-        if ids.dim() == 1:
-            if self.tokenizer is None:
-                raise ValueError("pairing with the empty prompt requires a tokenizer")
-            uncond = torch.as_tensor(self.tokenizer.encode(""), dtype=torch.long)
-            ids = torch.stack([uncond, ids.cpu()])
-        return self.encode_text_ids(ids)
+        """Unconditional families take no prompt."""
+        return None
 
     # ---- denoiser --------------------------------------------------------
     def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
@@ -160,3 +139,68 @@ class SD:
         if num_inference_steps == self.schedule.num_inference_steps:
             return self.schedule
         return self.schedule.with_num_inference_steps(num_inference_steps)
+
+
+class DDPM(DiffusionWrapper):
+    """Pixel-space model: the identity codec."""
+
+    family = "ddpm"
+
+
+class LDM(DiffusionWrapper):
+    """VQ latent model: encode is the pre-quantization latent, decode
+    quantizes (straight-through) and decodes; latent scale 1.0."""
+
+    family = "ldm"
+
+    def __init__(self, unet: nn.Module, sched: Schedule, vqvae: nn.Module, device=None):
+        super().__init__(unet, sched, device)
+        self.vqvae = self._frozen(vqvae)
+        self._encode = EncodeClosure(self.vqvae, 1.0)
+        self._decode = DecodeClosure(self.vqvae, 1.0)
+
+
+class SD(DiffusionWrapper):
+    """Stable Diffusion: UNet + schedule + KL-VAE codec, and optionally the
+    CLIP text encoder and its tokenizer, on one device.
+
+    `prep_text(None)` is None, as in the JAX package: the run is then
+    unconditional. Prompt ids need the text encoder; a single sequence is
+    paired with the empty prompt, which needs the tokenizer."""
+
+    family = "sd"
+
+    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
+                 text_encoder: Optional[nn.Module] = None, tokenizer=None, device=None):
+        super().__init__(unet, sched, device)
+        self.vae = self._frozen(vae)
+        self.text_encoder = self._frozen(text_encoder)
+        self.tokenizer = tokenizer
+        scale = vae.config.scaling_factor
+        self._encode = EncodeClosure(self.vae, scale)
+        self._decode = DecodeClosure(self.vae, scale)
+
+    # ---- text ------------------------------------------------------------
+    def encode_text_ids(self, input_ids) -> torch.Tensor:
+        """(B, L) token ids -> (B, L, D) f32 CLIP hidden states."""
+        if self.text_encoder is None:
+            raise ValueError("prompt ids need a text encoder")
+        ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids)
+                              else input_ids, device=self.device)
+        with torch.no_grad():
+            return self.text_encoder(ids)
+
+    def prep_text(self, prompt_ids=None) -> Optional[torch.Tensor]:
+        """prompt_ids: (L,) or (2, L) token ids, or None. A single sequence
+        is paired with the empty prompt's ids: the embedding is always
+        [uncond; cond]."""
+        if prompt_ids is None:
+            return None
+        ids = torch.as_tensor(np.asarray(prompt_ids) if not torch.is_tensor(prompt_ids)
+                              else prompt_ids).long()
+        if ids.dim() == 1:
+            if self.tokenizer is None:
+                raise ValueError("pairing with the empty prompt requires a tokenizer")
+            uncond = torch.as_tensor(self.tokenizer.encode(""), dtype=torch.long)
+            ids = torch.stack([uncond, ids.cpu()])
+        return self.encode_text_ids(ids)

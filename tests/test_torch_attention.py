@@ -168,14 +168,20 @@ def test_cpu_attention_leaves_launch_counts_alone():
 
 
 def _model_head_dims():
-    """Head dims of every attention in the port's models (UNet: C / heads
-    per transformer; VAE mid block: C, one head)."""
+    """Head dims of every attention in the port's models (SD UNet: C / heads
+    per transformer; DDPM / LDM UNet: its attention_head_dim, or C for one
+    head; the autoencoders' mid block: C, one head)."""
     from diffusion_image_editing_tpu_torch.models import (
-        SD15_UNET, SD_VAE, TINY_SD_UNET, TINY_VAE)
+        DDPM_CELEBAHQ_256, LDM_CELEBAHQ_256_UNET, LDM_CELEBAHQ_VQVAE, SD15_UNET, SD_VAE,
+        TINY_SD_UNET, TINY_UNET2D, TINY_VAE, TINY_VQVAE)
     dims = set()
     for cfg in (SD15_UNET, TINY_SD_UNET):
         dims |= {c // cfg.attention_head_dim for c in cfg.block_out_channels}
-    for cfg in (SD_VAE, TINY_VAE):
+    for cfg in (DDPM_CELEBAHQ_256, LDM_CELEBAHQ_256_UNET, TINY_UNET2D):
+        widths = {cfg.block_out_channels[-1]} | {
+            c for c, t in zip(cfg.block_out_channels, cfg.down_block_types) if "Attn" in t}
+        dims |= {cfg.attention_head_dim or c for c in widths}
+    for cfg in (SD_VAE, TINY_VAE, LDM_CELEBAHQ_VQVAE, TINY_VQVAE):
         dims.add(cfg.block_out_channels[-1])
     return sorted(dims)
 
@@ -198,7 +204,7 @@ def test_built_head_dims_match_the_cuda_sources():
     assert widths("FA_NARROW_DIMS") == T.NARROW_HEAD_DIMS
     assert widths("FA_WIDE_SLICES") == T.WIDE_SLICE_DIMS
     assert [d for d in (8, 40, 64, 120, 256, 472, 512, 520) if T.kernel_takes_head_dim(d)] == [
-        8, 40, 472, 512]
+        8, 40, 64, 472, 512]
 
 
 def test_forward_dispatch_matches_the_cuda_source():

@@ -103,8 +103,8 @@ def test_without_device_the_cli_asks_for_cuda(ckpt, monkeypatch, tmp_path):
     ("edit", ["--align"], "item 20"), ("edit", ["--landmarks", "lm.dat"], "item 20"),
     ("edit", ["--guidance-codec", "proxy"], "item 16"),
     ("edit", ["--encoder-reuse", "2"], "item 16"), ("edit", ["--shard", "cfg2xsp4"], "item 18"),
-    ("generate", ["--sample-clipping"], "item 14"),
-    ("generate", ["--no-sample-clipping"], "item 14"),
+    ("generate", ["--encoder-reuse", "3"], "item 16"),
+    ("generate", ["--shard", "sp8"], "item 18"),
 ])
 def test_later_options_exit_naming_their_item(ckpt, cmd, flags, item):
     image = ["--image", str(ckpt / "face.png")] if cmd == "edit" else []
@@ -132,8 +132,10 @@ def test_empty_prompt_runs_cfg_between_two_empty_prompts(ckpt, tmp_path):
 def test_sd_needs_a_tokenizer(tmp_path):
     with pytest.raises(SystemExit, match="tokenizer"):
         cli.main(["generate", "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["generate", "--device", "cpu", "--family", "ddpm"])
+    # DDPM takes no prompt and reads unet/ (tests/test_torch_families.py)
+    with pytest.raises(FileNotFoundError, match="unet"):
+        cli.main(["generate", "--device", "cpu", "--family", "ddpm", "--checkpoint-dir",
+                  str(tmp_path)])
 
 
 def test_transforms_match_jax():

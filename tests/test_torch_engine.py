@@ -247,19 +247,25 @@ def test_cfg_closure_matches_jax():
 
 
 def test_registry_builds_ported_strategies():
-    """The JAX registry's order; NetAttrFunc without its segmentation
-    callable builds, as in JAX, and its loss says what is missing."""
+    """The JAX registry's order and names; NetAttrFunc and ClassifierAttrFunc
+    without their network callables build, as in JAX, and their losses say
+    what is missing."""
     reg = create_attr_func_registry()
     assert reg.get_attribute_functions() == ["SingleColorAttrFunc", "MultiColorAttrFunc",
-                                             "NetAttrFunc"]
+                                             "NetAttrFunc", "ClassifierAttrFunc",
+                                             "AnyGANAttrFunc"]
     af = reg.get("SingleColorAttrFunc", {"target": 0.3, "color_idx": 2})
     assert isinstance(af, TA.SingleColorAttrFunc) and af.target == 0.3
     net = reg.get("NetAttrFunc")
     assert isinstance(net, TA.NetAttrFunc) and net.idx_for_class == (17,)
     with pytest.raises(ValueError, match="seg_apply_fn"):
         net.loss(torch.zeros(1, 3, 8, 8))
-    with pytest.raises(ValueError):
-        reg.get("ClassifierAttrFunc")
+    clf = reg.get("ClassifierAttrFunc")
+    assert isinstance(clf, TA.ClassifierAttrFunc) and reg.get("AnyGANAttrFunc") == clf
+    with pytest.raises(ValueError, match="clf_apply_fn"):
+        clf.loss(torch.zeros(1, 3, 8, 8))
+    with pytest.raises(ValueError, match="No strategy"):
+        reg.get("nope")
 
 
 @pytest.mark.parametrize("refine", [0, 2])

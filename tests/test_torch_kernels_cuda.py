@@ -11,7 +11,8 @@ cases add what the path does not reach.
 
 Attention (K1-K3): ragged query and key lengths that are no multiple of any
 tile, a single row, and head dims padded inside the kernel to each built
-width (8 -> 16, 24 -> 32, 72 -> 80, 472 -> 512), on both designs: narrow
+width (8 -> 16, 24 -> 32, 56 -> 64, 72 -> 80, 472 -> 512; 64 itself, the
+TINY DDPM UNet's single head), on both designs: narrow
 heads (padded width up to 160) with one warp per 16 rows, and the wide
 heads' warpgroup designs. The forward's warpgroup design for the
 wide heads (64-row blocks in pairs that split the keys, 32-key tiles) at
@@ -123,6 +124,8 @@ def _rand(shape, gen):
         (2, 64, 77, 8, 80),
         (1, 200, 64, 2, 72),
         (1, 130, 65, 2, 160),
+        (2, 256, 256, 1, 64),  # TINY_UNET2D's single 64-wide head
+        (1, 70, 33, 3, 56),    # 56 padded to 64
         (1, 96, 50, 1, 472),
         (1, 33, 200, 1, 512),
     ],
@@ -202,7 +205,8 @@ def test_forward_wide_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
 
 @pytest.mark.parametrize(
     "b,s_q,s_k,h,d",
-    [(1, 77, 77, 2, 40), (2, 64, 77, 8, 80), (1, 100, 130, 1, 512)],
+    [(1, 77, 77, 2, 40), (2, 64, 77, 8, 80), (1, 100, 130, 1, 512), (2, 256, 256, 1, 64),
+     (1, 70, 33, 3, 56)],
 )
 def test_backward_matches_plain(gen, b, s_q, s_k, h, d):
     q = _rand((b, s_q, h, d), gen).requires_grad_()
@@ -268,7 +272,7 @@ def test_bwd_dq_wide_design_matches_plain_and_reruns_bit_equal(gen, b, s_q, s_k,
     assert torch.equal(got, A.flash_attn_bwd_dq(*args))  # deterministic: no atomics
 
 
-@pytest.mark.parametrize("d", [64, 120, 256])
+@pytest.mark.parametrize("d", [96, 120, 256])
 def test_head_dims_not_built_are_refused(gen, d):
     q = _rand((1, 16, 1, d), gen)
     with pytest.raises(ValueError, match="not built"):

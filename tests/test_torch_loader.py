@@ -143,8 +143,17 @@ def test_directory_without_weights_raises(tmp_path):
 
 @pytest.mark.parametrize("kind", ["unet2d", "vq"])
 def test_later_kinds_raise(tmp_path, kind):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """The DDPM / LDM kinds (Queue A item 14) load a directory; they raise
+    as the other kinds do, on one without weights (tests/test_torch_families.py
+    holds them against the JAX loader)."""
+    from tests.torch_port_helpers import write_tiny_ldm_dir
+
+    (tmp_path / "config.json").write_text(json.dumps({"block_out_channels": [16, 32]}))
+    with pytest.raises(FileNotFoundError):
         P.load_checkpoint_dir(str(tmp_path), kind, device="cpu")
+    write_tiny_ldm_dir(str(tmp_path))
+    sub, cls = {"unet2d": ("unet", TM.UNet2D), "vq": ("vqvae", TM.VQModel)}[kind]
+    assert isinstance(P.load_checkpoint_dir(str(tmp_path / sub), kind, device="cpu"), cls)
 
 
 def test_factory_builds_sd_from_a_directory(sd_dirs):
@@ -169,11 +178,14 @@ def test_factory_random_weights_warn(monkeypatch, capsys):
     assert torch.equal(a.unet.conv_in.weight, b.unet.conv_in.weight)  # seeded
 
 
-@pytest.mark.parametrize("name,exc", [("ddpm", NotImplementedError),
-                                      ("ldm", NotImplementedError), ("nope", ValueError)])
-def test_factory_other_families_raise(name, exc):
+@pytest.mark.parametrize("name,exc", [("ddpm", FileNotFoundError),
+                                      ("ldm", FileNotFoundError), ("nope", ValueError)])
+def test_factory_other_families_raise(tmp_path, name, exc):
+    """An unknown family; DDPM and LDM read their own directories (`unet/`,
+    and `vqvae/` for LDM), and an SD directory has no `unet/` of theirs."""
+    (tmp_path / "unet").mkdir()
     with pytest.raises(exc):
-        create_diffusion_model(name, device="cpu")
+        create_diffusion_model(name, checkpoint_dir=str(tmp_path), device="cpu")
 
 
 def test_factory_needs_cuda_unless_asked(monkeypatch, sd_dirs):

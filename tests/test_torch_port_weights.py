@@ -9,13 +9,17 @@ import torch
 
 from diffusion_image_editing_tpu.models.port import port_state_dict
 from diffusion_image_editing_tpu_torch import models as TM
-from tests.torch_mirrors import TorchAutoencoderKL, TorchUNet2DCondition
+from tests.torch_mirrors import TorchAutoencoderKL, TorchUNet2D, TorchUNet2DCondition, TorchVQModel
 
 CASES = {
     "unet_cond": (lambda: TorchUNet2DCondition(TM.TINY_SD_UNET), "unet2d_cond",
                   lambda: TM.UNet2DCondition(TM.TINY_SD_UNET, device="cpu")),
     "vae": (lambda: TorchAutoencoderKL(TM.TINY_VAE, attn_naming="modern"), "vae",
             lambda: TM.AutoencoderKL(TM.TINY_VAE, device="cpu")),
+    "unet2d": (lambda: TorchUNet2D(TM.TINY_UNET2D, attn_naming="modern"), "unet2d",
+               lambda: TM.UNet2D(TM.TINY_UNET2D, device="cpu")),
+    "vq": (lambda: TorchVQModel(TM.TINY_VQVAE, attn_naming="modern"), "vq",
+           lambda: TM.VQModel(TM.TINY_VQVAE, device="cpu")),
     # The port's CLIP carries transformers' names: it is its own mirror.
     "clip_text": (lambda: TM.CLIPTextEncoder(TM.TINY_CLIP_TEXT, device="cpu"), "clip_text",
                   lambda: TM.CLIPTextEncoder(TM.TINY_CLIP_TEXT, device="cpu")),
@@ -49,4 +53,4 @@ def test_port_modules_use_diffusers_keys(kind):
 
 def test_unknown_kind_raises():
     with pytest.raises(ValueError, match="Unknown kind"):
-        TM.state_dict_from_jax({}, "unet2d")  # the DDPM UNet: Queue A item 14
+        TM.state_dict_from_jax({}, "unet")  # the JAX loader's kinds are unet2d / unet2d_cond

@@ -4,7 +4,9 @@
 running its initializers (`jax.eval_shape` traces only), which keeps the
 tiny models' set-up to a second or two; `state_dict_from_jax` carries the
 same values into the port. `FixedTextSD` is the port's `SD` with a fixed
-[uncond; cond] text embedding, as bench.py's wrapper."""
+[uncond; cond] text embedding, as bench.py's wrapper. `write_tiny_sd_dir`,
+`write_tiny_ddpm_dir` and `write_tiny_ldm_dir` write TINY HF-layout
+checkpoint directories for the port's factory and CLI."""
 
 import math
 
@@ -58,6 +60,74 @@ def tiny_vae_params(seed=1):
 
     module = JM.AutoencoderKL(JM.TINY_VAE)
     return module, jax_params(module, seed, jnp.zeros((1, 32, 32, 3)))
+
+
+def jax_vq_config(tcfg):
+    """The JAX package's AutoencoderConfig of the port's VQ config."""
+    import dataclasses
+
+    from diffusion_image_editing_tpu import models as JM
+
+    fields = {f.name for f in dataclasses.fields(JM.AutoencoderConfig)}
+    return JM.AutoencoderConfig(**{k: v for k, v in dataclasses.asdict(tcfg).items()
+                                   if k in fields})
+
+
+def tiny_ldm_unet_configs():
+    """A TINY LDM-style UNet2D (flip_sin_to_cos, no frequency shift, the
+    symmetric downsample pad, heads of dim 8): (JAX config, port config)."""
+    import dataclasses
+
+    from diffusion_image_editing_tpu import models as JM
+    from diffusion_image_editing_tpu_torch import models as TM
+
+    kw = dict(flip_sin_to_cos=True, freq_shift=0.0, downsample_padding=1, attention_head_dim=8)
+    return (dataclasses.replace(JM.TINY_UNET2D, **kw),
+            dataclasses.replace(TM.TINY_UNET2D, **kw))
+
+
+def tiny_unet2d_params(cfg=None, seed=3):
+    """(JAX UNet2D, params) for `cfg` (default the JAX TINY_UNET2D)."""
+    from diffusion_image_editing_tpu import models as JM
+
+    cfg = cfg or JM.TINY_UNET2D
+    module = JM.UNet2D(cfg)
+    d = cfg.sample_size
+    return module, jax_params(module, seed, jnp.zeros((1, d, d, cfg.in_channels)), jnp.int32(0))
+
+
+def tiny_vq_params(seed=4):
+    """(JAX VQModel at the port's TINY_VQVAE, params); the codebook is
+    drawn standard normal, so that codes lie where the latents do."""
+    from diffusion_image_editing_tpu import models as JM
+    from diffusion_image_editing_tpu_torch import models as TM
+
+    jcfg = jax_vq_config(TM.TINY_VQVAE)
+    module = JM.VQModel(jcfg)
+    params = jax_params(module, seed, jnp.zeros((1, 32, 32, 3)))
+    rng = np.random.default_rng(seed + 100)
+    params["params"]["quantize"]["embedding"] = rng.standard_normal(
+        (jcfg.num_vq_embeddings, jcfg.vq_embed_dim)).astype(np.float32)
+    return module, params
+
+
+def resnet50_variables(width=8, seed=5):
+    """(JAX ResNet50(width), variables with non-trivial running statistics)."""
+    from diffusion_image_editing_tpu import models as JM
+
+    module = JM.ResNet50(num_outputs=80, width=width)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "mean":
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        return _fill(path, leaf, rng)
+
+    return module, jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def nchw(a):
@@ -172,3 +242,49 @@ def write_bisenet_checkpoint(path, seed=0, width=8, n_classes=19):
     state = model.state_dict()
     torch.save({"state_dict": {"module." + k: v for k, v in state.items()}}, path)
     return state
+
+
+def write_tiny_ddpm_dir(root, legacy_attention_names=True, seed=3):
+    """An HF-layout TINY DDPM directory (unet/: the port's TINY_UNET2D, f32,
+    from seeded Flax params); returns the params."""
+    import os
+
+    from diffusion_image_editing_tpu_torch import models as TM
+    from diffusion_image_editing_tpu_torch.models.port import save_checkpoint_dir
+
+    _, params = tiny_unet2d_params(seed=seed)
+    unet = TM.UNet2D(TM.TINY_UNET2D, device="cpu")
+    unet.load_state_dict(TM.state_dict_from_jax(params, "unet2d"))
+    save_checkpoint_dir(unet, os.path.join(root, "unet"),
+                        legacy_attention_names=legacy_attention_names)
+    return params
+
+
+def write_tiny_ldm_dir(root, unet_legacy=False, vq_legacy=True, seed=3):
+    """An HF-layout TINY LDM directory (unet/: TINY_UNET2D on the 16 x 16 x 3
+    latent; vqvae/: TINY_VQVAE), f32, from seeded Flax params, each under
+    the attention naming asked for; returns {"unet": params, "vq": params}."""
+    import os
+
+    from diffusion_image_editing_tpu_torch import models as TM
+    from diffusion_image_editing_tpu_torch.models.port import save_checkpoint_dir
+
+    _, uparams = tiny_unet2d_params(seed=seed)
+    _, vparams = tiny_vq_params(seed=seed + 1)
+    for sub, kind, module, params, legacy in (
+            ("unet", "unet2d", TM.UNet2D(TM.TINY_UNET2D, device="cpu"), uparams, unet_legacy),
+            ("vqvae", "vq", TM.VQModel(TM.TINY_VQVAE, device="cpu"), vparams, vq_legacy)):
+        module.load_state_dict(TM.state_dict_from_jax(params, kind))
+        save_checkpoint_dir(module, os.path.join(root, sub), legacy_attention_names=legacy)
+    return {"unet": uparams, "vq": vparams}
+
+
+def write_anygan_checkpoint(path, width=8, seed=5, nested=True):
+    """A torchvision-keyed ResNet-50 `.pth` (fc -> 80) from seeded JAX
+    variables, under "state_dict" when `nested`; returns the variables."""
+    from diffusion_image_editing_tpu_torch import models as TM
+
+    _, variables = resnet50_variables(width, seed)
+    state = TM.state_dict_from_jax(variables, "resnet50")
+    torch.save({"state_dict": state} if nested else state, path)
+    return variables
