@@ -100,15 +100,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              `create_diffusion_model("ldm", sample_clipping=False)` and
              `get_pretrained_anygan` and checked bit-equal; a random 256 px
              image -> VQ encode -> 50-step DDIM inversion
-             (`prepare_real_image_edit`) -> bench.py's guided loop: 50 DDIM
-             steps at eta 0, each a UNet call and
+             (`prepare_real_image_edit`) -> `edit_image`, bench.py's guided
+             loop: 50 DDIM steps at eta 0, each a UNet call and
              ClassifierAttrFunc(loss_scale=50, [20][1]).apply_batched through
              the quantizing VQ decode (straight-through) and the ResNet-50 on
              the ImageNet-normalised image -> decode. Checks the launch counts
              against what the pieces imply, no plain attention, GroupNorm or
              ABN on the card, a finite image that differs from the unguided
-             loop's; prints the guided loop's steps/s (bench.py's metric), the
-             inversion's and the load's seconds and the peak memory.
+             edit's, and (`check_guidance`, on a rerun) that every step's
+             nudge is finite and the largest one reached the f32 latent;
+             prints the guided loop's steps/s (bench.py's metric, the final
+             decode timed alone and taken off), the inversion's and the
+             load's seconds, the peak memory, each step's nudge and the anyGAN
+             logit of the guided and the unguided image.
 10. ddpm_edit - the DDPM CelebA-HQ-256 family: an HF-layout directory (UNet
              114 M, legacy attention names, bf16) loaded by
              `create_diffusion_model("ddpm", sample_clipping=True)` and checked
@@ -117,7 +121,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              same modules, a random 256 px image -> edit-friendly DDPM
              inversion (eta 1, batched, chunk 10, t_skip 10) -> 40 steps
              guided by the same ClassifierAttrFunc, the gradient through the
-             ResNet-50 alone (the codec is the identity). Checks as [ldm_clf].
+             ResNet-50 alone (the codec is the identity). Checks as
+             [ldm_clf], and with no quantizer between the nudge and the
+             classifier, the guided image's logit must be below the
+             unguided one's.
    [tiny] also holds TINY_UNET2D (its 64-wide head), a TINY VQ model (encode,
              codes as an agreement rate, decode and its gradient), a width-8
              ResNet-50's logits and one ClassifierAttrFunc nudge through the
@@ -135,6 +142,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              img/s from CUDA events, peak memory, every ABN through K8 and no
              plain ABN on the card, finite losses, weights and running
              statistics changed), a second resume, and one eval-mode forward.
+
+`[pace]` lines (after the build, before [main], [ldm_clf] and [ddpm_edit])
+read the host's and the card's pace: a fixed Python loop, one small
+launch, the objects the garbage collector tracks, a bf16 matmul's rate.
 
 The last two lines are the `kernels` JSON object and the result JSON object.
 """
@@ -360,6 +371,41 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     log("[device] allow_tf32: matmul False, cudnn False")
     return smi
+
+
+def pace_probe(label: str) -> None:
+    """The host's and the card's pace at this point of the script, for
+    comparing the guided loops' steps/s across the script and across calls
+    (each step launches thousands of kernels): a fixed pure-Python loop,
+    2000 launches of a one-element add on the card timed to a
+    synchronisation, the objects the garbage collector tracks, and the rate
+    of ten bf16 8192^3 matmuls (CUDA events, after one warm-up)."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(200_000):
+        acc += i & 7
+    py_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    launch_us = (time.perf_counter() - t0) / 2000 * 1e6
+    n = 8192
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = a @ a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        b = a @ a
+    end.record()
+    torch.cuda.synchronize()
+    tflops = 10 * 2 * n**3 / (start.elapsed_time(end) * 1e-3) / 1e12
+    del a, b
+    log(f"[pace] {label}: a 200000-step Python loop {py_ms:.2f} ms; a small launch "
+        f"{launch_us:.2f} us; {len(gc.get_objects())} objects tracked by the collector; "
+        f"bf16 matmul {tflops:.1f} TFLOP/s")
 
 
 # ---------------------------------------------------------------------------
@@ -1880,21 +1926,61 @@ def check_family_pieces(tag: str, w, per: dict) -> None:
                                f"{n_attn} attention blocks")
 
 
-def guided_ddim_loop(w, xt, attr):
-    """bench.py's guided loop (bench.py:663-687): for each of the schedule's
-    steps a UNet call (no gradient), `ddim_step` at eta 0, then the
-    attribute function's `apply_batched` through the wrapper's decode (no
-    nudge when `attr` is None)."""
-    from diffusion_image_editing_tpu_torch.core import ddim_step
+# A nudge below f32's relative spacing leaves the latent as it was: the
+# largest nudge of a guided edit must reach at least this share of the
+# latent's RMS.
+NUDGE_FLOOR = 2.0 ** -24
 
-    sched, eps_fn, decode_fn = w.schedule, w.eps_fn(), w.decode_fn()
-    x = xt
-    for i, t in enumerate(sched.timesteps.tolist()):
-        eps = eps_fn(x, t).detach()
-        x, _ = ddim_step(sched, x, eps, t, eta=0.0)
-        if attr is not None:
-            x, _ = attr.apply_batched(x, None, eps, t, i, sched, decode_fn)
-    return x
+
+class NudgeProbe:
+    """Stands in for an attribute function in `edit_image`: runs its
+    `apply_batched` and keeps, for each step inside its window, the nudge's
+    RMS over the latent's and the share of latent elements whose bfloat16
+    value (what the UNet reads) the nudge changed, as tensors on the latent's
+    device (no synchronisation in the loop)."""
+
+    def __init__(self, attr):
+        self.attr, self.rel, self.bf16_moved = attr, [], []
+
+    def apply_batched(self, x, z, eps, t, step_idx, *args, **kwargs):
+        out, z = self.attr.apply_batched(x, z, eps, t, step_idx, *args, **kwargs)
+        if self.attr.in_window(int(step_idx)):
+            d = (out - x).float()
+            self.rel.append(d.pow(2).mean().sqrt() / x.float().pow(2).mean().sqrt())
+            self.bf16_moved.append((out.to(torch.bfloat16) != x.to(torch.bfloat16)).float().mean())
+        return out, z
+
+
+def check_guidance(label: str, run_edit, attr, guided, unguided, must_lower: bool) -> None:
+    """Classifier guidance changed what it acts on. `run_edit(attr_func)` runs
+    the phase's edit and returns its images; it is run once more through a
+    `NudgeProbe`: every step's nudge must be finite and the largest at least
+    NUDGE_FLOOR of the latent's RMS. Prints the anyGAN logit of the `guided`
+    and `unguided` images; with `must_lower` (no quantizer between the nudge
+    and the classifier, so each nudge descends the logit itself) the guided
+    one must be the lower. Through the VQ decode the logit is piecewise
+    constant in the latent and the straight-through gradient is not its
+    gradient, so there it is printed only."""
+    probe = NudgeProbe(attr)
+    rerun = run_edit(probe)
+    rel = torch.stack(probe.rel).cpu()
+    moved = torch.stack(probe.bf16_moved).cpu()
+    with torch.no_grad():
+        score = [float(attr.loss(im)) for im in (guided, unguided)]
+    log(f"{label} nudge RMS / latent RMS over {len(rel)} guided steps: first {rel[0]:.3e}, "
+        f"median {rel.median():.3e}, largest {rel.max():.3e} (floor {NUDGE_FLOOR:.3e}); share "
+        f"of latent elements whose bf16 value a nudge changed: first {moved[0]:.4f}, largest "
+        f"{moved.max():.4f}; rerun through the probe max |rerun - guided| "
+        f"{(rerun.float() - guided.float()).abs().max().item():.4g}")
+    log(f"{label} anyGAN logit [{CLF['idx_for_class']}][{CLF['idx_of_interest']}]: guided "
+        f"{score[0]:.6g}, unguided {score[1]:.6g}, guided - unguided {score[0] - score[1]:.4g}"
+        + (" (must be below 0)" if must_lower else " (printed only: the VQ decode quantizes)"))
+    if not bool(torch.isfinite(rel).all()) or not rel.max() >= NUDGE_FLOOR:
+        raise RuntimeError(f"{label}: the guidance nudges are not finite or all below "
+                           f"{NUDGE_FLOOR:.3e} of the latent")
+    if must_lower and not score[0] < score[1]:
+        raise RuntimeError(f"{label}: the guided image's logit {score[0]:.6g} is not below the "
+                           f"unguided one's {score[1]:.6g}")
 
 
 def phase_ldm_clf(smi: str, dev=torch.device("cuda")) -> dict:
@@ -1939,32 +2025,34 @@ def phase_ldm_clf(smi: str, dev=torch.device("cuda")) -> dict:
     rng = np.random.default_rng(21)
     img = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
     expected = implied_launches(per, 2 * STEPS, STEPS, STEPS + 1, 1)
+
+    def run_edit(attr_func):
+        return pipe.edit_image(xt, attr_func=attr_func, inversion_method="ddim",
+                               collect=False).imgs
+
     with counted_block("[ldm_clf]", expected) as run:
         t_start = time.perf_counter()
         xt, _, _, _, _ = pipe.prepare_real_image_edit(img, inversion_method="ddim")
         torch.cuda.synchronize()
         t_inv = time.perf_counter()
-        x = guided_ddim_loop(w, xt, attr)
+        out = run_edit(attr)
         torch.cuda.synchronize()
-        t_loop = time.perf_counter()
-        out = w.decode(x)
-        torch.cuda.synchronize()
-        t_dec = time.perf_counter()
+        t_edit = time.perf_counter()
     peak = torch.cuda.max_memory_allocated()
-    inv_s, loop_s = t_inv - t_start, t_loop - t_inv
-    rms = [v.float().pow(2).mean().sqrt().item() for v in (xt, x)]
-    log(f"[ldm_clf] VQ encode + DDIM inversion ({STEPS} steps) {inv_s:.3f} s; guided loop "
-        f"({STEPS} steps) {loop_s:.3f} s = {STEPS / loop_s:.3f} steps/s (bench.py's metric); "
-        f"decode {t_dec - t_loop:.3f} s; whole run {run['seconds']:.3f} s; peak memory "
-        f"{peak / 2**30:.2f} GiB, on {smi}")
-    log(f"[ldm_clf] latent RMS: x_T {rms[0]:.4g} after the inversion, x_0 {rms[1]:.4g} after "
-        f"the guided loop (no renormalisation)")
-    unguided = w.decode(guided_ddim_loop(w, xt, None))
+    t0 = time.perf_counter()
+    w.decode(xt)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    inv_s, edit_s = t_inv - t_start, t_edit - t_inv
+    log(f"[ldm_clf] VQ encode + DDIM inversion ({STEPS} steps) {inv_s:.3f} s; edit_image "
+        f"({STEPS} guided steps + decode) {edit_s:.3f} s; the decode alone {dec_s:.3f} s; guided "
+        f"loop {STEPS / (edit_s - dec_s):.3f} steps/s (bench.py's metric); whole run "
+        f"{run['seconds']:.3f} s; peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    log(f"[ldm_clf] latent RMS: x_T {xt.float().pow(2).mean().sqrt().item():.4g} after the "
+        f"inversion (no renormalisation)")
+    unguided = run_edit(ClassifierAttrFunc(t1=STEPS, t2=STEPS, **CLF))
     check_image("[ldm_clf]", out, size, unguided)
-    with torch.no_grad():
-        score = [float(attr.loss(im)) for im in (out, unguided)]
-    log(f"[ldm_clf] anyGAN logit [{CLF['idx_for_class']}][{CLF['idx_of_interest']}]: guided "
-        f"{score[0]:.4f}, unguided {score[1]:.4f}")
+    check_guidance("[ldm_clf]", run_edit, attr, out, unguided, must_lower=False)
     return run["counts"]
 
 
@@ -2023,6 +2111,11 @@ def phase_ddpm_edit(smi: str, dev=torch.device("cuda")) -> dict:
     calls = math.ceil((STEPS - T_SKIP) / CHUNK) + GUIDED
     torch.cuda.reset_peak_memory_stats()
     expected = implied_launches(per, calls, 0, 0, 0)
+
+    def run_edit(attr_func):
+        return pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr_func,
+                               inversion_method="ddpm", t_skip=T_SKIP, collect=False).imgs
+
     with counted_block("[ddpm_edit] inversion + edit", expected) as run:
         t_start = time.perf_counter()
         xt, zs, xts, _, _ = pipe.prepare_real_image_edit(
@@ -2030,8 +2123,7 @@ def phase_ddpm_edit(smi: str, dev=torch.device("cuda")) -> dict:
             generator=torch.Generator(device=dev).manual_seed(5))
         torch.cuda.synchronize()
         t_inv = time.perf_counter()
-        out = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr,
-                              inversion_method="ddpm", t_skip=T_SKIP, collect=False)
+        out = run_edit(attr)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
     peak = torch.cuda.max_memory_allocated()
@@ -2040,14 +2132,9 @@ def phase_ddpm_edit(smi: str, dev=torch.device("cuda")) -> dict:
         f"{GUIDED} ClassifierAttrFunc-guided steps + identity decode {edit_s:.3f} s = "
         f"{GUIDED / edit_s:.3f} steps/s; whole edit {run['seconds']:.3f} s; peak memory "
         f"{peak / 2**30:.2f} GiB, on {smi}")
-    unguided = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts,
-                               attr_func=ClassifierAttrFunc(t1=STEPS, t2=STEPS, **CLF),
-                               inversion_method="ddpm", t_skip=T_SKIP, collect=False).imgs
-    check_image("[ddpm_edit] edit", out.imgs, size, unguided)
-    with torch.no_grad():
-        score = [float(attr.loss(im)) for im in (out.imgs, unguided)]
-    log(f"[ddpm_edit] anyGAN logit [{CLF['idx_for_class']}][{CLF['idx_of_interest']}]: guided "
-        f"{score[0]:.4f}, unguided {score[1]:.4f}")
+    unguided = run_edit(ClassifierAttrFunc(t1=STEPS, t2=STEPS, **CLF))
+    check_image("[ddpm_edit] edit", out, size, unguided)
+    check_guidance("[ddpm_edit]", run_edit, attr, out, unguided, must_lower=True)
     return run["counts"]
 
 
@@ -2182,12 +2269,14 @@ def phase_seg(smi: str) -> dict:
 def main() -> int:
     smi = phase_device()
     phase_build()
+    pace_probe("after the build")
     entries = phase_kernels()
     phase_tiny()
     phase_seg_tiny()
     t0 = time.perf_counter()
     unet, vae = build_models(torch.device("cuda"))
     log(f"[main] models built in {time.perf_counter() - t0:.1f} s")
+    pace_probe("before [main]")
     counts = phase_main_path(smi, unet, vae)
     fused_counts = phase_fused(smi, unet, vae)
     phase_seg_edit(smi, unet, vae)
@@ -2197,9 +2286,11 @@ def main() -> int:
     phase_prompt(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    pace_probe("before [ldm_clf]")
     phase_ldm_clf(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    pace_probe("before [ddpm_edit]")
     phase_ddpm_edit(smi)
     gc.collect()
     torch.cuda.empty_cache()

@@ -100,9 +100,7 @@ def cmd_edit(args) -> None:
     from .host.transforms import pil_to_tensor, tensor_to_pil
     from .pipeline import EditPipeline, create_segmentation_model
 
-    if args.sample_clipping:
-        raise SystemExit("--sample-clipping: a real-image edit runs unclipped")
-    w = _build_wrapper(args, False)
+    w = _build_wrapper(args, False)  # a real-image edit runs unclipped
     seg_fn = None
     if args.classes:
         seg_fn = create_segmentation_model(args.bisenet_ckpt, device=args.device)
@@ -190,8 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--image", required=True)
     e.add_argument("--image-size", type=int, default=None,
                    help="pixels a side (default: the codec's sample size, 256 for ddpm and ldm)")
-    e.add_argument("--sample-clipping", action=argparse.BooleanOptionalAction, default=False,
-                   help="a real-image edit runs unclipped: --sample-clipping is refused")
     e.add_argument("--align", action="store_true", default=None, help="not ported (item 20)")
     e.add_argument("--landmarks", default=None, help="not ported (item 20)")
     e.add_argument("--inversion-method", default="ddim", choices=["ddim", "ddpm"])

@@ -75,21 +75,14 @@ class ResnetBlock2D(nn.Module):
     of norm1, conv2 (A2, B2) of norm2 with the temb projection folded in as
     the shift, so no h + temb tensor is made. Other shapes, and the block
     without `fused_conv`, run the unfused branch. The parameters are the
-    same either way.
-
-    `dropout` sits between norm2 and conv2 and acts in training mode only
-    (Flax's `deterministic=False`), where it also keeps conv2 unfused; every
-    config of the package has 0.0, and the wrappers run their modules in
-    eval mode."""
+    same either way."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
                  norm_num_groups: int = 32, norm_eps: float = 1e-6,
-                 output_scale_factor: float = 1.0, fused_conv: bool = False,
-                 dropout: float = 0.0, **factory):
+                 output_scale_factor: float = 1.0, fused_conv: bool = False, **factory):
         super().__init__()
         self.output_scale_factor = output_scale_factor
         self.fused_conv = fused_conv
-        self.dropout = dropout
         self.norm1 = GroupNormLayer(in_channels, norm_num_groups, norm_eps, "silu", **factory)
         self.conv1 = Conv3x3(in_channels, out_channels, **factory)
         self.time_emb_proj = (nn.Linear(temb_dim, out_channels, **factory)
@@ -101,22 +94,18 @@ class ResnetBlock2D(nn.Module):
 
     @staticmethod
     def _norm_conv(norm: GroupNormLayer, conv: Conv3x3, x: torch.Tensor, fused: bool,
-                   shift: Optional[torch.Tensor] = None, dropout: float = 0.0) -> torch.Tensor:
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
         if fused and fused_conv_wanted(x.shape):
             a, b = gn_affine_coeffs(x, norm.weight, norm.bias, norm.num_groups, norm.eps, shift)
             return affine_silu_conv3x3(x, a, b, conv.weight, conv.bias)
         if shift is not None:
             x = x + shift[:, :, None, None].to(x.dtype)
-        h = norm(x)
-        if dropout > 0:
-            h = F.dropout(h, dropout, training=True)
-        return conv(h)
+        return conv(norm(x))
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         t = self.time_emb_proj(F.silu(temb)) if temb is not None else None
         h = self._norm_conv(self.norm1, self.conv1, x, self.fused_conv)
-        drop = self.dropout if self.training else 0.0
-        h = self._norm_conv(self.norm2, self.conv2, h, self.fused_conv and not drop, t, drop)
+        h = self._norm_conv(self.norm2, self.conv2, h, self.fused_conv, t)
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return (residual + h) / self.output_scale_factor
 

@@ -52,7 +52,6 @@ class UNet2DConfig:
     flip_sin_to_cos: bool = False
     freq_shift: float = 1.0
     add_mid_attention: bool = True
-    dropout: float = 0.0
     # Fold each ResnetBlock's GroupNorm(+temb)+SiLU into its conv where the
     # shape allows (`ops.fused_conv`): the JAX package's DIE_TPU_FUSED_CONV=1.
     fused_conv: bool = False
@@ -98,7 +97,7 @@ class UNet2D(nn.Module):
         super().__init__()
         self.config = cfg = config
         fk = dict(device=resolve_device(device), dtype=dtype)
-        rk = dict(fk, fused_conv=cfg.fused_conv, dropout=cfg.dropout)  # ResnetBlock2D keywords
+        rk = dict(fk, fused_conv=cfg.fused_conv)  # ResnetBlock2D keywords
         g, eps, hd = cfg.norm_num_groups, cfg.norm_eps, cfg.attention_head_dim
         temb = cfg.time_embed_dim
         c0 = cfg.block_out_channels[0]

@@ -348,8 +348,7 @@ def test_cli_generate(dirs, tmp_path, family, clip):
     ("ddpm", ["--inversion-method", "ddpm", "--eta", "1", "--t-skip", "1"]),
     ("ldm", ["--inversion-method", "ddim", "--edit-mode", "fused"])])
 def test_cli_edit(dirs, tmp_path, family, extra):
-    """`edit --family ddpm|ldm`: a real-image edit at the codec's size,
-    unclipped; `--sample-clipping` is refused."""
+    """`edit --family ddpm|ldm`: a real-image edit at the codec's size."""
     out = tmp_path / "e.png"
     args = ["edit", "--device", "cpu", "--family", family, "--checkpoint-dir", dirs[family],
             "--image", os.path.join(dirs["ddpm"], "face.png"), "--steps", "3", "--attr-func",
@@ -357,5 +356,3 @@ def test_cli_edit(dirs, tmp_path, family, extra):
     assert cli.main(args + extra) == 0
     with Image.open(out) as im:
         assert im.size == ((16, 16) if family == "ddpm" else (32, 32))
-    with pytest.raises(SystemExit, match="unclipped"):
-        cli.main(args + extra + ["--sample-clipping"])

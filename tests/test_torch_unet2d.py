@@ -18,7 +18,8 @@ import torch
 
 from diffusion_image_editing_tpu import models as JM
 from diffusion_image_editing_tpu_torch import models as TM
-from diffusion_image_editing_tpu_torch.models.layers import AttentionBlock2D, ResnetBlock2D
+from diffusion_image_editing_tpu_torch.models import port as TP
+from diffusion_image_editing_tpu_torch.models.layers import AttentionBlock2D
 from tests.torch_port_helpers import nchw, tiny_ldm_unet_configs, tiny_unet2d_params
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -51,11 +52,17 @@ def test_unet2d_forward_matches_jax(pair, t):
     np.testing.assert_allclose(out.numpy(), nchw(ref), **FWD_TOL)
 
 
+CONFIG_NAMES = ("TINY_UNET2D", "DDPM_CELEBAHQ_256", "LDM_CELEBAHQ_256_UNET")
+
+
 def test_published_configs_match_jax():
-    for name in ("TINY_UNET2D", "DDPM_CELEBAHQ_256", "LDM_CELEBAHQ_256_UNET"):
+    """Field for field; the port has no `dropout` (it trains no UNet2D), so
+    every JAX config must have 0.0 there."""
+    for name in CONFIG_NAMES:
         want = dataclasses.asdict(getattr(JM, name))
         got = dataclasses.asdict(getattr(TM, name))
         assert got.pop("fused_conv") is False
+        assert want.pop("dropout") == 0.0, name
         assert got == want, name
 
 
@@ -79,15 +86,15 @@ def test_ldm_unet_has_274m_parameters():
     assert round(sum(p.numel() for p in unet.parameters()) / 1e6) == 274
 
 
-def test_dropout_acts_in_training_mode_only():
-    """0.0 in every config; set, it drops between norm2 and conv2 in
-    training mode only, as Flax's `deterministic` does."""
-    torch.manual_seed(0)
-    block = ResnetBlock2D(8, 8, None, 4, 1e-6, dropout=0.5, device="cpu")
-    x = torch.randn(1, 8, 6, 6)
-    block.eval()
-    a, b = block(x), block(x)
-    assert torch.equal(a, b)
-    block.train()
-    assert not torch.equal(block(x), a)
-    assert TM.DDPM_CELEBAHQ_256.dropout == TM.LDM_CELEBAHQ_256_UNET.dropout == 0.0
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+def test_config_json_round_trip_matches_jax(name):
+    """A config written as the HF `config.json` of a `unet/` directory (as
+    diffusers writes it, with its `dropout` of 0.0) reads back as the same
+    config through the port's loader and as the JAX package's config of that
+    name through the JAX loader."""
+    from diffusion_image_editing_tpu.models import port as JP
+
+    js = TP.config_to_json(getattr(TM, name))
+    js["dropout"] = 0.0
+    assert TP.unet2d_config_from_json(js) == getattr(TM, name)
+    assert JP.unet2d_config_from_json(js) == getattr(JM, name)
