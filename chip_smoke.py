@@ -75,6 +75,21 @@ Phases, each printing its own lines; any failure exits non-zero:
              mask's shape and coverage (1-99 % of the latent), a finite image
              that differs from the unguided edit; prints the segment + mask +
              encode, inversion, edit and whole seconds and the peak memory.
+7b. remat - the decoder's block checkpointing and chunked guidance VJPs on the
+             [main] models: two random 512 px images, [main]'s DDPM inversion
+             (the last 10 steps' noise maps), then 10 steps guided by
+             SingleColorAttrFunc with the LPIPS background term (a full-width
+             seeded f32 LPIPS, a box mask on the image, x0_ref the inputs)
+             three ways from the same inputs and noise, under cuDNN's
+             deterministic algorithms: decode_remat="none", "blocks" one
+             sample a VJP, "blocks" two samples a VJP. Prints each way's
+             seconds, peak memory and largest difference from the first;
+             the second within RERUN_TOL (bit-equality printed), the third
+             (whose batch-2 decode rounds otherwise, which the bf16 UNet
+             steps carry on) held step by step: its nudge on the first way's
+             latent within CHUNK_NUDGE_TOL of the first way's. Checks that
+             one checkpointed decode runs its blocks' kernels twice and the
+             launch counts each way implies.
 8. prompt  - the SD path as a user starts it, at full width, after the [main]
              models are freed: an HF-layout SD-1.5 checkpoint directory
              (UNet, VAE under the legacy attention names, CLIP ViT-L/14
@@ -125,13 +140,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              [ldm_clf], and with no quantizer between the nudge and the
              classifier, the guided image's logit must be below the
              unguided one's.
+10b. metrics - the CLI's `metrics` flow on the DDPM family (loaded as
+             [ddpm_edit]): `run_attribute_evaluation` of 4 generated 256 px
+             images, eta 1, edit-friendly DDPM re-inversion and 14
+             ClassifierAttrFunc-guided steps, the anyGAN ResNet-50 as guidance
+             and as predictor (40 consistency entries in [0, 100], 40 finite
+             sorted deltas), then the round trip without `--attr-func` (DDPM
+             inversion and re-generation) scored by PSNR and a full-width
+             LPIPS (LPIPS(a, a) = 0, symmetric, card against CPU within
+             LPIPS_TOL); launch counts checked, per-part seconds printed.
    [tiny] also holds TINY_UNET2D (its 64-wide head), a TINY VQ model (encode,
              codes as an agreement rate, decode and its gradient), a width-8
              ResNet-50's logits and one ClassifierAttrFunc nudge through the
              TINY LDM decode, card against CPU; [kernels] holds K1 at the LDM
              and DDPM UNets' heads and at 64, K2/K3 at 64, and K4-K6 at the
              LDM UNet's odd channels a group, the 512 KiB slabs of the VQ
-             decoder and the DDPM UNet and their 1 MiB slabs.
+             decoder and the DDPM UNet and their 1 MiB slabs; and the TINY
+             LPIPS with its input gradient and the TINY decode with
+             remat=True, card against CPU.
 11. seg    - the segmentation trainer's path after the SD models are freed:
              `seg.train_loop` (the `seg-train` CLI's entry point) at the
              reference recipe (BiSeNet, ResNet-18, width 64, 19 classes,
@@ -204,6 +230,16 @@ TINY_SEG_TOL = {"logits": 1e-4, "seg_grad": 1e-3, "nudge": 0.05}
 # TINY_SEG_TOL's.
 TINY_FAMILY_TOL = {"eps": 0.05, "latent": 0.05, "codes": 0.95, "decode": 0.05,
                    "decode_vjp": 0.05, "logits": 1e-4, "nudge": 0.05}
+# The evaluation path at the TINY sizes, card against CPU: LPIPS and its
+# input gradient in f32 on both (cuDNN's f32 convolutions, TF32 off, sum in
+# another order than the CPU's), max |card - cpu| / max |cpu|; the
+# block-checkpointed TINY decode and its gradient bf16 on the card against
+# f32 on the CPU, as TINY_TOL's decode.
+TINY_EVAL_TOL = {"lpips": 1e-4, "lpips_grad": 1e-3, "remat_decode": 0.05,
+                 "remat_decode_vjp": 0.05}
+# Full-width LPIPS (f32) on the card against the same call on the CPU:
+# max |card - cpu| / max |cpu| over near and far pairs of 256 px images.
+LPIPS_TOL = 1e-3
 
 FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 64x64", (2, 4096, 8, 40), (2, 4096, 8, 40)),
@@ -829,6 +865,7 @@ def phase_tiny() -> None:
     failed += _tiny_seg()
     failed += _tiny_masks()
     failed += _tiny_families()
+    failed += _tiny_evals()
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
 
@@ -1066,6 +1103,78 @@ def _tiny_families(devices=(("cuda", torch.bfloat16), ("cpu", torch.float32))) -
     return failed
 
 
+LPIPS_SEED = 31
+
+
+def seeded_lpips(width: float = 1.0):
+    """An f32 LPIPS from seeded random weights, built on the CPU (move it to
+    the card with `.to`, so that both devices hold the same weights)."""
+    from diffusion_image_editing_tpu_torch.evals import LPIPS
+
+    torch.manual_seed(LPIPS_SEED)
+    return LPIPS(width, device="cpu")
+
+
+def _tiny_evals(devices=(("cuda", torch.bfloat16), ("cpu", torch.float32))) -> list:
+    """The evaluation path's pieces at the TINY sizes, the first device (the
+    card) against the second (the CPU), from the same weights and inputs:
+    LPIPS at width 1/8 (f32 on both) and its input gradient; the TINY SD
+    decode with `remat=True` and its latent gradient (the VAE bf16 on the
+    card, f32 on the CPU). Prints whether the checkpointed decode and
+    gradient equal the plain ones on the first device to the bit (they run
+    the same kernels again), held within RERUN_TOL. Returns the names that
+    disagree."""
+    import copy
+
+    from diffusion_image_editing_tpu_torch.models import TINY_VAE, AutoencoderKL
+
+    lp = seeded_lpips(0.125)
+    torch.manual_seed(4)
+    vae = AutoencoderKL(TINY_VAE, device="cpu")
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32))
+            for _ in range(2))
+    z0 = torch.from_numpy(rng.standard_normal((2, 4, 16, 16), dtype=np.float32))
+    wgt = torch.from_numpy(rng.standard_normal((2, 3, 32, 32), dtype=np.float32))
+    runs = []
+    failed = []
+    for dev, dtype in devices:
+        net = copy.deepcopy(lp).to(dev)
+        x = a.to(dev).requires_grad_(True)
+        dist = net(x, b.to(dev))
+        (grad,) = torch.autograd.grad(dist.sum(), x)
+        v = copy.deepcopy(vae).to(dev, dtype)
+        out = {}
+        for remat in (False, True):
+            z = z0.to(dev).requires_grad_(True)
+            dec = v.decode(z, remat=remat)
+            (vjp,) = torch.autograd.grad((dec.float() * wgt.to(dev)).sum(), z)
+            out[remat] = (dec.detach(), vjp)
+        same = all(torch.equal(p, q) for p, q in zip(out[True], out[False]))
+        err = max(((p.float() - q.float()).abs().max() / q.float().abs().max()).item()
+                  for p, q in zip(out[True], out[False]))
+        ok = err <= RERUN_TOL
+        log(f"[tiny] evals {dev} {str(dtype).removeprefix('torch.')}: decode with remat=True "
+            f"against without, output and gradient bit-equal {same}, max relative "
+            f"{err:.3e} (tol {RERUN_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"evals remat rerun on {dev}")
+        runs.append({"lpips": dist, "lpips_grad": grad, "remat_decode": out[True][0],
+                     "remat_decode_vjp": out[True][1]})
+    got, ref = runs
+    (d0, t0), (d1, t1) = ((d, str(t).removeprefix("torch.")) for d, t in devices)
+    for name, tol in TINY_EVAL_TOL.items():
+        want = ref[name].float().cpu()
+        err = ((got[name].float().cpu() - want).abs().max() / want.abs().max()).item()
+        ok = err <= tol and math.isfinite(err)
+        log(f"[tiny] evals {name} {tuple(want.shape)}: max|{d0} - {d1}| / max|{d1}| {err:.3e} "
+            f"(tol {tol}; LPIPS f32 on both, the decode {t0} against {t1}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"evals {name}")
+    return failed
+
+
 def phase_seg_tiny(devices=("cpu", "cuda")) -> None:
     """Two train steps of a tiny BiSeNet with norm="abn" on each device, from
     the same weights (drawn on the CPU) and the same uint8 batches."""
@@ -1162,9 +1271,10 @@ def make_pipeline(unet, vae, dev):
     return sd, EditPipeline(sd), img
 
 
-def forward_pieces(sd, dev):
-    """One CFG UNet call, one decode and its latent gradient, one encode, on
-    fixed inputs; each returns its output."""
+def forward_pieces(sd, dev, remat_blocks: bool = False):
+    """One CFG UNet call, one decode and its latent gradient (through the
+    block-checkpointed decoder with `remat_blocks`), one encode, on fixed
+    inputs; each returns its output."""
     cfg = sd.vae.config
     size, lat = cfg.sample_size, cfg.sample_size // 2 ** (len(cfg.block_out_channels) - 1)
     rng = np.random.default_rng(1)
@@ -1178,7 +1288,7 @@ def forward_pieces(sd, dev):
 
     def decode():
         zz = z.clone().requires_grad_(True)
-        decoded = sd.decode_fn()(zz)
+        decoded = sd.decode_fn(remat_blocks=remat_blocks)(zz)
         (vjp,) = torch.autograd.grad((decoded.float() * wgt).sum(), zz)
         return decoded.detach(), vjp
 
@@ -1594,6 +1704,198 @@ def phase_seg_edit(smi: str, unet, vae) -> dict:
         f"unguided {mass[1]:.5f}")
     if not finite or tuple(imgs.shape) != (1, 3, size, size) or not moved > 0:
         raise RuntimeError("[seg_edit] the edit is not a finite image that the guidance moved")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 7b. remat
+# ---------------------------------------------------------------------------
+
+REMAT_BATCH, REMAT_GUIDED = 2, 10  # images, guided steps
+# (decode_remat, vjp_chunk): the decode in the guidance gradient plain, then
+# block-checkpointed one sample at a time, then two samples a VJP.
+REMAT_WAYS = (("none", 1), ("blocks", 1), ("blocks", 2))
+REMAT_GUIDE = dict(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS, use_mask=True,
+                   mask_pred_original_sample=True, metric="lpips", lambda_=0.01)
+# A nudge through a bf16 decode whose convolutions ran other cuDNN
+# algorithms (two samples a batch against one) moves where the decoded
+# image's last bits flip the L1 loss's sign or an LPIPS ReLU: max |diff| /
+# max |nudge|, as TINY_TOL's and TINY_SEG_TOL's nudges (bf16 card vs f32 CPU).
+CHUNK_NUDGE_TOL = 0.05
+
+
+class ChunkProbe:
+    """Stands in for the attribute function of an edit: runs its
+    `apply_batched` and, on the same latent, `other`'s through
+    `other_decode`, keeping max |other's nudge - its nudge| / max |its nudge|
+    for each step inside the window as a tensor (no synchronisation)."""
+
+    def __init__(self, attr, other, other_decode):
+        self.attr, self.other, self.other_decode, self.errs = attr, other, other_decode, []
+
+    def apply_batched(self, x, z, eps, t, step_idx, sched, decode_fn, **kwargs):
+        out, z = self.attr.apply_batched(x, z, eps, t, step_idx, sched, decode_fn, **kwargs)
+        if self.attr.in_window(int(step_idx)):
+            alt, _ = self.other.apply_batched(x, None, eps, t, step_idx, sched,
+                                              self.other_decode, **kwargs)
+            d = (out - x).float()
+            self.errs.append(((alt - x).float() - d).abs().max() / d.abs().max())
+        return out, z
+
+
+def remat_way_launches(per: dict, remat: str, chunk: int) -> dict:
+    """An edit of REMAT_GUIDED steps at batch REMAT_BATCH: a UNet call a step,
+    REMAT_BATCH / chunk decodes with a gradient a step (each through the
+    block-checkpointed decoder for "blocks"), and the final decode without
+    one."""
+    grad = per["decode_remat" if remat == "blocks" else "decode"]
+    n = REMAT_GUIDED * REMAT_BATCH // chunk
+    total = {k: REMAT_GUIDED * per["eps"][k] + n * grad[k] + per["decode"][k]
+             for k in per["eps"]}
+    for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        total[k] -= per["decode"][k]
+    return total
+
+
+def check_remat_piece(vae, per: dict) -> None:
+    """One decode with its gradient through the block-checkpointed decoder
+    runs each ResnetBlock2D's and the mid attention's kernels twice (the
+    backward recomputes the block) and the decoder's other GroupNorm
+    (conv_norm_out) once: K1 (with the lse both times) twice an attention
+    block, K2 and K3 once, and otherwise what the plain decode runs."""
+    from diffusion_image_editing_tpu_torch.models.layers import (
+        AttentionBlock2D, GroupNormLayer, ResnetBlock2D)
+
+    blocks = [m for m in vae.decoder.modules() if isinstance(m, (ResnetBlock2D, AttentionBlock2D))]
+    gn_blocks = sum(count_modules(b, GroupNormLayer) for b in blocks)
+    gn = count_modules(vae.decoder, GroupNormLayer)
+    n_attn = count_modules(vae.decoder, AttentionBlock2D)
+    c, d = per["decode_remat"], per["decode"]
+    log(f"[remat] one decode with its gradient: plain {d}; block-checkpointed {c} "
+        f"({len(blocks)} blocks checkpointed holding {gn_blocks} of the decoder's {gn} GroupNorm "
+        f"layers, {n_attn} attention)")
+    if (c["group_norm_fused"] + c["group_norm_stats"] != gn + gn_blocks
+            or c["group_norm_stats"] != c["group_norm_apply"]
+            or d["group_norm_fused"] + d["group_norm_stats"] != gn
+            or (c["flash_attn_fwd"], c["flash_attn_bwd_dq"], c["flash_attn_bwd_dkv"])
+            != (2 * n_attn, n_attn, n_attn)
+            or (d["flash_attn_fwd"], d["flash_attn_bwd_dq"], d["flash_attn_bwd_dkv"])
+            != (n_attn, n_attn, n_attn)
+            or c["affine_silu_conv3x3"] or c["abn_apply"]):
+        raise RuntimeError(f"[remat] the checkpointed decode ran {c}, not the plain decode's "
+                           f"{d} with {gn_blocks} GroupNorms and {n_attn} attention again")
+
+
+def phase_remat(smi: str, unet, vae) -> dict:
+    """The decoder's block checkpointing and chunked guidance VJPs on the
+    [main] models: two random 512 px images, [main]'s edit-friendly DDPM
+    inversion (the last REMAT_GUIDED steps' noise maps), then REMAT_GUIDED
+    steps of SingleColorAttrFunc with the LPIPS background term
+    (`metric="lpips"`, a full-width seeded f32 LPIPS, a box mask on the
+    image, x0_ref the input images) three ways (REMAT_WAYS) from the same
+    inputs and noise, with cuDNN's deterministic algorithms (LPIPS's f32
+    convolution backward otherwise is not: a rerun of one way differs).
+    Prints each way's seconds, peak memory and largest difference from the
+    first way. The ways of one sample a VJP run the same operations, and
+    their edits must agree within RERUN_TOL (bit-equality printed). Two
+    samples a VJP run the decoder's convolutions at batch 2, where cuDNN
+    picks other algorithms: the nudges differ in rounding, and the bf16
+    UNet steps carry that through the trajectory, so that way is held
+    step by step instead: on the first way's latent at every step, its
+    nudge within CHUNK_NUDGE_TOL of the first way's (`ChunkProbe`). Checks
+    the launch counts; returns those of the "blocks" way."""
+    from diffusion_image_editing_tpu_torch.evals import make_lpips_fn
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
+    dev = next(unet.parameters()).device
+    sd, pipe, _ = make_pipeline(unet, vae, dev)
+    size = vae.config.sample_size
+    rng = np.random.default_rng(41)
+    imgs = torch.from_numpy(
+        rng.uniform(-1.0, 1.0, (REMAT_BATCH, 3, size, size)).astype(np.float32)).to(dev)
+    mask = torch.zeros((1, 1, size, size), device=dev)
+    mask[..., size // 4:3 * size // 4, size // 8:5 * size // 8] = 1.0
+    lpips = seeded_lpips().to(dev)
+    n_lpips = sum(p.numel() for p in lpips.parameters())
+    t_skip = STEPS - REMAT_GUIDED
+    t0 = time.perf_counter()
+    xt, zs, xts, _, _ = pipe.prepare_real_image_edit(
+        imgs, eta=1.0, inversion_method="ddpm", mode="batched", t_skip=t_skip, chunk=CHUNK,
+        generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    log(f"[remat] {REMAT_BATCH} random {size} px images, DDPM inversion (batched, chunk {CHUNK}, "
+        f"t_skip {t_skip}) {time.perf_counter() - t0:.3f} s; guidance SingleColorAttrFunc "
+        f"{REMAT_GUIDE} with a full-width LPIPS ({n_lpips / 1e6:.1f} M parameters, f32, seeded) "
+        f"over a box of {mask.mean().item():.3f} of the image")
+
+    per = per_forward_launches(forward_pieces(sd, dev))
+    per["decode_remat"] = per_forward_launches(
+        {"d": forward_pieces(sd, dev, remat_blocks=True)["decode"]})["d"]
+    check_remat_piece(vae, per)
+
+    def attr_of(chunk):
+        return SingleColorAttrFunc(**REMAT_GUIDE, metric_fn=make_lpips_fn(lpips), vjp_chunk=chunk)
+
+    def edit(remat, attr, skip=t_skip):
+        return pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, mask=mask, x0_ref=imgs,
+                               attr_func=attr, inversion_method="ddpm", t_skip=skip,
+                               collect=False, mode="split", decode_remat=remat).imgs
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat, chunk in REMAT_WAYS:  # one guided step each: first-call set-up stays out
+            edit(remat, attr_of(chunk), STEPS - 1)
+        outs, counts = [], {}
+        for remat, chunk in REMAT_WAYS:
+            label = f"[remat] decode_remat={remat!r} vjp_chunk={chunk}:"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with counted_block(label, remat_way_launches(per, remat, chunk)) as run:
+                out = edit(remat, attr_of(chunk))
+            peak = torch.cuda.max_memory_allocated()
+            outs.append(out)
+            ref = outs[0].float()
+            err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+            same = torch.equal(out, outs[0])
+            finite = bool(torch.isfinite(out).all())
+            held = chunk == REMAT_WAYS[0][1]
+            ok = finite and tuple(out.shape) == (REMAT_BATCH, 3, size, size) and (
+                err <= RERUN_TOL or not held)
+            log(f"{label} {REMAT_GUIDED} guided steps + decode {run['seconds']:.3f} s = "
+                f"{REMAT_GUIDED / run['seconds']:.3f} steps/s, peak memory "
+                f"{peak / 2**30:.2f} GiB; image {tuple(out.shape)} finite {finite}; max |this - "
+                f"first way| / max |first| {err:.3e} "
+                + (f"(tol {RERUN_TOL}), " if held else "(held step by step below), ")
+                + f"bit-equal {same}, on {smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{label} the edit is not a finite batch within {RERUN_TOL} "
+                                   f"of the first way's")
+            if (remat, chunk) == ("blocks", 1):
+                counts = run["counts"]
+        for remat, chunk in REMAT_WAYS[1:]:
+            if chunk == REMAT_WAYS[0][1]:
+                continue
+            probe = ChunkProbe(attr_of(REMAT_WAYS[0][1]), attr_of(chunk),
+                               sd.decode_fn(remat_blocks=remat == "blocks"))
+            edit(REMAT_WAYS[0][0], probe)
+            errs = torch.stack(probe.errs).cpu()
+            ok = bool(torch.isfinite(errs).all()) and errs.max().item() <= CHUNK_NUDGE_TOL
+            log(f"[remat] decode_remat={remat!r} vjp_chunk={chunk} on the first way's latent at "
+                f"each of {len(errs)} steps: max |nudge - first way's| / max |first way's| "
+                f"{', '.join(f'{e:.2e}' for e in errs.tolist())} (tol {CHUNK_NUDGE_TOL}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"[remat] vjp_chunk={chunk} nudges disagree with one sample "
+                                   f"a VJP: {errs.tolist()}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    unguided = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, inversion_method="ddpm",
+                               t_skip=t_skip, mask=mask, collect=False).imgs
+    moved = (outs[0].float() - unguided.float()).abs().max().item()
+    log(f"[remat] max |guided - unguided| {moved:.4f}")
+    if not moved > 0:
+        raise RuntimeError("[remat] the guidance did not move the image")
     return counts
 
 
@@ -2139,6 +2441,126 @@ def phase_ddpm_edit(smi: str, dev=torch.device("cuda")) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10b. metrics
+# ---------------------------------------------------------------------------
+
+METRICS_N = 4  # generated images of the attribute evaluation and of the round trip
+
+
+def phase_metrics(smi: str, dev=torch.device("cuda")) -> dict:
+    """The CLI's `metrics` flow at full width on the DDPM CelebA-HQ-256 UNet
+    (loaded as [ddpm_edit] loads it) with the anyGAN ResNet-50 as guidance
+    and as predictor: `run_attribute_evaluation` (METRICS_N images, eta 1,
+    edit-friendly DDPM re-inversion, the default t_skip, ClassifierAttrFunc
+    as [ddpm_edit]'s), then the CLI's round trip without `--attr-func`
+    (DDPM inversion and re-generation) scored by `inversion_roundtrip_metrics`
+    with a full-width LPIPS, that LPIPS held against the CPU. Checks the
+    metrics and the launch counts; returns the evaluation's counts."""
+    import copy
+    import inspect
+
+    from diffusion_image_editing_tpu_torch.engine import ddpm_invert, ddpm_sample
+    from diffusion_image_editing_tpu_torch.evals import (
+        inversion_roundtrip_metrics, make_lpips_fn, run_attribute_evaluation)
+    from diffusion_image_editing_tpu_torch.guidance import ClassifierAttrFunc
+    from diffusion_image_editing_tpu_torch.pipeline import (
+        EditPipeline, create_diffusion_model, get_pretrained_anygan)
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="metrics_ckpt_") as root:
+        written, _ = write_family_checkpoint(root, "ddpm", dev)
+        clf_path = os.path.join(root, "anygan.pth")
+        written["anygan"] = write_anygan(clf_path, dev)
+        t0 = time.perf_counter()
+        w = create_diffusion_model("ddpm", sample_clipping=False, checkpoint_dir=root,
+                                   num_inference_steps=STEPS, device=dev)
+        _, clf = get_pretrained_anygan(clf_path, width=ANYGAN_WIDTH, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    n_tensors = check_loaded("metrics", {"unet": w.unet, "anygan": clf}, written)
+    del written
+    log(f"[metrics] DDPM CelebA-HQ-256 and the anyGAN ResNet-50 loaded in {load_s:.3f} s, "
+        f"{n_tensors} tensors bit-equal to those written")
+    per = per_forward_launches(family_pieces(w, dev))
+    check_family_pieces("metrics", w, per)
+    predict = clf_logits_fn(clf)
+    attr = ClassifierAttrFunc(t1=0, t2=STEPS, clf_apply_fn=predict, **CLF)
+    pipe = EditPipeline(w)
+    seconds = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            return out
+        return run
+
+    w.generate_images = timed("generation", w.generate_images)
+    pipe.prepare_real_image_edit = timed("inversion", pipe.prepare_real_image_edit)
+    pipe.edit_image = timed("edit", pipe.edit_image)
+    t_skip = min(36, STEPS - 1)  # run_attribute_evaluation's default
+    # the re-inversion runs at prepare_real_image_edit's default chunk
+    inv_chunk = inspect.signature(EditPipeline.prepare_real_image_edit).parameters["chunk"].default
+    calls = STEPS + math.ceil(STEPS / inv_chunk) + (STEPS - t_skip)
+    with counted_block("[metrics] run_attribute_evaluation",
+                       implied_launches(per, calls, 0, 0, 0)) as run:
+        res = run_attribute_evaluation(w, pipe, predict, attr, n_samples=METRICS_N,
+                                       num_inference_steps=STEPS, eta=1.0, seed=0,
+                                       inversion="ddpm")
+    peak = torch.cuda.max_memory_allocated()
+    rest = run["seconds"] - sum(seconds.values())
+    log(f"[metrics] {METRICS_N} images: generation ({STEPS} steps) {seconds['generation']:.3f} "
+        f"s, DDPM re-inversion (batched, chunk {inv_chunk}) {seconds['inversion']:.3f} s, "
+        f"{STEPS - t_skip} ClassifierAttrFunc-guided steps + identity decode "
+        f"{seconds['edit']:.3f} s, predictions and scores {rest:.3f} s; whole "
+        f"{run['seconds']:.3f} s; peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    cons, deltas = res["attribute_consistency"], res["score_deltas"]
+    values = [d for _, _, d in deltas]
+    top = ", ".join(f"{name} {d:+.3e}" for _, name, d in deltas[:3])
+    log(f"[metrics] attribute consistency over {len(cons)} attributes: mean "
+        f"{np.mean(list(cons.values())):.2f} %, min {min(cons.values()):.2f} %; score deltas: "
+        f"{top} ... {deltas[-1][1]} {deltas[-1][2]:+.3e}")
+    if (len(cons) != 40 or not all(0.0 <= v <= 100.0 for v in cons.values())
+            or len(deltas) != 40 or not all(math.isfinite(d) for d in values)
+            or values != sorted(values, reverse=True)
+            or sorted(i for i, _, _ in deltas) != list(range(40))):
+        raise RuntimeError(f"[metrics] malformed attribute metrics: {res}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with counted_block("[metrics] round trip (DDPM inversion + re-generation)",
+                       implied_launches(per, 2 * STEPS, 0, 0, 0)) as rt:
+        x0 = torch.randn(w.latent_shape(METRICS_N), generator=gen, device=dev) * 0.5
+        inv = ddpm_invert(w.schedule, w.eps_fn(), x0, eta=1.0, generator=gen)
+        recon = ddpm_sample(w.schedule, w.eps_fn(), inv.zs, inv.xts, t_skip=0)
+    lp_cpu = seeded_lpips()
+    lp = copy.deepcopy(lp_cpu).to(dev)
+    lpips_fn = make_lpips_fn(lp)
+    t0 = time.perf_counter()
+    scores = inversion_roundtrip_metrics(x0, recon, lpips_fn)
+    lpips_s = time.perf_counter() - t0
+    with torch.no_grad():
+        self_d = lpips_fn(x0, x0).abs().max().item()
+        ab, ba = lpips_fn(x0, recon), lpips_fn(recon, x0)
+        sym = ((ab - ba).abs().max() / ab.abs().max()).item()
+        a = torch.cat([x0[:1], x0[:1]])
+        b = torch.cat([recon[:1], x0[1:2]])  # a near pair and a far one
+        card = lpips_fn(a, b).cpu()
+        cpu = lp_cpu(a.cpu(), b.cpu())
+    err = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"[metrics] round trip of {METRICS_N} random images {rt['seconds']:.3f} s: {scores}; "
+        f"the metrics {lpips_s:.3f} s; LPIPS(a, a) max {self_d:.3e} (at most 1e-6), "
+        f"|LPIPS(a, b) - LPIPS(b, a)| / LPIPS {sym:.3e} (at most 1e-5); LPIPS card "
+        f"{card.tolist()} against cpu {cpu.tolist()}: max relative {err:.3e} (tol {LPIPS_TOL})")
+    if not (math.isfinite(scores["psnr"]) and math.isfinite(scores["lpips"]) and self_d <= 1e-6
+            and sym <= 1e-5 and err <= LPIPS_TOL):
+        raise RuntimeError(f"[metrics] round-trip metrics or LPIPS checks failed: {scores}, "
+                           f"self {self_d}, symmetry {sym}, card vs cpu {err}")
+    return run["counts"]
+
+
+# ---------------------------------------------------------------------------
 # 11. seg
 # ---------------------------------------------------------------------------
 
@@ -2280,6 +2702,7 @@ def main() -> int:
     counts = phase_main_path(smi, unet, vae)
     fused_counts = phase_fused(smi, unet, vae)
     phase_seg_edit(smi, unet, vae)
+    remat_counts = phase_remat(smi, unet, vae)
     del unet, vae
     gc.collect()
     torch.cuda.empty_cache()
@@ -2294,12 +2717,16 @@ def main() -> int:
     phase_ddpm_edit(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    metrics_counts = phase_metrics(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     seg_counts = phase_seg(smi)
     for name, e in entries.items():
         # K7 runs only in the fused-conv configuration, K8 only on the
         # trainer's path; the rest are read from the default path's run.
         e["launches"] = {"affine_silu_conv3x3": fused_counts,
                          "abn_apply": seg_counts}.get(name, counts)[name]
+        e["launches_by_phase"] = {"remat": remat_counts[name], "metrics": metrics_counts[name]}
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,31 @@
 """Command line of the port:
 
-    python -m diffusion_image_editing_tpu_torch.cli generate --checkpoint-dir SD --prompt ...
-    python -m diffusion_image_editing_tpu_torch.cli edit --checkpoint-dir SD --image in.png ...
-    python -m diffusion_image_editing_tpu_torch.cli generate --family ddpm|ldm ...
+    python -m diffusion_image_editing_tpu_torch.cli generate [--family ddpm|ldm|sd] ...
+    python -m diffusion_image_editing_tpu_torch.cli edit --image in.png [--align] ...
+    python -m diffusion_image_editing_tpu_torch.cli metrics [--attr-func NAME] ...
     python -m diffusion_image_editing_tpu_torch.cli seg-train [--norm abn] ...
+    python -m diffusion_image_editing_tpu_torch.cli seg-eval --image-dir DIR ...
 
-`generate` and `edit` run the SD family (the default) from an HF-layout
-checkpoint directory (`unet/`, `vae/`, `text_encoder/`, `tokenizer/`),
-which they require: the prompt is tokenized, and an empty `--prompt` runs
-CFG between two empty prompts. (The JAX package's CLI passes no prompt ids
-for an empty prompt, and its SD UNet cannot run without a context.) The
-unconditional families take no prompt: `--family ddpm` reads `unet/`,
-`--family ldm` `unet/` and `vqvae/`, or seeded random weights without
-`--checkpoint-dir`; generation clips pred-x0 unless `--no-sample-clipping`,
-and a real-image edit never clips, as in the JAX package. `edit --classes 17`
-masks the edit to face-parsing classes, from a BiSeNet checkpoint
-(`--bisenet-ckpt`) or seeded random weights. `seg-train` trains BiSeNet
-on CelebAMask-HQ (`--data-root`) or, without it, on synthetic data. Each
-runs on one CUDA device unless `--device cpu` asks for the CPU; none falls
-back to the CPU on its own. The flags are the JAX package's; the options
-of later slices exit with a message naming their ROADMAP Queue A item.
-`metrics` and `seg-eval` come with item 20.
+`--family` defaults to ddpm, as in the JAX package's CLI. The unconditional
+families take no prompt: `--family ddpm` reads `unet/`, `--family ldm`
+`unet/` and `vqvae/` from `--checkpoint-dir`, or seeded random weights
+without it; generation clips pred-x0 unless `--no-sample-clipping`, and a
+real-image edit never clips, as in the JAX package. `--family sd` needs an
+HF-layout directory (`unet/`, `vae/`, `text_encoder/`, `tokenizer/`): the
+prompt is tokenized, and an empty `--prompt` runs CFG between two empty
+prompts. (The JAX package's CLI passes no prompt ids for an empty prompt,
+and its SD UNet cannot run without a context.) `edit --classes 17` masks the
+edit to face-parsing classes, from a BiSeNet checkpoint (`--bisenet-ckpt`)
+or seeded random weights; `edit --align` aligns the face first (FFHQ
+geometry), from dlib's landmarks (`--landmarks PATH`) or from the BiSeNet
+parsing. `metrics` generates, edits and scores: with `--attr-func`, the
+anyGAN attribute consistency and score deltas; without it, an inversion
+round trip's PSNR. `seg-train` trains BiSeNet on CelebAMask-HQ
+(`--data-root`) or, without it, on synthetic data; `seg-eval` writes
+parsing overlays of a directory of images. Each runs on one CUDA device
+unless `--device cpu` asks for the CPU; none falls back to the CPU on its
+own. The flags are the JAX package's; the options of later slices exit
+with a message naming their ROADMAP Queue A item.
 """
 
 from __future__ import annotations
@@ -36,8 +41,6 @@ import torch
 # ROADMAP Queue A item that brings each; their defaults are None, so that
 # setting one in any way is refused.
 UNPORTED = {
-    "align": ("--align", "20 (host/alignment.py)"),
-    "landmarks": ("--landmarks", "20 (host/alignment.py)"),
     "shard": ("--shard", "18 (parallel/)"),
 }
 
@@ -93,27 +96,51 @@ def cmd_generate(args) -> None:
         print(path)
 
 
-def cmd_edit(args) -> None:
+def _attr_func(args, **extra):
+    """The registry's strategy named by `--attr-func`, or None."""
+    from .guidance import create_attr_func_registry
+
+    if not args.attr_func:
+        return None
+    params = dict(loss_scale=args.loss_scale, t1=args.t1, t2=args.t2, **extra)
+    if args.attr_func == "SingleColorAttrFunc":
+        params.update(target=args.color_target, color_idx=args.color_idx)
+    return create_attr_func_registry().get(args.attr_func, params)
+
+
+def _load_image(args, size: int, seg_fn):
+    """The `--image` at `size` x `size`: resized, or with `--align` aligned
+    (landmarks from dlib with `--landmarks`, else from the parsing)."""
+    import numpy as np
     from PIL import Image
 
-    from .guidance import create_attr_func_registry
-    from .host.transforms import pil_to_tensor, tensor_to_pil
+    from .host.transforms import pil_to_tensor
+
+    pil = Image.open(args.image).convert("RGB")
+    if not args.align:
+        return pil_to_tensor(pil.resize((size, size)))
+    from .host.alignment import align_face, align_from_parsing, dlib_landmarker
+
+    if args.landmarks:
+        lm = dlib_landmarker(args.landmarks)(np.asarray(pil))
+        pil = align_face(pil, landmarks=lm, output_size=size, transform_size=size)
+    else:
+        parsing = seg_fn(pil_to_tensor(pil)).cpu().numpy()
+        pil = align_from_parsing(pil, parsing, output_size=size)
+    return pil_to_tensor(pil)
+
+
+def cmd_edit(args) -> None:
+    from .host.transforms import tensor_to_pil
     from .pipeline import EditPipeline, create_segmentation_model
 
     w = _build_wrapper(args, False)  # a real-image edit runs unclipped
     seg_fn = None
-    if args.classes:
+    if args.classes or (args.align and not args.landmarks):
         seg_fn = create_segmentation_model(args.bisenet_ckpt, device=args.device)
     pipe = EditPipeline(w, seg_fn)
-    size = args.image_size or _image_size(w)
-    img = pil_to_tensor(Image.open(args.image).convert("RGB").resize((size, size)))
-    attr = None
-    if args.attr_func:
-        params = dict(loss_scale=args.loss_scale, t1=args.t1, t2=args.t2,
-                      stride=args.guidance_stride)
-        if args.attr_func == "SingleColorAttrFunc":
-            params.update(target=args.color_target, color_idx=args.color_idx)
-        attr = create_attr_func_registry().get(args.attr_func, params)
+    img = _load_image(args, args.image_size or _image_size(w), seg_fn)
+    attr = _attr_func(args, stride=args.guidance_stride)
     ids = _prompt_ids(w, args.prompt)
     t_skip = args.t_skip if args.inversion_method == "ddpm" else None
     xt, zs, xts, mask, _ = pipe.prepare_real_image_edit(
@@ -130,6 +157,36 @@ def cmd_edit(args) -> None:
         generator=torch.Generator(device=w.device).manual_seed(args.seed))
     tensor_to_pil(out.imgs).save(args.out)
     print(args.out)
+
+
+def cmd_metrics(args) -> None:
+    """Generate -> guided edit -> anyGAN attribute consistency and score
+    deltas; without `--attr-func`, an inversion round trip's PSNR and MSE.
+    The predictor takes the images as they are, [-1, 1], as the JAX
+    package's CLI passes them."""
+    from .evals import inversion_roundtrip_metrics, run_attribute_evaluation
+    from .pipeline import EditPipeline, get_pretrained_anygan
+
+    w = _build_wrapper(args, False)
+    if args.attr_func:
+        predict, _ = get_pretrained_anygan(args.anygan_ckpt, device=args.device)
+        res = run_attribute_evaluation(
+            w, EditPipeline(w), predict, _attr_func(args), n_samples=args.n,
+            num_inference_steps=args.steps, seed=args.seed, eta=args.eta,
+            inversion=args.inversion, t_skip=args.t_skip, resynthesize=args.resynthesize)
+        for name, pct in res["attribute_consistency"].items():
+            print(f"{name} {pct:.2f}%")
+        for idx, name, delta in res["score_deltas"]:
+            print(f"{idx} {name}: {delta:+.3f}")
+        return
+
+    from .engine import ddpm_invert, ddpm_sample
+
+    gen = torch.Generator(device=w.device).manual_seed(args.seed)
+    x0 = torch.randn(w.latent_shape(args.n), generator=gen, device=w.device) * 0.5
+    res = ddpm_invert(w.schedule, w.eps_fn(), x0, eta=1.0, generator=gen)
+    recon = ddpm_sample(w.schedule, w.eps_fn(), res.zs, res.xts, t_skip=0)
+    print(inversion_roundtrip_metrics(x0, recon))
 
 
 def cmd_seg_train(args) -> None:
@@ -155,8 +212,20 @@ def cmd_seg_train(args) -> None:
     print(f"seg-train: step {state.step}, {len(losses)} steps this run, last loss {last}")
 
 
+def cmd_seg_eval(args) -> None:
+    from .models import SegmentationModel
+    from .seg.evaluate import evaluate_dir
+    from .seg.train import TrainConfig, create_train_state, restore_checkpoint
+
+    model, state = create_train_state(TrainConfig(width=args.width), device=args.device)
+    if args.ckpt_dir:
+        state = restore_checkpoint(args.ckpt_dir, state)
+    evaluate_dir(SegmentationModel(model), args.image_dir, args.out_dir)
+    print(args.out_dir)
+
+
 def _common(sp) -> None:
-    sp.add_argument("--family", default="sd", choices=["ddpm", "ldm", "sd"],
+    sp.add_argument("--family", default="ddpm", choices=["ddpm", "ldm", "sd"],
                     help="model family (ddpm and ldm take no prompt)")
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--steps", type=int, default=50)
@@ -188,8 +257,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--image", required=True)
     e.add_argument("--image-size", type=int, default=None,
                    help="pixels a side (default: the codec's sample size, 256 for ddpm and ldm)")
-    e.add_argument("--align", action="store_true", default=None, help="not ported (item 20)")
-    e.add_argument("--landmarks", default=None, help="not ported (item 20)")
+    e.add_argument("--align", action="store_true", default=False,
+                   help="FFHQ face alignment before editing; landmarks from --landmarks or "
+                        "the BiSeNet parsing")
+    e.add_argument("--landmarks", default=None,
+                   help="dlib shape-predictor .dat path for --align (needs dlib)")
     e.add_argument("--inversion-method", default="ddim", choices=["ddim", "ddpm"])
     e.add_argument("--t-skip", type=int, default=36)
     e.add_argument("--attr-func", default=None)
@@ -214,6 +286,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="apply the guidance nudge every K-th step inside [t1, t2)")
     e.add_argument("--out", default="edited.png")
     e.set_defaults(fn=cmd_edit)
+
+    m = sub.add_parser("metrics")
+    _common(m)
+    m.add_argument("--n", type=int, default=4)
+    m.add_argument("--attr-func", default=None,
+                   help="run the anyGAN attribute evaluation with this guidance")
+    m.add_argument("--anygan-ckpt", default=None,
+                   help="the anyGAN ResNet-50's .pth (default: seeded random weights)")
+    m.add_argument("--loss-scale", type=float, default=1.0)
+    m.add_argument("--t1", type=int, default=0)
+    m.add_argument("--t2", type=int, default=50)
+    m.add_argument("--color-target", type=float, default=0.9)
+    m.add_argument("--color-idx", type=int, default=0)
+    m.add_argument("--inversion", default=None, choices=["ddpm"],
+                   help="re-invert the generated images with edit-friendly DDPM inversion "
+                        "(needs --eta > 0)")
+    m.add_argument("--t-skip", type=int, default=None)
+    m.add_argument("--resynthesize", action="store_true", default=False)
+    m.set_defaults(fn=cmd_metrics)
+
     t = sub.add_parser("seg-train")
     t.add_argument("--data-root", default=None)
     t.add_argument("--image-size", type=int, default=448)
@@ -234,6 +326,15 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device; 'cpu' for the CPU)")
     t.set_defaults(fn=cmd_seg_train)
+
+    v = sub.add_parser("seg-eval")
+    v.add_argument("--image-dir", required=True)
+    v.add_argument("--out-dir", default="seg_vis")
+    v.add_argument("--ckpt-dir", default=None, help="a seg-train checkpoint directory")
+    v.add_argument("--width", type=int, default=64)
+    v.add_argument("--device", default=None,
+                   help="torch device (default: the current CUDA device; 'cpu' for the CPU)")
+    v.set_defaults(fn=cmd_seg_eval)
     return p
 
 

@@ -53,16 +53,19 @@ class CfgEpsClosure:
 
 class DecodeClosure:
     """Latent -> image: decode(z / scale). `vae is None` is the identity
-    codec. Differentiable: gradient flows when the caller enables it."""
+    codec. Differentiable: gradient flows when the caller enables it;
+    `remat=True` checkpoints the decoder's blocks along it."""
 
-    def __init__(self, vae: Optional[nn.Module] = None, scale: float = 1.0):
+    def __init__(self, vae: Optional[nn.Module] = None, scale: float = 1.0,
+                 remat: bool = False):
         self.vae = vae
         self.scale = scale
+        self.remat = remat
 
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
         if self.vae is None:
             return z
-        return self.vae.decode(z / self.scale)
+        return self.vae.decode(z / self.scale, remat=self.remat)
 
 
 class EncodeClosure:

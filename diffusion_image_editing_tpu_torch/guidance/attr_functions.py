@@ -4,7 +4,9 @@ attribute-classifier (anyGAN) guidance.
 
 The nudge is -grad(loss_scale * loss(decode(pred_x0(x_t)))) * alpha_bar_t^2,
 taken with `torch.autograd.grad` with respect to x_t only; eps is detached.
-Images are NCHW, so a colour channel is `images[:, idx]`.
+Images are NCHW, so a colour channel is `images[:, idx]`. `remat_decode`
+runs the decode under a non-reentrant checkpoint, and `vjp_chunk` sets how
+many samples of a batch share one decode and one gradient.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import schedule as S
 
@@ -49,7 +52,15 @@ class AttrFunc:
     use_mask: bool = False
     mask_attr_grad: bool = False
     mask_pred_original_sample: bool = False
-    metric: Optional[str] = None  # "l2"
+    metric: Optional[str] = None  # "l2" | "lpips"
+    # (a, b) -> (B,) distances, e.g. `evals.make_lpips_fn(LPIPS(...))`
+    metric_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
+    # The decode in the gradient under a checkpoint: its activations are not
+    # kept, and its forward runs again in the backward.
+    remat_decode: bool = False
+    # Samples of a batch that `apply_batched` takes through one decode and
+    # one gradient (1: one at a time).
+    vjp_chunk: int = 1
     stride: int = 1
 
     @property
@@ -62,7 +73,11 @@ class AttrFunc:
     def _metric(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.metric == "l2":
             return l2_norm(a, b)
-        raise ValueError(f"Unsupported metric {self.metric!r}")
+        if self.metric == "lpips" and self.metric_fn is None:
+            raise ValueError("lpips metric requires metric_fn")
+        if self.metric_fn is not None:
+            return torch.sum(self.metric_fn(a, b))
+        raise ValueError("No metric specified")
 
     def calculate_loss(self, decoded: torch.Tensor, mask: Optional[torch.Tensor],
                        x0: Optional[torch.Tensor]) -> torch.Tensor:
@@ -91,20 +106,39 @@ class AttrFunc:
         x0: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One guidance nudge: pred-x0 from x_t (eps detached), decode WITH
-        gradient, nudge by -grad(scale * loss) * alpha_bar_t^2."""
+        gradient, nudge by -grad(scale * loss) * alpha_bar_t^2. The loss
+        takes the batch as a whole."""
+        return self._nudge(xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
+                           per_sample=False)
+
+    def _nudge(self, xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
+               per_sample: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The nudge of `apply`. With `per_sample`, the objective is the sum
+        over the batch of each sample's own loss (its own rows of `mask` and
+        `x0` where they have one per sample), so that a batch of k through
+        one decode takes each sample's gradient at its own strength."""
         if self.mask_attr_grad and mask is None:
             raise ValueError("mask_attr_grad requires a mask")
         if not self.in_window(int(step_idx)):
             return xt, zt
         a_t = S.bcast(S.alpha_bar(sched, t), xt)
         eps_sg = eps.detach()
+        n = xt.shape[0]
+        m = mask if self.use_mask else None
         with torch.enable_grad():
             x = xt.detach().requires_grad_(True)
             px0 = (x - torch.sqrt(1.0 - a_t) * eps_sg) / torch.sqrt(a_t)
-            decoded = decode_fn(px0)
-            m = mask if self.use_mask else None
-            objective = self.calculate_loss(decoded, m, x0) * self.loss_scale
-            (grad,) = torch.autograd.grad(objective, x)
+            if self.remat_decode:
+                decoded = checkpoint(decode_fn, px0, use_reentrant=False)
+            else:
+                decoded = decode_fn(px0)
+            if per_sample:
+                rows = [slice(i, i + 1) for i in range(n)]
+                loss = sum(self.calculate_loss(decoded[r], _rows(m, r, n), _rows(x0, r, n))
+                           for r in rows)
+            else:
+                loss = self.calculate_loss(decoded, m, x0)
+            (grad,) = torch.autograd.grad(loss * self.loss_scale, x)
         attr_grad = -grad
         if self.mask_attr_grad:
             attr_grad = mask * attr_grad
@@ -127,22 +161,32 @@ class AttrFunc:
         mask: Optional[torch.Tensor] = None,
         x0: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """`apply` one sample at a time for batch >= 2: each image's loss is
-        normalised on its own (the reference edits images one by one) and
-        only one decoder backward is live at a time. Per-sample `mask`/`x0`
-        (leading dim == batch) go with their sample; batch-1 ones are shared."""
+        """`apply` for batch >= 2 with each image's loss normalised on its
+        own (the reference edits images one by one; a loss over the batch
+        would divide the colour losses' means, and the guidance, by the
+        batch), `vjp_chunk` samples at a time: each chunk runs one decode and
+        one gradient of the sum of its samples' losses. Only one chunk's
+        decoder backward is live at a time. Per-sample `mask`/`x0` (leading
+        dim == batch) go with their sample; batch-1 ones are shared."""
         b = xt.shape[0]
         if b == 1:
             return self.apply(xt, zt, eps, t, step_idx, sched, decode_fn, mask=mask, x0=x0)
+        chunk = max(1, min(int(self.vjp_chunk), b))
         xs, zs = [], []
-        for i in range(b):
-            m = mask[i:i + 1] if mask is not None and mask.shape[0] == b else mask
-            r = x0[i:i + 1] if x0 is not None and x0.shape[0] == b else x0
-            xn, zn = self.apply(xt[i:i + 1], None if zt is None else zt[i:i + 1],
-                                eps[i:i + 1], t, step_idx, sched, decode_fn, mask=m, x0=r)
+        for s in range(0, b, chunk):
+            rows = slice(s, s + chunk)
+            xn, zn = self._nudge(xt[rows], None if zt is None else zt[rows], eps[rows], t,
+                                 step_idx, sched, decode_fn, _rows(mask, rows, b),
+                                 _rows(x0, rows, b), per_sample=True)
             xs.append(xn)
             zs.append(zn)
         return torch.cat(xs), (None if zt is None else torch.cat(zs))
+
+
+def _rows(a: Optional[torch.Tensor], rows: slice, b: int) -> Optional[torch.Tensor]:
+    """The batch's `rows` of a per-sample tensor (leading dim `b`); a shared
+    one (or None) as it is."""
+    return a[rows] if a is not None and a.shape[0] == b else a
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,8 +7,11 @@ directories -> the port's modules.
 (AutoencoderKL) and `"vq"` (VQModel), all under the modern attention names;
 `"clip_text"` (CLIPTextEncoder, transformers' names); `"bisenet"` (BiSeNet)
 and `"resnet50"` (the anyGAN ResNet50), from Flax `{"params",
-"batch_stats"}` to the torchvision-style checkpoints' keys. Conv kernels go
+"batch_stats"}` to the torchvision-style checkpoints' keys; `"lpips"`
+(`evals.LPIPS`, torchvision's VGG16 and lpips' lin names). Conv kernels go
 HWIO -> OIHW, Dense kernels (in, out) -> (out, in); scales and biases stay.
+`port_vgg16_lpips` maps the published torchvision VGG16 and lpips lin
+files onto `evals.LPIPS`.
 
 `load_checkpoint_dir(model_dir, kind)` is the port of the JAX package's
 checkpoint-directory loader: config.json + `.safetensors` (one file, or
@@ -28,13 +31,13 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-KINDS = ("unet_cond", "unet2d", "vae", "vq", "clip_text", "bisenet", "resnet50")
+KINDS = ("unet_cond", "unet2d", "vae", "vq", "clip_text", "bisenet", "resnet50", "lpips")
 
 # (pattern, replacement) applied in order to the '/'-joined Flax path.
 _PREFIX_RULES = (
@@ -154,11 +157,57 @@ def state_dict_from_jax(params: Mapping[str, Any], kind: str) -> Dict[str, torch
         return _torchvision_state_dict(params, kind)
     if "params" in params:
         params = params["params"]
+    if kind == "lpips":
+        return _lpips_from_jax(params)
     key = clip_key if kind == "clip_text" else torch_key
     out = {}
     for path, value in _flatten(params):
         w = _to_torch_layout(path, np.asarray(value, dtype=np.float32))
         out[key(path)] = torch.tensor(w)
+    return out
+
+
+def _lpips_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS params ({"vgg": {"conv_i": {kernel, bias}}, "lin_i": (C,)},
+    without the heads for `use_lin=False`) -> `evals.LPIPS`'s keys."""
+    from ..evals.lpips import conv_positions
+
+    out = {}
+    for i, p in enumerate(conv_positions()):
+        conv = params["vgg"][f"conv_{i}"]
+        out[f"vgg.features.{p}.weight"] = torch.tensor(
+            _to_torch_layout(("kernel",), np.asarray(conv["kernel"], np.float32)))
+        out[f"vgg.features.{p}.bias"] = torch.tensor(np.asarray(conv["bias"], np.float32))
+    for i in range(5):
+        if f"lin_{i}" in params:
+            w = np.asarray(params[f"lin_{i}"], np.float32)
+            out[f"lin{i}.model.1.weight"] = torch.tensor(w.reshape(1, -1, 1, 1))
+    return out
+
+
+def port_vgg16_lpips(vgg_state_dict: Mapping[str, Any],
+                     lpips_state_dict: Optional[Mapping[str, Any]] = None,
+                     ) -> Dict[str, torch.Tensor]:
+    """torchvision's VGG16 state dict (`features.*`; its classifier is not
+    used) and lpips' lin heads (`lin{i}.model.1.weight`) -> the state dict of
+    `evals.LPIPS`, as the JAX package's `port_vgg16_lpips`. Without lin heads
+    each channel weighs 1/C."""
+    from ..evals.lpips import TAP_AFTER_CONV, conv_positions
+
+    positions = conv_positions()
+    out = {}
+    for p in positions:
+        for leaf in ("weight", "bias"):
+            out[f"vgg.features.{p}.{leaf}"] = torch.as_tensor(
+                np.asarray(vgg_state_dict[f"features.{p}.{leaf}"], np.float32))
+    for i, conv in enumerate(TAP_AFTER_CONV):
+        key = f"lin{i}.model.1.weight"
+        if lpips_state_dict is not None:
+            w = np.asarray(lpips_state_dict[key], np.float32)
+        else:
+            c = out[f"vgg.features.{positions[conv]}.weight"].shape[0]
+            w = np.full((c,), 1.0 / c, np.float32)
+        out[key] = torch.as_tensor(w.reshape(1, -1, 1, 1))
     return out
 
 

@@ -6,7 +6,8 @@ naming.
 KL: `encode` returns the distribution mode (the latent mean). VQ: `encode`
 returns the pre-quantization latent and `decode` quantizes first, with a
 straight-through gradient. Both decodes are differentiable end to end, the
-path of the guidance gradient."""
+path of the guidance gradient; `decode(..., remat=True)` checkpoints the
+decoder's blocks along it."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..ops.conv import Conv3x3
@@ -90,11 +92,22 @@ def _mid_block(cfg: AutoencoderConfig, ch: int, **fk) -> _Block:
                    ResnetBlock2D(ch, ch, None, g, eps, **_resnet_kw(cfg, fk))], attns)
 
 
-def _run_mid(block: _Block, h: torch.Tensor) -> torch.Tensor:
-    h = block.resnets[0](h)
+def _call(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    return block(h)
+
+
+def _checkpointed(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """`block(h)` keeping only `h` for the backward, which runs the block's
+    forward again. Non-reentrant: `torch.autograd.grad` with respect to the
+    decoder's input (the guidance gradient) goes through it."""
+    return checkpoint(block, h, use_reentrant=False)
+
+
+def _run_mid(block: _Block, h: torch.Tensor, run=_call) -> torch.Tensor:
+    h = run(block.resnets[0], h)
     if hasattr(block, "attentions"):
-        h = block.attentions[0](h)
-    return block.resnets[1](h)
+        h = run(block.attentions[0], h)
+    return run(block.resnets[1], h)
 
 
 class Encoder(nn.Module):
@@ -148,11 +161,17 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNormLayer(ch, g, eps, "silu", **fk)
         self.conv_out = Conv3x3(ch, cfg.out_channels, **fk)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = _run_mid(self.mid_block, self.conv_in(z))
+    def forward(self, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """`remat=True` checkpoints every ResnetBlock2D and the mid
+        attention: a gradient through the decoder then keeps only each
+        block's input and recomputes the block's forward in the backward
+        (the JAX package's `nn.remat` of the same blocks). The same weights
+        serve both modes."""
+        run = _checkpointed if remat else _call
+        h = _run_mid(self.mid_block, self.conv_in(z), run)
         for block in self.up_blocks:
             for resnet in block.resnets:
-                h = resnet(h)
+                h = run(resnet, h)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
         return self.conv_out(self.conv_norm_out(h))
@@ -191,8 +210,8 @@ class AutoencoderKL(nn.Module):
         mean, logvar = self.encode_moments(x)
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.device, mean.dtype)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+    def decode(self, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z.to(self.dtype)), remat=remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))
@@ -249,9 +268,10 @@ class VQModel(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return self.quant_conv(self.encoder(x.to(self.dtype)))
 
-    def decode(self, h: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
+    def decode(self, h: torch.Tensor, force_not_quantize: bool = False,
+               remat: bool = False) -> torch.Tensor:
         q = h if force_not_quantize else self.quantize(h)
-        return self.decoder(self.post_quant_conv(q.to(self.dtype)))
+        return self.decoder(self.post_quant_conv(q.to(self.dtype)), remat=remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))

@@ -214,14 +214,14 @@ class EditPipeline:
         goes to the attribute function's masked options (`use_mask`,
         `mask_attr_grad`, `mask_pred_original_sample`). Both modes run
         `engine.edit.edit`: the JAX package's jitted scan ("fused") and host
-        loop ("split") are one host loop in torch."""
+        loop ("split") are one host loop in torch. `decode_remat="blocks"`
+        checkpoints each decoder block in the guidance gradient (less
+        memory, one more decoder forward a nudge); "auto" and "none" do
+        not."""
         if mode not in ("fused", "split"):
             raise ValueError(f"Unknown mode {mode!r}")
         if decode_remat not in ("auto", "blocks", "none"):
             raise ValueError(f"Unknown decode_remat: {decode_remat}")
-        if decode_remat == "blocks":
-            raise NotImplementedError("decode_remat='blocks' (the decoder's per-block "
-                                      "checkpointing) comes with Queue A items 6 / 9")
         if guidance_codec not in ("full", "proxy"):
             raise ValueError(f"Unknown guidance_codec: {guidance_codec}")
         if guidance_codec == "proxy":
@@ -239,8 +239,8 @@ class EditPipeline:
         step_rule = "ddpm" if (inversion_method == "ddpm" and t_skip is not None) else "ddim"
         result = edit(
             w.schedule, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func,
-            decode_fn=w.decode_fn(), mask=mask, x0_ref=x0_ref, step_rule=step_rule,
-            collect=collect, encoder_reuse=encoder_reuse,
+            decode_fn=w.decode_fn(remat_blocks=decode_remat == "blocks"), mask=mask,
+            x0_ref=x0_ref, step_rule=step_rule, collect=collect, encoder_reuse=encoder_reuse,
         )
         return EditorOutput(imgs=w.decode(result.x0),
                             pred_original_samples=result.pred_original_samples,

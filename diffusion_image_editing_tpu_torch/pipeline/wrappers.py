@@ -37,7 +37,7 @@ class DiffusionWrapper:
         self.data_dimensionality = unet.config.sample_size
         self.latent_channels = unet.config.in_channels
         self._encode = EncodeClosure()
-        self._decode = DecodeClosure()
+        self._decode = self._decode_remat = DecodeClosure()  # the identity either way
 
     def _frozen(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         if module is None:
@@ -45,9 +45,11 @@ class DiffusionWrapper:
         return module.to(self.device).eval().requires_grad_(False)
 
     # ---- codec boundary --------------------------------------------------
-    def decode_fn(self) -> DecodeClosure:
-        """Differentiable latent -> image callable for guidance."""
-        return self._decode
+    def decode_fn(self, remat_blocks: bool = False) -> DecodeClosure:
+        """Differentiable latent -> image callable for guidance.
+        `remat_blocks=True` returns one whose gradient checkpoints each
+        decoder block (`models.vae.Decoder`), with the same weights."""
+        return self._decode_remat if remat_blocks else self._decode
 
     def encode(self, sample: torch.Tensor) -> torch.Tensor:
         return self._encode(sample.to(self.device))
@@ -158,6 +160,7 @@ class LDM(DiffusionWrapper):
         self.vqvae = self._frozen(vqvae)
         self._encode = EncodeClosure(self.vqvae, 1.0)
         self._decode = DecodeClosure(self.vqvae, 1.0)
+        self._decode_remat = DecodeClosure(self.vqvae, 1.0, remat=True)
 
 
 class SD(DiffusionWrapper):
@@ -179,6 +182,7 @@ class SD(DiffusionWrapper):
         scale = vae.config.scaling_factor
         self._encode = EncodeClosure(self.vae, scale)
         self._decode = DecodeClosure(self.vae, scale)
+        self._decode_remat = DecodeClosure(self.vae, scale, remat=True)
 
     # ---- text ------------------------------------------------------------
     def encode_text_ids(self, input_ids) -> torch.Tensor:

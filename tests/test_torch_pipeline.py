@@ -130,8 +130,12 @@ def test_edit_image_checks_its_inputs(pipe):
     assert (resyn.imgs - plain.imgs).abs().max() > 1e-3
     with pytest.raises(ValueError):
         pipe.edit_image(xt, attr_func=attr, mode="scan")
-    for kwargs in (dict(decode_remat="blocks"), dict(guidance_codec="proxy"),
-                   dict(encoder_reuse=2)):
+    # decode_remat="blocks" checkpoints the decoder's blocks in the guidance
+    # gradient: the same operations, so the same image on the CPU
+    # (tests/test_torch_remat.py holds it against the JAX package).
+    remat = pipe.edit_image(xt, attr_func=attr, decode_remat="blocks")
+    torch.testing.assert_close(remat.imgs, fused.imgs, rtol=0, atol=0)
+    for kwargs in (dict(guidance_codec="proxy"), dict(encoder_reuse=2)):
         with pytest.raises(NotImplementedError, match="item"):
             pipe.edit_image(xt, attr_func=attr, **kwargs)
     # A segmentation function is taken (tests/test_torch_segguide.py runs it).
