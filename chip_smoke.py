@@ -12,8 +12,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              the kernel, the plain version and a library call that computes
              the same function (a yardstick only; the port never calls it):
              * attention (K1-K3): the forward through the public
-               `attention()` at every width of the path and the batched
-               inversion's batch 20, the forward with lse at the UNet's
+               `attention()` at every width of the path, the batched
+               inversion's batch 20 and [sweep]'s batch 16 (each level's
+               self-attention and the 64 x 64 cross-attention, with the
+               launch grid's y = B * H checked against 65535), the forward with lse at the UNet's
                64 x 64 width and at the VAE's 512-wide head against
                `torch.logsumexp` (O bit-equal without it), the backward
                kernels on the forward's lse and delta, then the whole
@@ -90,6 +92,28 @@ Phases, each printing its own lines; any failure exits non-zero:
              latent within CHUNK_NUDGE_TOL of the first way's. Checks that
              one checkpointed decode runs its blocks' kernels twice and the
              launch counts each way implies.
+7c. sweep - bench.py's `sweep` workload (BASELINE config 5) on the [main]
+             models: a random 512 px latent edited at 8 loss scales
+             (linspace(0, 20, 8), SingleColorAttrFunc, vjp_chunk 1) in one
+             batch through `parallel.guided_edit_sweep`: 50 DDIM steps, each
+             a CFG UNet call at batch 16 and 8 batch-1 decodes with their
+             gradient. The UNet's attention shapes at batch 16 are read and
+             must be [kernels]'s. A 5-step check first: points 0 and 7 within
+             SWEEP_TOL of batch-1 edits at their scales (point 0: also of the
+             unguided edit) and bit-equal to edits at the sweep's batch;
+             point 0's nudges 0, point 7's largest above point 1's. Then a
+             warm and a timed pass: aggregate sample-steps/s (bench.py's
+             metric), seconds, peak memory, launch counts checked.
+7d. dist  - a real NCCL process group of world size 1 (a FileStore) and
+             DeviceMeshes over it: (a) the BiSeNet trainer at [seg]'s recipe
+             (f32, TF32 off) with norm="abn_sync" for 5 steps through
+             `make_sharded_train_step` against norm="abn"'s single-process
+             `train_loop` (run before the group is up) from the same seed
+             and batches, within DIST_TOL; ms/step of both, K8's count (31 a
+             step); (b) `ShardedCfgEpsClosure` on a cfg axis of 1 bit-equal
+             to `CfgEpsClosure` on the [main] UNet. Prints the device count:
+             a 2-rank group needs two GPUs (the 2-rank split is held on the
+             CPU by gloo).
 8. prompt  - the SD path as a user starts it, at full width, after the [main]
              models are freed: an HF-layout SD-1.5 checkpoint directory
              (UNet, VAE under the legacy attention names, CLIP ViT-L/14
@@ -169,7 +193,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              plain ABN on the card, finite losses, weights and running
              statistics changed), a second resume, and one eval-mode forward.
 
-`[pace]` lines (after the build, before [main], [ldm_clf] and [ddpm_edit])
+`[pace]` lines (after the build, before [main], [sweep], [ldm_clf] and [ddpm_edit])
 read the host's and the card's pace: a fixed Python loop, one small
 launch, the objects the garbage collector tracks, a bf16 matmul's rate.
 
@@ -248,6 +272,13 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 8x8", (2, 64, 8, 160), (2, 64, 8, 160)),
     ("unet cross 64x64", (2, 4096, 8, 40), (2, 77, 8, 40)),
     ("unet self 64x64 b20", (20, 4096, 8, 40), (20, 4096, 8, 40)),  # the batched inversion
+    # [sweep]'s CFG UNet at batch 16 (a grid of 8): every level's self-attention
+    # (SWEEP_ATTN, read from the model there) and the 64 x 64 cross-attention.
+    ("unet self 64x64 b16", (16, 4096, 8, 40), (16, 4096, 8, 40)),
+    ("unet self 32x32 b16", (16, 1024, 8, 80), (16, 1024, 8, 80)),
+    ("unet self 16x16 b16", (16, 256, 8, 160), (16, 256, 8, 160)),
+    ("unet self 8x8 b16", (16, 64, 8, 160), (16, 64, 8, 160)),
+    ("unet cross 64x64 b16", (16, 4096, 8, 40), (16, 77, 8, 40)),
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512)),
     # The LDM UNet's heads of dim 32, the DDPM UNet's one 512-wide head (batch 1
     # and the batched inversion's chunk of 10: 64 keys leave each rank of K1's
@@ -487,6 +518,7 @@ def _entry(name, shape, err, ms, plain_ms, flops, nbytes, library_ms,
 def phase_kernels() -> dict:
     """Returns {kernel name: JSON entry} at the kernel's main-path shape."""
     from diffusion_image_editing_tpu_torch.ops.attention import (
+        GRID_Y_MAX,
         attention,
         attention_bwd_dkv_reference,
         attention_bwd_dq_reference,
@@ -520,11 +552,11 @@ def phase_kernels() -> dict:
         flops = 4.0 * b * h * sq * sk * d
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         e = _entry("flash_attn_fwd", list(qs), err, ms, plain_ms, flops, nbytes, lib_ms)
-        ok = rel <= FWD_TOL and math.isfinite(rel)
+        ok = rel <= FWD_TOL and math.isfinite(rel) and b * h <= GRID_Y_MAX
         log(f"[kernels] fwd {label} q{qs} kv{ks}: max_abs_err {err:.3e}, relative {rel:.3e} "
             f"(tol {FWD_TOL}) {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']})")
+            f"({e['bound_by']}); launch grid y = B * H = {b * h} of {GRID_Y_MAX}")
         if not ok:
             failures.append(f"fwd {label}")
         if label == "unet self 64x64":
@@ -1900,6 +1932,305 @@ def phase_remat(smi: str, unet, vae) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7c. sweep
+# ---------------------------------------------------------------------------
+
+SWEEP_GRID = 8
+SWEEP_SCALES = np.linspace(0.0, 20.0, SWEEP_GRID)  # bench.py's phase_sweep grid
+SWEEP_STEPS = STEPS  # DDIM steps of a timed pass (bench.py's 50)
+SWEEP_CHECK_STEPS = 5
+SWEEP_GUIDE = dict(target=0.9, color_idx=0, t1=0, t2=SWEEP_STEPS)  # bench.py's colour guidance
+# Grid points 0 and 7 of a 5-step sweep against batch-1 edits at their
+# scales, max |sweep - edit| / max |edit| of the final latent. The sweep's
+# UNet runs at batch 16 and the edit's at 2: their convolutions and
+# matmuls may round otherwise, and each bf16 UNet step carries a change of
+# the latent's last bits on (PERF.md, PR 14: about 2 % of pred-x0 a step).
+# Against edits at the sweep's own batch (every row at the point's scale;
+# point 0's the unguided edit) the points are held bit-equal: a row's
+# numbers do not depend on the other rows.
+SWEEP_TOL = 5e-2
+# The sweep's self-attention at batch 16 (the CFG pair of 8 points), one
+# (B, S, H, D) a level of the SD-1.5 UNet: [kernels] holds K1 at each.
+SWEEP_ATTN = [(16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160)]
+
+
+def row_nudge_attr(**kwargs):
+    """SingleColorAttrFunc (SWEEP_GUIDE) that also records each step's
+    largest |nudge| of each sample, a (B,) tensor on the card (no
+    synchronisation in the loop)."""
+    import dataclasses
+
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
+    @dataclasses.dataclass(frozen=True)
+    class RowNudges(SingleColorAttrFunc):
+        rows: list = dataclasses.field(default_factory=list, compare=False)
+
+        def apply_batched(self, x, z, eps, t, step_idx, *args, **kw):
+            out, z = super().apply_batched(x, z, eps, t, step_idx, *args, **kw)
+            self.rows.append((out - x).float().flatten(1).abs().amax(dim=1))
+            return out, z
+
+    return RowNudges(**SWEEP_GUIDE, **kwargs)
+
+
+def sweep_attention_shapes(unet, eps_fn, x) -> set:
+    """The (q, k) shapes of every attention call of one CFG UNet call on x."""
+    from diffusion_image_editing_tpu_torch.models import unet2d_cond
+
+    shapes, orig = set(), unet2d_cond.attention
+
+    def record(q, k, v, *args, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return orig(q, k, v, *args, **kw)
+
+    unet2d_cond.attention = record
+    try:
+        eps_fn(x, 501)
+    finally:
+        unet2d_cond.attention = orig
+    return shapes
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_sweep(smi: str, unet, vae) -> dict:
+    """bench.py's `sweep` workload (BASELINE config 5) on the [main] models:
+    a random 512 px latent edited at SWEEP_GRID loss scales at once through
+    `parallel.guided_edit_sweep` (the grid on the batch axis: the CFG UNet
+    at batch 16, one batch-1 decode and gradient a point a step, vjp_chunk
+    1), SWEEP_STEPS DDIM steps at eta 0. First a SWEEP_CHECK_STEPS-step
+    sweep against batch-1 edits at points 0 and 7 and the unguided edit
+    (SWEEP_TOL), and bit-equal to edits at the sweep's batch at the same
+    scale (point 0: unguided), each point's nudges recorded: point 0's are
+    0, point 7's largest above point 1's. Then one warm and one timed pass; prints the
+    aggregate sample-steps/s (bench.py's metric), the seconds of both
+    passes and the peak memory; checks the launch counts against what the
+    pieces imply. Returns the timed pass's launch counts."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.engine import edit_split
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+    from diffusion_image_editing_tpu_torch.parallel import guided_edit_sweep, sweep_attr_func
+
+    dev = next(unet.parameters()).device
+    sd, _, _ = make_pipeline(unet, vae, dev)
+    g, lat = SWEEP_GRID, unet.config.sample_size
+    gen = torch.Generator(device=dev).manual_seed(11)
+    xt = torch.randn((1, unet.config.in_channels, lat, lat), generator=gen, device=dev)
+    eps_fn, decode_fn = sd.eps_fn(sd.prep_text(None)), sd.decode_fn()
+    log(f"[sweep] bench.py's sweep workload on the [main] models: a random "
+        f"{vae.config.sample_size} px latent, grid {g} of loss_scale "
+        f"{[round(float(s), 4) for s in SWEEP_SCALES]}, SingleColorAttrFunc(target 0.9, "
+        f"channel 0), vjp_chunk 1, {SWEEP_STEPS} DDIM steps at eta 0, CFG 3.5")
+
+    shapes = sweep_attention_shapes(unet, eps_fn, xt.repeat(g, 1, 1, 1))
+    held = {(tuple(qs), tuple(ks)) for _, qs, ks in FWD_CASES}
+    self_attn = sorted((q for q, k in shapes if q == k), reverse=True)
+    log(f"[sweep] the CFG UNet's attention at batch {2 * g}: self {self_attn}; cross "
+        f"{sorted({(q, k) for q, k in shapes if q != k}, reverse=True)}")
+    if self_attn != SWEEP_ATTN or not all((q, q) in held for q in self_attn):
+        raise RuntimeError(f"[sweep] the UNet's self-attention shapes {self_attn} are not "
+                           f"SWEEP_ATTN {SWEEP_ATTN}, each held by [kernels]")
+
+    # The check at SWEEP_CHECK_STEPS steps.
+    sched = schedule_for_model("sd", SWEEP_CHECK_STEPS)
+    probe = row_nudge_attr()
+    t0 = time.perf_counter()
+    swept = guided_edit_sweep(sched, eps_fn, xt, sweep_attr_func(probe, loss_scale=SWEEP_SCALES),
+                              decode_fn=decode_fn)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    single = {i: edit_split(sched, eps_fn, xt, decode_fn=decode_fn, attr_func=SingleColorAttrFunc(
+        **SWEEP_GUIDE, loss_scale=float(SWEEP_SCALES[i]))).x0 for i in (0, g - 1)}
+    unguided = edit_split(sched, eps_fn, xt).x0
+    xg = xt.repeat(g, 1, 1, 1)
+    same_batch = {0: edit_split(sched, eps_fn, xg).x0[:1],
+                  g - 1: edit_split(sched, eps_fn, xg, decode_fn=decode_fn, attr_func=(
+                      SingleColorAttrFunc(**SWEEP_GUIDE, loss_scale=float(SWEEP_SCALES[-1])))
+                  ).x0[g - 1:]}
+    errs = {"point 0 vs its batch-1 edit": rel_err(swept[0], single[0]),
+            f"point {g - 1} vs its batch-1 edit": rel_err(swept[g - 1], single[g - 1]),
+            "point 0 vs the batch-1 unguided edit": rel_err(swept[0], unguided)}
+    equal = {i: torch.equal(swept[i], ref) for i, ref in same_batch.items()}
+    nudges = torch.stack(probe.rows).cpu()  # (steps, g)
+    log(f"[sweep] {SWEEP_CHECK_STEPS}-step check ({check_s:.3f} s for the sweep): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {SWEEP_TOL}); the batch "
+        f"effect alone (batch-{g} unguided row 0 vs batch 1) "
+        f"{rel_err(same_batch[0], unguided):.3e}; the guidance alone (batch-1 edits at scales "
+        f"{SWEEP_SCALES[-1]:g} vs 0) {rel_err(single[g - 1], single[0]):.3e}; bit-equal to the "
+        f"batch-{g} edit at its scale (point 0: the unguided edit): {equal}")
+    log(f"[sweep] largest |nudge| of each point over the {len(nudges)} steps: "
+        f"{[float(f'{v:.4g}') for v in nudges.max(dim=0).values]}")
+    if not all(math.isfinite(v) and v <= SWEEP_TOL for v in errs.values()):
+        raise RuntimeError(f"[sweep] the sweep's points disagree with single edits: {errs}")
+    if not all(equal.values()):
+        raise RuntimeError(f"[sweep] points differ from the edits at the sweep's batch: {equal}")
+    if nudges[:, 0].abs().max() != 0 or not nudges[:, g - 1].max() > nudges[:, 1].max():
+        raise RuntimeError(f"[sweep] the nudge does not grow with loss_scale: {nudges.tolist()}")
+    del swept, single, unguided, same_batch, probe
+
+    per = per_forward_launches(forward_pieces(sd, dev))
+    expected = implied_launches(per, SWEEP_STEPS, SWEEP_STEPS * g, SWEEP_STEPS * g, 0)
+    attr = sweep_attr_func(SingleColorAttrFunc(**SWEEP_GUIDE), loss_scale=SWEEP_SCALES)
+
+    def run(x):
+        out = guided_edit_sweep(sd.schedule, eps_fn, x, attr, decode_fn=decode_fn)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run(xt + 1.0)  # warm, on another latent, as bench.py's _timed_pass
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with plain_groupnorm_watch() as plain_gn, plain_attention_watch() as plain_attn:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(xt)
+        timed_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[sweep] {g} x {SWEEP_STEPS} sample-steps in {timed_s:.3f} s = "
+        f"{g * SWEEP_STEPS / timed_s:.3f} sample-steps/s (warm pass {warm_s:.3f} s), peak memory "
+        f"{peak / 2**30:.2f} GiB, on {smi}")
+    log(f"[sweep] launches {counts}; implied by {SWEEP_STEPS} CFG UNet calls at batch {2 * g} "
+        f"and {SWEEP_STEPS * g} batch-1 decodes with their gradient: {expected}; plain "
+        f"GroupNorm {plain_gn}, plain attention {plain_attn} on the card")
+    finite = bool(torch.isfinite(out).all())
+    if tuple(out.shape) != (g,) + tuple(xt.shape) or not finite:
+        raise RuntimeError(f"[sweep] the sweep gave {tuple(out.shape)}, finite {finite}")
+    if counts != expected:
+        raise RuntimeError(f"[sweep] launch counts {counts} differ from the pieces' {expected}")
+    if any(plain_gn.values()) or any(plain_attn.values()):
+        raise RuntimeError(f"[sweep] a plain op ran on the card: {plain_gn} {plain_attn}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 7d. dist
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 5
+# The synced trainer over one rank against the single-process trainer, the
+# same weights and batches: the collectives sum one rank's values and divide
+# by 1, so the two differ only where cuDNN's backward algorithms do not
+# repeat their sums; held as [seg-tiny]'s card against CPU (SEG_TINY_TOL).
+DIST_TOL = SEG_TINY_TOL
+
+
+def dist_train(norm: str, batches, dev, mesh=None) -> dict:
+    """DIST_STEPS steps of `seg.train_loop` at the reference recipe from seed
+    0 (through `make_sharded_train_step` with a mesh), counted and timed."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.seg import TrainConfig, train_loop
+
+    feed = TimedFeed(batches)
+    torch.cuda.synchronize()
+    with plain_abn_watch() as plain:
+        ops.reset_launch_counts()
+        model, state, losses = train_loop(TrainConfig(norm=norm), feed, num_steps=DIST_STEPS,
+                                          device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    return {"losses": losses, "state": {k: v.detach().clone() for k, v in
+                                        model.state_dict().items()},
+            "ms": feed.ms_per_step(), "counts": counts, "plain": dict(plain)}
+
+
+def phase_dist(smi: str, unet, vae, dev=torch.device("cuda")) -> dict:
+    """A real NCCL process group of world size 1 on the card (a FileStore),
+    then (a) the BiSeNet trainer with norm="abn_sync" through
+    `make_sharded_train_step` over a 1-D `dp` DeviceMesh against
+    norm="abn"'s single-process `train_loop` (run before the group is up)
+    from the same seed and batches, and (b) `ShardedCfgEpsClosure` on a
+    `cfg` axis of size 1 against `CfgEpsClosure` on the [main] UNet.
+    Returns the synced run's launch counts."""
+    import torch.distributed as dist
+
+    from diffusion_image_editing_tpu_torch.engine import CfgEpsClosure
+    from diffusion_image_editing_tpu_torch.parallel import (
+        ShardedCfgEpsClosure, cfg_mesh, make_mesh)
+    from diffusion_image_editing_tpu_torch.parallel.mesh import all_gather_into
+    from diffusion_image_editing_tpu_torch.seg import (
+        SyntheticFaceMask, TrainConfig, batch_iterator, create_train_state)
+
+    log(f"[dist] torch.cuda.device_count() {torch.cuda.device_count()}: an NCCL group of world "
+        f"size 1 (two ranks cannot share one GPU under NCCL; the 2-rank split is held on the "
+        f"CPU by gloo, tests/test_torch_dist.py)")
+    cfg = TrainConfig()
+    feed = batch_iterator(SyntheticFaceMask(n=64, size=cfg.image_size, raw=True),
+                          cfg.batch_size_per_device, seed=0)
+    batches = list(itertools.islice(feed, 2))
+    start = {k: v.detach().clone() for k, v in
+             create_train_state(TrainConfig(norm="abn"), 0, dev)[0].state_dict().items()}
+    dist_train("abn", batches, dev)  # warm-up: first-call library set-up stays out
+    runs = {"abn": dist_train("abn", batches, dev)}  # before the group is up
+    sd, _, _ = make_pipeline(unet, vae, dev)
+    with tempfile.TemporaryDirectory(prefix="dist_store_") as root:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.FileStore(os.path.join(root, "store"), 1), rank=0,
+                                world_size=1)
+        try:
+            log(f"[dist] process group: backend {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}, rank {dist.get_rank()}")
+            t = torch.arange(8.0, device=dev)
+            gathered, reduced = torch.empty_like(t), t.clone()
+            all_gather_into(gathered, t, dist.group.WORLD)
+            dist.all_reduce(reduced)
+            torch.cuda.synchronize()
+            if not (torch.equal(gathered, t) and torch.equal(reduced, t)):
+                raise RuntimeError("[dist] an NCCL all-gather or all-reduce over one rank "
+                                   "changed its input")
+            mesh = cfg_mesh(cfg=1, sp=1)
+            x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                (1, unet.config.in_channels, unet.config.sample_size, unet.config.sample_size),
+                dtype=np.float32)).to(dev)
+            emb = sd.prep_text(None)
+            sharded = ShardedCfgEpsClosure(unet, emb, CFG, mesh)(x, 501)
+            plain = CfgEpsClosure(unet, emb, CFG)(x, 501)
+            same = torch.equal(sharded, plain)
+            axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            log(f"[dist] (b) ShardedCfgEpsClosure on mesh {axes} vs CfgEpsClosure on the "
+                f"[main] UNet: bit-equal {same}, max |diff| "
+                f"{(sharded.float() - plain.float()).abs().max().item():.3e}")
+            if not same:
+                raise RuntimeError("[dist] the CFG closure on a cfg axis of 1 is not "
+                                   "CfgEpsClosure's")
+            runs["abn_sync"] = dist_train("abn_sync", batches, dev,
+                                          mesh=make_mesh(axis_names=("dp",)))
+        finally:
+            dist.destroy_process_group()
+    a, s = runs["abn"], runs["abn_sync"]
+    weights = [k for k in start if k.rsplit(".", 1)[1] in ("weight", "bias")]
+    stats = [k for k in start if k.rsplit(".", 1)[1] in ("running_mean", "running_var")]
+    update = max((a["state"][k] - start[k]).abs().max().item() for k in weights)
+    errs = {"loss": max(abs(x - y) / abs(y) for x, y in zip(s["losses"], a["losses"])),
+            "weights": max((s["state"][k] - a["state"][k]).abs().max().item()
+                           for k in weights) / update,
+            "stats": max(rel_err(s["state"][k], a["state"][k]) for k in stats)}
+    bit_equal = all(torch.equal(s["state"][k], a["state"][k]) for k in start)
+    expected = {k: (DIST_STEPS * SEG_NORMS if k == "abn_apply" else 0) for k in s["counts"]}
+    log(f"[dist] (a) BiSeNet at [seg]'s recipe, f32, {DIST_STEPS} steps from seed 0: abn "
+        f"single-process {a['ms']:.3f} ms/step, abn_sync through make_sharded_train_step over "
+        f"one NCCL rank {s['ms']:.3f} ms/step (CUDA events), on {smi}")
+    log(f"[dist] (a) losses abn {[round(v, 5) for v in a['losses']]} abn_sync "
+        f"{[round(v, 5) for v in s['losses']]}; max relative loss {errs['loss']:.2e} (tol "
+        f"{DIST_TOL['loss']}), weights {errs['weights']:.2e} of the largest update "
+        f"{update:.3e} (tol {DIST_TOL['weights']}), running stats {errs['stats']:.2e} (tol "
+        f"{DIST_TOL['stats']}); every tensor bit-equal: {bit_equal}")
+    log(f"[dist] (a) abn_sync launches {s['counts']} (K8 {SEG_NORMS} a step); plain ABN on the "
+        f"card {s['plain']}")
+    if not all(errs[k] <= DIST_TOL[k] for k in errs):
+        raise RuntimeError(f"[dist] abn_sync over one rank disagrees with abn: {errs}")
+    if s["counts"] != expected or any(s["plain"].values()) or any(a["plain"].values()):
+        raise RuntimeError(f"[dist] abn_sync launched {s['counts']}, not {expected}, or a plain "
+                           f"ABN ran on the card")
+    return s["counts"]
+
+
+# ---------------------------------------------------------------------------
 # 8. prompt
 # ---------------------------------------------------------------------------
 
@@ -2703,6 +3034,9 @@ def main() -> int:
     fused_counts = phase_fused(smi, unet, vae)
     phase_seg_edit(smi, unet, vae)
     remat_counts = phase_remat(smi, unet, vae)
+    pace_probe("before [sweep]")
+    sweep_counts = phase_sweep(smi, unet, vae)
+    dist_counts = phase_dist(smi, unet, vae)
     del unet, vae
     gc.collect()
     torch.cuda.empty_cache()
@@ -2726,7 +3060,8 @@ def main() -> int:
         # trainer's path; the rest are read from the default path's run.
         e["launches"] = {"affine_silu_conv3x3": fused_counts,
                          "abn_apply": seg_counts}.get(name, counts)[name]
-        e["launches_by_phase"] = {"remat": remat_counts[name], "metrics": metrics_counts[name]}
+        e["launches_by_phase"] = {"remat": remat_counts[name], "metrics": metrics_counts[name],
+                                  "sweep": sweep_counts[name], "dist": dist_counts[name]}
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

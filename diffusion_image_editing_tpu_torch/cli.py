@@ -26,46 +26,77 @@ parsing overlays of a directory of images. Each runs on one CUDA device
 unless `--device cpu` asks for the CPU; none falls back to the CPU on its
 own. The flags are the JAX package's; the options of later slices exit
 with a message naming their ROADMAP Queue A item.
+
+Under `torchrun --nproc-per-node N` each rank takes `cuda:LOCAL_RANK` (NCCL;
+gloo with `--device cpu`). `seg-train` then trains data-parallel over the
+N ranks (each rank's share of a global batch of N x `--batch-size`;
+`--norm abn_sync` syncs the norms' statistics over them), and `generate`,
+`edit` and `metrics` take `--shard cfg2` (N = 2): the CFG pair split over
+the two ranks, one branch each. The first rank writes the outputs.
+`--shard` with an `sp` or `dp` axis (the spatial split) exits naming item
+18b.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
+import re
 import sys
 
 import torch
+import torch.distributed as dist
 
-# Options of the JAX package's CLI that the port does not have yet, and the
-# ROADMAP Queue A item that brings each; their defaults are None, so that
-# setting one in any way is refused.
-UNPORTED = {
-    "shard": ("--shard", "18 (parallel/)"),
-}
+from .parallel.mesh import is_first_rank, world_size
 
 
 def _refuse_unported(args) -> None:
-    for dest, (flag, item) in UNPORTED.items():
-        if getattr(args, dest, None) is not None:
-            raise SystemExit(f"{flag} is not ported yet: Queue A item {item}")
     if args.encoder_reuse > 1:
         raise SystemExit("--encoder-reuse > 1 is not ported yet: Queue A item 16")
     if getattr(args, "guidance_codec", "full") != "full":
         raise SystemExit("--guidance-codec proxy is not ported yet: Queue A item 16")
 
 
+def _parse_mesh(spec: str):
+    """--shard mesh spec, as the JAX package's: "cfg2" (the CFG pair over two
+    ranks), "cfg2xsp4", "sp8", "dp8": axes joined by "x". (The JAX package's
+    parser reads "cfg2xsp4" as the axes "cfg" and "xsp" and refuses it.)
+    Only `cfg` may be larger than 1 (the rest is the spatial split, item
+    18b), and the run needs as many ranks as the spec's sizes multiply to."""
+    from .parallel import make_mesh
+
+    pairs = [re.fullmatch(r"([a-z]+)(\d+)", part) for part in spec.split("x")]
+    if not all(pairs):
+        raise SystemExit(f"bad --shard spec {spec!r} (e.g. cfg2)")
+    pairs = [m.groups() for m in pairs]
+    names = tuple(a for a, _ in pairs)
+    sizes = tuple(int(n) for _, n in pairs)
+    split = [f"{a}{n}" for a, n in pairs if a != "cfg" and int(n) > 1]
+    if split:
+        raise SystemExit(f"--shard {spec}: {', '.join(split)} would split the latent's rows "
+                         "(the spatial split), not ported yet: Queue A item 18b")
+    total = math.prod(sizes)
+    if total != world_size():
+        raise SystemExit(f"--shard {spec} needs {total} devices, have {world_size()} "
+                         f"(run it under torchrun --nproc-per-node {total})")
+    return make_mesh(sizes, names) if dist.is_initialized() else None
+
+
 def _build_wrapper(args, sample_clipping: bool):
     from .pipeline import create_diffusion_model
 
     _refuse_unported(args)
+    mesh = _parse_mesh(args.shard) if args.shard else None
     if args.family == "sd" and not (
             args.checkpoint_dir and os.path.isdir(os.path.join(args.checkpoint_dir, "tokenizer"))):
         raise SystemExit("--family sd needs --checkpoint-dir with a tokenizer/ directory to "
                          "encode the prompt")
-    return create_diffusion_model(
+    w = create_diffusion_model(
         args.family, sample_clipping=sample_clipping, checkpoint_dir=args.checkpoint_dir,
         num_inference_steps=args.steps, device=args.device)
+    return w if mesh is None else w.to_mesh(mesh)
 
 
 def _prompt_ids(w, prompt: str):
@@ -90,6 +121,8 @@ def cmd_generate(args) -> None:
     imgs, *_ = w.generate_images(
         num_images=args.num_images, eta=args.eta, num_inference_steps=args.steps,
         seed=args.seed, prompt_ids=_prompt_ids(w, args.prompt), cfg_scale=args.cfg_scale)
+    if not is_first_rank():
+        return
     for i, pil in enumerate(tensors_to_pils(imgs)):
         path = f"{args.out_prefix}_{i}.png"
         pil.save(path)
@@ -155,8 +188,9 @@ def cmd_edit(args) -> None:
         cfg_scale=args.cfg_scale, inversion_method=args.inversion_method, t_skip=t_skip,
         resynthesize=args.resynthesize, mode=args.edit_mode,
         generator=torch.Generator(device=w.device).manual_seed(args.seed))
-    tensor_to_pil(out.imgs).save(args.out)
-    print(args.out)
+    if is_first_rank():
+        tensor_to_pil(out.imgs).save(args.out)
+        print(args.out)
 
 
 def cmd_metrics(args) -> None:
@@ -203,13 +237,17 @@ def cmd_seg_train(args) -> None:
     else:
         print("WARNING: synthetic data (no --data-root)", file=sys.stderr)
         ds = SyntheticFaceMask(size=args.image_size, raw=args.raw_feed)
-    data = batch_iterator(ds, args.batch_size, prefetch=args.prefetch,
-                          num_workers=args.num_workers)
+    # Under torchrun every rank reads the same global batch (as the JAX
+    # package's one process does) and steps on its share of it.
+    data = batch_iterator(ds, args.batch_size * world_size(), prefetch=args.prefetch,
+                          num_workers=args.num_workers, process_index=0, process_count=1)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     _, state, losses = train_loop(cfg, data, ckpt_dir=args.ckpt_dir, num_steps=args.num_steps,
                                   logger=logging.getLogger("seg-train"), device=args.device)
-    last = f"{losses[-1]:.4f}" if losses else "none"
-    print(f"seg-train: step {state.step}, {len(losses)} steps this run, last loss {last}")
+    if is_first_rank():
+        last = f"{losses[-1]:.4f}" if losses else "none"
+        print(f"seg-train: step {state.step}, {len(losses)} steps this run, last loss {last}"
+              + (f", {world_size()} ranks" if world_size() > 1 else ""))
 
 
 def cmd_seg_eval(args) -> None:
@@ -232,7 +270,9 @@ def _common(sp) -> None:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--encoder-reuse", type=int, default=1,
                     help="encoder propagation interval; only 1 (exact) is ported")
-    sp.add_argument("--shard", default=None, metavar="SPEC", help="not ported (item 18)")
+    sp.add_argument("--shard", default=None, metavar="SPEC",
+                    help="split each CFG UNet call over the ranks of torchrun: cfg2 "
+                         "(the spatial sp/dp split is item 18b)")
     sp.add_argument("--prompt", default="")
     sp.add_argument("--cfg-scale", type=float, default=3.5)
     sp.add_argument("--eta", type=float, default=0.0)
@@ -339,8 +379,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .parallel import initialize_distributed
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    device = torch.device("cuda" if args.device is None else args.device)
+    started = not dist.is_initialized()
+    initialize_distributed(device.type)
+    try:
+        args.fn(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

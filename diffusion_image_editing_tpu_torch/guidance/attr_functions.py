@@ -7,6 +7,12 @@ taken with `torch.autograd.grad` with respect to x_t only; eps is detached.
 Images are NCHW, so a colour channel is `images[:, idx]`. `remat_decode`
 runs the decode under a non-reentrant checkpoint, and `vjp_chunk` sets how
 many samples of a batch share one decode and one gradient.
+
+`loss_scale`, `t1`, `t2` and `lambda_` may be swept: a 1-D tensor (or
+array) with one value per sample of the batch, as `parallel.sweep_attr_func`
+makes them. `apply_batched` then gives each sample its own value, in its
+loss and in its `t1 <= step_idx < t2` window; `apply` takes scalars only.
+Swept values are read on the host, so keep them on the CPU.
 """
 
 from __future__ import annotations
@@ -14,12 +20,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import schedule as S
 
 DecodeFn = Callable[[torch.Tensor], torch.Tensor]  # latent -> image, differentiable
+SWEEPABLE = ("loss_scale", "t1", "t2", "lambda_")  # leaves that may hold one value a sample
 
 
 def l2_norm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -108,22 +116,50 @@ class AttrFunc:
         """One guidance nudge: pred-x0 from x_t (eps detached), decode WITH
         gradient, nudge by -grad(scale * loss) * alpha_bar_t^2. The loss
         takes the batch as a whole."""
+        swept = self.swept_fields()
+        if swept:
+            raise ValueError(f"apply takes scalar {swept}; an AttrFunc with one value a "
+                             "sample runs through apply_batched")
         return self._nudge(xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
                            per_sample=False)
+
+    def swept_fields(self, batch: Optional[int] = None) -> Tuple[str, ...]:
+        """The leaves of `SWEEPABLE` that hold one value a sample (any 1-D
+        leaf, or with `batch` given, those of that length)."""
+        return tuple(f for f in SWEEPABLE if getattr(getattr(self, f), "ndim", 0) >= 1
+                     and (batch is None or getattr(self, f).shape[0] == batch))
+
+    def _per_sample_funcs(self, n: int) -> list:
+        """One AttrFunc a sample of an n-sample batch, with scalar leaves:
+        each swept leaf's value for that sample, read on the host."""
+        swept = self.swept_fields()
+        if not swept:
+            return [self] * n
+        bad = [f for f in swept if getattr(self, f).shape[0] != n]
+        if bad:
+            raise ValueError(f"swept {bad} have {[getattr(self, f).shape[0] for f in bad]} "
+                             f"values for a batch of {n}")
+        values = {f: _host_values(getattr(self, f)) for f in swept}
+        return [dataclasses.replace(self, **{f: v[i] for f, v in values.items()})
+                for i in range(n)]
 
     def _nudge(self, xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
                per_sample: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The nudge of `apply`. With `per_sample`, the objective is the sum
-        over the batch of each sample's own loss (its own rows of `mask` and
-        `x0` where they have one per sample), so that a batch of k through
-        one decode takes each sample's gradient at its own strength."""
+        over the batch of each sample's own loss times its own `loss_scale`
+        (its own rows of `mask` and `x0` where they have one per sample, its
+        own `lambda_`), so that a batch of k through one decode takes each
+        sample's gradient at its own strength; a sample outside its own
+        window adds nothing to the objective and its nudge is 0."""
         if self.mask_attr_grad and mask is None:
             raise ValueError("mask_attr_grad requires a mask")
-        if not self.in_window(int(step_idx)):
+        n = xt.shape[0]
+        funcs = self._per_sample_funcs(n) if per_sample else [self]
+        inside = [f.in_window(int(step_idx)) for f in funcs]
+        if not any(inside):
             return xt, zt
         a_t = S.bcast(S.alpha_bar(sched, t), xt)
         eps_sg = eps.detach()
-        n = xt.shape[0]
         m = mask if self.use_mask else None
         with torch.enable_grad():
             x = xt.detach().requires_grad_(True)
@@ -133,16 +169,21 @@ class AttrFunc:
             else:
                 decoded = decode_fn(px0)
             if per_sample:
-                rows = [slice(i, i + 1) for i in range(n)]
-                loss = sum(self.calculate_loss(decoded[r], _rows(m, r, n), _rows(x0, r, n))
-                           for r in rows)
+                # Each sample's loss times its scale: the gradient reaching
+                # each loss is its scale, as for (sum of losses) * scale.
+                loss = sum(f.calculate_loss(decoded[i:i + 1], _rows(m, slice(i, i + 1), n),
+                                            _rows(x0, slice(i, i + 1), n)) * f.loss_scale
+                           for i, f in enumerate(funcs) if inside[i])
             else:
-                loss = self.calculate_loss(decoded, m, x0)
-            (grad,) = torch.autograd.grad(loss * self.loss_scale, x)
+                loss = self.calculate_loss(decoded, m, x0) * self.loss_scale
+            (grad,) = torch.autograd.grad(loss, x)
         attr_grad = -grad
         if self.mask_attr_grad:
             attr_grad = mask * attr_grad
         nudge = attr_grad * a_t**2
+        if not all(inside):
+            keep = torch.tensor(inside, device=xt.device).reshape((n,) + (1,) * (xt.dim() - 1))
+            nudge = torch.where(keep, nudge, torch.zeros_like(nudge))
         if self.nudge_xt:
             xt = xt + nudge
         if self.nudge_zt and zt is not None:
@@ -167,20 +208,31 @@ class AttrFunc:
         batch), `vjp_chunk` samples at a time: each chunk runs one decode and
         one gradient of the sum of its samples' losses. Only one chunk's
         decoder backward is live at a time. Per-sample `mask`/`x0` (leading
-        dim == batch) go with their sample; batch-1 ones are shared."""
+        dim == batch) go with their sample; batch-1 ones are shared. Swept
+        leaves (`SWEEPABLE` with leading dim == batch) go with their sample
+        too: each chunk takes its rows of them."""
         b = xt.shape[0]
-        if b == 1:
+        swept = self.swept_fields(b)
+        if b == 1 and not swept:
             return self.apply(xt, zt, eps, t, step_idx, sched, decode_fn, mask=mask, x0=x0)
         chunk = max(1, min(int(self.vjp_chunk), b))
         xs, zs = [], []
         for s in range(0, b, chunk):
             rows = slice(s, s + chunk)
-            xn, zn = self._nudge(xt[rows], None if zt is None else zt[rows], eps[rows], t,
-                                 step_idx, sched, decode_fn, _rows(mask, rows, b),
-                                 _rows(x0, rows, b), per_sample=True)
+            af = dataclasses.replace(self, **{f: getattr(self, f)[rows] for f in swept})
+            xn, zn = af._nudge(xt[rows], None if zt is None else zt[rows], eps[rows], t,
+                               step_idx, sched, decode_fn, _rows(mask, rows, b),
+                               _rows(x0, rows, b), per_sample=True)
             xs.append(xn)
             zs.append(zn)
         return torch.cat(xs), (None if zt is None else torch.cat(zs))
+
+
+def _host_values(leaf) -> list:
+    """A swept leaf's values as Python numbers."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().tolist()
+    return np.asarray(leaf).tolist()
 
 
 def _rows(a: Optional[torch.Tensor], rows: slice, b: int) -> Optional[torch.Tensor]:

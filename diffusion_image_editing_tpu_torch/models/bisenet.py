@@ -11,6 +11,8 @@ Module names follow the face-parsing checkpoint's torch keys
 which the JAX package's `models/port.py` reads, so that checkpoint loads
 into `BiSeNet(norm="bn")` with `load_state_dict`. `dtype` is the conv
 COMPUTE dtype; parameters and norm statistics stay f32 (see `NormAct`).
+`axis_name` reaches every norm, as in the JAX package: with
+`norm="abn_sync"` each syncs its training statistics over that group.
 """
 
 from __future__ import annotations
@@ -50,11 +52,11 @@ class ConvBNReLU(nn.Module):
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3, stride: int = 1,
                  padding: int = 1, norm: str = "bn", dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, axis_name=None):
         super().__init__()
         self.conv = Conv(in_chan, out_chan, ks, stride, padding, compute_dtype=dtype,
                          device=device)
-        self.bn = NormAct(out_chan, norm, True, dtype, device)
+        self.bn = NormAct(out_chan, norm, True, dtype, device, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))
@@ -64,9 +66,9 @@ class BiSeNetOutput(nn.Module):
     """ConvBNReLU -> 1x1 conv to n_classes; logits in f32 for the loss."""
 
     def __init__(self, in_chan: int, mid_chan: int, n_classes: int, norm: str = "bn",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         super().__init__()
-        self.conv = ConvBNReLU(in_chan, mid_chan, 3, 1, 1, norm, dtype, device)
+        self.conv = ConvBNReLU(in_chan, mid_chan, 3, 1, 1, norm, dtype, device, axis_name)
         self.conv_out = Conv(mid_chan, n_classes, 1, compute_dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,11 +79,11 @@ class AttentionRefinementModule(nn.Module):
     """feat * sigmoid(norm(1x1(mean over H, W of feat)))."""
 
     def __init__(self, in_chan: int, out_chan: int, norm: str = "bn",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         super().__init__()
-        self.conv = ConvBNReLU(in_chan, out_chan, 3, 1, 1, norm, dtype, device)
+        self.conv = ConvBNReLU(in_chan, out_chan, 3, 1, 1, norm, dtype, device, axis_name)
         self.conv_atten = Conv(out_chan, out_chan, 1, compute_dtype=dtype, device=device)
-        self.bn_atten = NormAct(out_chan, norm, False, dtype, device)
+        self.bn_atten = NormAct(out_chan, norm, False, dtype, device, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = self.conv(x)
@@ -93,15 +95,16 @@ class ContextPath(nn.Module):
     """ResNet-18 + ARMs + global context; returns (feat8, cp8, cp16)."""
 
     def __init__(self, norm: str = "bn", width: int = 64, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, axis_name=None):
         super().__init__()
         w = width
-        self.resnet = Resnet18Features(norm, w, dtype, device)
-        self.arm16 = AttentionRefinementModule(4 * w, 2 * w, norm, dtype, device)
-        self.arm32 = AttentionRefinementModule(8 * w, 2 * w, norm, dtype, device)
-        self.conv_head32 = ConvBNReLU(2 * w, 2 * w, 3, 1, 1, norm, dtype, device)
-        self.conv_head16 = ConvBNReLU(2 * w, 2 * w, 3, 1, 1, norm, dtype, device)
-        self.conv_avg = ConvBNReLU(8 * w, 2 * w, 1, 1, 0, norm, dtype, device)
+        kw = dict(dtype=dtype, device=device, axis_name=axis_name)
+        self.resnet = Resnet18Features(norm, w, **kw)
+        self.arm16 = AttentionRefinementModule(4 * w, 2 * w, norm, **kw)
+        self.arm32 = AttentionRefinementModule(8 * w, 2 * w, norm, **kw)
+        self.conv_head32 = ConvBNReLU(2 * w, 2 * w, 3, 1, 1, norm, **kw)
+        self.conv_head16 = ConvBNReLU(2 * w, 2 * w, 3, 1, 1, norm, **kw)
+        self.conv_avg = ConvBNReLU(8 * w, 2 * w, 1, 1, 0, norm, **kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         feat8, feat16, feat32 = self.resnet(x)
@@ -119,10 +122,10 @@ class FeatureFusionModule(nn.Module):
     """Concat + 1x1 ConvBNReLU + squeeze-excite gate."""
 
     def __init__(self, in_chan: int, out_chan: int, norm: str = "bn",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         super().__init__()
         self.dtype = dtype
-        self.convblk = ConvBNReLU(in_chan, out_chan, 1, 1, 0, norm, dtype, device)
+        self.convblk = ConvBNReLU(in_chan, out_chan, 1, 1, 0, norm, dtype, device, axis_name)
         self.conv1 = Conv(out_chan, out_chan // 4, 1, compute_dtype=dtype, device=device)
         self.conv2 = Conv(out_chan // 4, out_chan, 1, compute_dtype=dtype, device=device)
 
@@ -137,15 +140,16 @@ class BiSeNet(nn.Module):
     """Three heads, (B, n_classes, H, W) f32 each, upsampled to the input."""
 
     def __init__(self, n_classes: int = 19, norm: str = "bn", width: int = 64,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         super().__init__()
         w = width
         self.n_classes, self.norm, self.width, self.dtype = n_classes, norm, width, dtype
-        self.cp = ContextPath(norm, w, dtype, device)
-        self.ffm = FeatureFusionModule(4 * w, 4 * w, norm, dtype, device)
-        self.conv_out = BiSeNetOutput(4 * w, 4 * w, n_classes, norm, dtype, device)
-        self.conv_out16 = BiSeNetOutput(2 * w, w, n_classes, norm, dtype, device)
-        self.conv_out32 = BiSeNetOutput(2 * w, w, n_classes, norm, dtype, device)
+        kw = dict(dtype=dtype, device=device, axis_name=axis_name)
+        self.cp = ContextPath(norm, w, **kw)
+        self.ffm = FeatureFusionModule(4 * w, 4 * w, norm, **kw)
+        self.conv_out = BiSeNetOutput(4 * w, 4 * w, n_classes, norm, **kw)
+        self.conv_out16 = BiSeNetOutput(2 * w, w, n_classes, norm, **kw)
+        self.conv_out32 = BiSeNetOutput(2 * w, w, n_classes, norm, **kw)
 
     def forward(self, x: torch.Tensor):
         h0, w0 = x.shape[2:]

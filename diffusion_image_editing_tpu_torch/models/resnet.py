@@ -49,15 +49,21 @@ class NormAct(FusedABNorm):
     variance, running = 0.9 * running + 0.1 * batch, eps 1e-5. The buffer
     `num_batches_tracked` is there for the checkpoint's keys. `norm="abn"`
     is `ops.abn.fused_abn` (K8 on the card) with activation leaky_relu when
-    `act` is set and identity otherwise. `abn_sync` needs torch.distributed
-    and is not ported yet (ROADMAP Queue A item 18)."""
+    `act` is set and identity otherwise. `norm="abn_sync"` is the same with
+    its training statistics synced over `axis_name` (a process group or a
+    1-D mesh; without one, a group of one rank); "abn" ignores `axis_name`,
+    as in the JAX package. Synced "bn" statistics (Flax's BatchNorm with an axis) are
+    not ported: the trainer syncs with "abn_sync" only."""
 
     def __init__(self, num_features: int, norm: str = "bn", act: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         if norm not in NORMS:
             raise ValueError(f"Unknown norm {norm!r}; have {NORMS}")
+        if norm == "bn" and axis_name is not None:
+            raise NotImplementedError("synced statistics for norm='bn' are not ported; "
+                                      "use norm='abn_sync'")
         super().__init__(num_features, activation="leaky_relu" if act else "identity",
-                         axis_name="dp" if norm == "abn_sync" else None, device=device)
+                         axis_name=axis_name if norm == "abn_sync" else None, device=device)
         self.norm, self.act, self.dtype = norm, act, dtype
         if norm == "bn":
             self.register_buffer("num_batches_tracked",
@@ -95,18 +101,19 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 class BasicBlock(nn.Module):
     def __init__(self, in_chan: int, out_chan: int, stride: int = 1, norm: str = "bn",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, axis_name=None):
         super().__init__()
         self.dtype = dtype
         kw = dict(compute_dtype=dtype, device=device)
         self.conv1 = Conv(in_chan, out_chan, 3, stride, 1, **kw)
-        self.bn1 = NormAct(out_chan, norm, True, dtype, device)
+        self.bn1 = NormAct(out_chan, norm, True, dtype, device, axis_name)
         self.conv2 = Conv(out_chan, out_chan, 3, 1, 1, **kw)
-        self.bn2 = NormAct(out_chan, norm, False, dtype, device)
+        self.bn2 = NormAct(out_chan, norm, False, dtype, device, axis_name)
         self.downsample = None
         if in_chan != out_chan or stride != 1:
-            self.downsample = nn.Sequential(Conv(in_chan, out_chan, 1, stride, 0, **kw),
-                                            NormAct(out_chan, norm, False, dtype, device))
+            self.downsample = nn.Sequential(
+                Conv(in_chan, out_chan, 1, stride, 0, **kw),
+                NormAct(out_chan, norm, False, dtype, device, axis_name))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.bn2(self.conv2(self.bn1(self.conv1(x))))
@@ -118,16 +125,16 @@ class Resnet18Features(nn.Module):
     """Returns (feat8, feat16, feat32) of widths (2, 4, 8) * `width`."""
 
     def __init__(self, norm: str = "bn", width: int = 64, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, axis_name=None):
         super().__init__()
         self.dtype = dtype
         w = width
         self.conv1 = Conv(3, w, 7, 2, 3, compute_dtype=dtype, device=device)
-        self.bn1 = NormAct(w, norm, True, dtype, device)
+        self.bn1 = NormAct(w, norm, True, dtype, device, axis_name)
 
         def layer(cin, cout, stride):
-            return nn.Sequential(BasicBlock(cin, cout, stride, norm, dtype, device),
-                                 BasicBlock(cout, cout, 1, norm, dtype, device))
+            return nn.Sequential(BasicBlock(cin, cout, stride, norm, dtype, device, axis_name),
+                                 BasicBlock(cout, cout, 1, norm, dtype, device, axis_name))
 
         self.layer1 = layer(w, w, 1)
         self.layer2 = layer(w, 2 * w, 2)

@@ -23,23 +23,51 @@ are torch ops, as they are jnp ops in the JAX package.
 
 `abn_apply()` launches K8 on a CUDA tensor, or raises; `abn_apply_reference`
 is its plain version, which the autograd functions take for a CPU tensor
-only. The wrapper counts its launches in `.launches`. Synced statistics
-across devices (`axis_name`) are not ported yet (ROADMAP Queue A item 18).
+only. The wrapper counts its launches in `.launches`.
+
+Synced statistics (the reference's InPlaceABNSync): `axis_name` is a
+process group, or a 1-D device mesh (a mesh dimension, `mesh["dp"]`) whose
+group is taken. The per-channel means of `mean_var` and `edz_eydz` are
+all-reduced to the group's means (the JAX package's `pmean`), the
+training backward's dweight and dbias are the group's sums (its `psum`),
+and the running variance's unbiased count is n times the group's size.
+Every rank must hold the same number of samples.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from . import _build
 
 ACTS = ("identity", "leaky_relu", "elu")  # codes 0-2 of csrc/abn_apply.cu
-SYNC_TODO = "synced ABN statistics (axis_name) are ROADMAP Queue A item 18, not ported yet"
+AxisName = Optional[Union[dist.ProcessGroup, DeviceMesh]]
+
+
+def _group(axis_name: AxisName) -> Optional[dist.ProcessGroup]:
+    return axis_name.get_group() if isinstance(axis_name, DeviceMesh) else axis_name
+
+
+def group_size(axis_name: AxisName) -> int:
+    """The number of ranks the statistics are synced over (1 unsynced)."""
+    return 1 if axis_name is None else dist.get_world_size(_group(axis_name))
+
+
+def _group_mean(tensors: Sequence[torch.Tensor], axis_name: AxisName):
+    """Each (C,) f32 tensor's mean over the group's ranks, from one
+    all-reduce of them packed together; unchanged without a group."""
+    if axis_name is None:
+        return tuple(tensors)
+    packed = torch.stack(tensors)
+    dist.all_reduce(packed, group=_group(axis_name))
+    return tuple(packed / group_size(axis_name))
 
 
 def _check_act(activation: str) -> None:
@@ -89,26 +117,23 @@ def invert_activation(y_act: torch.Tensor, activation: str, slope: float) -> tor
     raise ValueError(f"Unknown activation {activation!r}; have {ACTS}")
 
 
-def mean_var(x: torch.Tensor, axis_name: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def mean_var(x: torch.Tensor, axis_name: AxisName = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel f32 mean and variance of an (N, C, *spatial) tensor over
-    every dimension but C, as E[x^2] - mean^2 (one pass, JAX's form)."""
-    if axis_name is not None:
-        raise NotImplementedError(SYNC_TODO)
+    every dimension but C, as E[x^2] - mean^2 (one pass, JAX's form); with
+    `axis_name`, E[x] and E[x^2] are the group's means."""
     xf = x.float()
     dims = _reduce_dims(x)
-    mean = xf.mean(dims)
-    sq = (xf * xf).mean(dims)
+    mean, sq = _group_mean((xf.mean(dims), (xf * xf).mean(dims)), axis_name)
     return mean, sq - mean * mean
 
 
 def edz_eydz(xhat: torch.Tensor, dz: torch.Tensor,
-             axis_name: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward's per-channel reductions edz = E[dz], eydz = E[xhat * dz]."""
-    if axis_name is not None:
-        raise NotImplementedError(SYNC_TODO)
+             axis_name: AxisName = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's per-channel reductions edz = E[dz], eydz = E[xhat * dz],
+    the group's means with `axis_name`."""
     dims = _reduce_dims(dz)
     dzf = dz.float()
-    return dzf.mean(dims), (xhat.float() * dzf).mean(dims)
+    return _group_mean((dzf.mean(dims), (xhat.float() * dzf).mean(dims)), axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -181,19 +206,22 @@ def _apply(x, mean, rstd, weight, bias, activation, slope):
 
 def abn_backward(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  mean: torch.Tensor, rstd: torch.Tensor, activation: str, slope: float,
-                 training: bool, needs: Sequence[bool] = (True, True, True)):
+                 training: bool, needs: Sequence[bool] = (True, True, True),
+                 axis_name: AxisName = None):
     """(dx, dweight, dbias) of y = act(xhat * |w| + b), xhat = (x - mean) *
     rstd, in f32 torch ops (`_fused_abn_bwd`). `training`: mean and rstd are
     x's own batch statistics, so dx carries their gradient (the edz and eydz
-    terms); otherwise they are constants (the running statistics)."""
+    terms); otherwise they are constants (the running statistics). With
+    `axis_name` (training only), edz and eydz are the group's means and
+    dweight, dbias the group's sums: count x ranks x the means."""
     nd = x.dim()
     xhat = ((x.float() - _channel_view(mean, nd)) * _channel_view(rstd, nd)).to(x.dtype).float()
     wabs = weight.float().abs()
     y_lin = xhat * _channel_view(wabs, nd) + _channel_view(bias.float(), nd)
     dz = grad.float() * _act_grad_from_linear(y_lin, activation, slope)
     del y_lin
-    edz, eydz = edz_eydz(xhat, dz)
-    count = x.numel() // x.shape[1]
+    edz, eydz = edz_eydz(xhat, dz, axis_name)
+    count = x.numel() // x.shape[1] * group_size(axis_name)
     dx = None
     if needs[0]:
         if training:
@@ -207,18 +235,19 @@ def abn_backward(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, bias
 
 
 class FusedABNTrain(torch.autograd.Function):
-    """Training-mode ABN: batch statistics by `mean_var`, then K8 (or its
-    plain version on the CPU); the backward is `abn_backward` from x and the
-    saved f32 mean and rstd. Returns (y, mean, var); mean and var carry no
-    gradient and serve the running update."""
+    """Training-mode ABN: batch statistics by `mean_var` (synced over
+    `axis_name` when given), then K8 (or its plain version on the CPU); the
+    backward is `abn_backward` from x and the saved f32 mean and rstd.
+    Returns (y, mean, var); mean and var carry no gradient and serve the
+    running update."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, activation, slope):
-        mean, var = mean_var(x)
+    def forward(ctx, x, weight, bias, eps, activation, slope, axis_name=None):
+        mean, var = mean_var(x, axis_name)
         rstd = torch.rsqrt(var + eps)
         y = _apply(x, mean, rstd, weight, bias, activation, slope)
         ctx.save_for_backward(x, weight, bias, mean, rstd)
-        ctx.activation, ctx.slope = activation, slope
+        ctx.activation, ctx.slope, ctx.axis_name = activation, slope, axis_name
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -226,8 +255,8 @@ class FusedABNTrain(torch.autograd.Function):
     def backward(ctx, grad, _grad_mean, _grad_var):
         x, weight, bias, mean, rstd = ctx.saved_tensors
         grads = abn_backward(grad, x, weight, bias, mean, rstd, ctx.activation, ctx.slope,
-                             True, ctx.needs_input_grad[:3])
-        return (*grads, None, None, None)
+                             True, ctx.needs_input_grad[:3], ctx.axis_name)
+        return (*grads, None, None, None, None)
 
 
 class _ABNEval(torch.autograd.Function):
@@ -249,17 +278,16 @@ class _ABNEval(torch.autograd.Function):
 
 def fused_abn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
               activation: str = "leaky_relu", slope: float = 0.01,
-              axis_name: Optional[str] = None, running_mean: Optional[torch.Tensor] = None,
+              axis_name: AxisName = None, running_mean: Optional[torch.Tensor] = None,
               running_var: Optional[torch.Tensor] = None, training: bool = True,
               momentum: float = 0.1):
     """Fused activated batch norm over (N, C, *spatial).
 
-    Training: batch statistics; returns (y, new_running_mean,
-    new_running_var), the last two None without running statistics.
-    Eval: normalises with the running statistics; returns y."""
+    Training: batch statistics, synced over `axis_name` when given;
+    returns (y, new_running_mean, new_running_var), the last two None
+    without running statistics. Eval: normalises with the running
+    statistics; returns y."""
     _check_act(activation)
-    if axis_name is not None:
-        raise NotImplementedError(SYNC_TODO)
     x = x.contiguous()
     if not training:
         if running_mean is None or running_var is None:
@@ -267,10 +295,11 @@ def fused_abn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: fl
         rstd = torch.rsqrt(running_var.float() + eps)
         return _ABNEval.apply(x, weight, bias, running_mean.float().contiguous(), rstd,
                               activation, float(slope))
-    y, mean, var = FusedABNTrain.apply(x, weight, bias, float(eps), activation, float(slope))
+    y, mean, var = FusedABNTrain.apply(x, weight, bias, float(eps), activation, float(slope),
+                                       axis_name)
     if running_mean is None:
         return y, None, None
-    count = x.numel() // x.shape[1]
+    count = x.numel() // x.shape[1] * group_size(axis_name)
     with torch.no_grad():
         unbiased = var * count / max(count - 1, 1)
         new_mean = (1 - momentum) * running_mean + momentum * mean
@@ -283,16 +312,16 @@ class FusedABNorm(nn.Module):
     `weight` (ones), `bias` (zeros), buffers `running_mean` (zeros) and
     `running_var` (ones). In training mode it normalises with the batch's
     statistics and updates the running ones in place; in eval mode it uses
-    the running ones."""
+    the running ones. With `axis_name` (a process group or a 1-D mesh) the
+    training statistics are synced over its ranks (InPlaceABNSync)."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
                  activation: str = "leaky_relu", slope: float = 0.01,
-                 axis_name: Optional[str] = None, device=None):
+                 axis_name: AxisName = None, device=None):
         super().__init__()
         _check_act(activation)
-        if axis_name is not None:
-            raise NotImplementedError(SYNC_TODO)
         self.momentum, self.eps, self.activation, self.slope = momentum, eps, activation, slope
+        self.axis_name = axis_name
         f32 = dict(device=device, dtype=torch.float32)
         self.weight = nn.Parameter(torch.ones(num_features, **f32))
         self.bias = nn.Parameter(torch.zeros(num_features, **f32))
@@ -306,8 +335,8 @@ class FusedABNorm(nn.Module):
                              training=False)
         y, new_mean, new_var = fused_abn(
             x, self.weight, self.bias, self.eps, self.activation, self.slope,
-            running_mean=self.running_mean, running_var=self.running_var, training=True,
-            momentum=self.momentum)
+            axis_name=self.axis_name, running_mean=self.running_mean,
+            running_var=self.running_var, training=True, momentum=self.momentum)
         self.running_mean.copy_(new_mean)
         self.running_var.copy_(new_var)
         return y

@@ -148,6 +148,11 @@ BWD_DKV_WIDE_SLICE_DIMS = (128,)
 BWD_DQ_WIDE_SLICE_DIMS = (128,)
 
 
+# Every attention kernel launches a grid of (blocks of rows, B * H): CUDA
+# allows at most 65535 blocks along y.
+GRID_Y_MAX = 65535
+
+
 def kernel_takes_head_dim(d: int) -> bool:
     if d < 8 or d % 8:
         return False
@@ -179,6 +184,9 @@ def _check_bshd(name: str, **tensors: torch.Tensor) -> Tuple[int, int, int, int,
         raise ValueError(
             f"{name}: head dim {d} is not built; a multiple of 8 that pads to one of "
             f"{NARROW_HEAD_DIMS}, or to four slices of one of {WIDE_SLICE_DIMS}")
+    if b * h > GRID_Y_MAX:
+        raise ValueError(f"{name}: B * H = {b * h} heads exceed the {GRID_Y_MAX} blocks of the "
+                         "launch grid's y dimension, which takes one a head")
     return b, h, s_q, s_k, d
 
 

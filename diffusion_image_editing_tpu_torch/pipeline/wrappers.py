@@ -6,6 +6,7 @@ the generation API."""
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,11 +39,33 @@ class DiffusionWrapper:
         self.latent_channels = unet.config.in_channels
         self._encode = EncodeClosure()
         self._decode = self._decode_remat = DecodeClosure()  # the identity either way
+        self._mesh = None
 
     def _frozen(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         if module is None:
             return None
         return module.to(self.device).eval().requires_grad_(False)
+
+    def to_mesh(self, mesh) -> "DiffusionWrapper":
+        """A shallow copy (the same modules) whose CFG denoiser splits the
+        [uncond; cond] pair over the mesh's `cfg` axis
+        (`parallel.ShardedCfgEpsClosure`): each rank runs one branch of every
+        UNet call, and the rest of each step runs whole on every rank. The
+        same EditPipeline / generate / invert code then runs split:
+
+            mesh = parallel.cfg_mesh(cfg=2)        # under torchrun, 2 ranks
+            pipe = EditPipeline(wrapper.to_mesh(mesh), seg_model)
+
+        Only `cfg` may be larger than 1: the spatial split of the JAX
+        package's `to_mesh` (`sp`, and the latent's rows over the whole mesh
+        for an unconditional call and for the decode) is ROADMAP Queue A
+        item 18b and raises NotImplementedError."""
+        from ..parallel.edit_shard import check_cfg_mesh
+
+        check_cfg_mesh(mesh)
+        w = copy.copy(self)
+        w._mesh = mesh
+        return w
 
     # ---- codec boundary --------------------------------------------------
     def decode_fn(self, remat_blocks: bool = False) -> DecodeClosure:
@@ -65,6 +88,15 @@ class DiffusionWrapper:
 
     # ---- denoiser --------------------------------------------------------
     def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
+        if self._mesh is not None:
+            from ..parallel.edit_shard import (SPATIAL_TODO, check_cfg_mesh,
+                                               make_sharded_cfg_eps_fn)
+
+            if text_emb is not None:
+                return make_sharded_cfg_eps_fn(self.unet, text_emb, cfg_scale, self._mesh)
+            if check_cfg_mesh(self._mesh) > 1:
+                raise NotImplementedError(f"an unconditional UNet call on a cfg mesh has no "
+                                          f"pair to split; splitting its rows is {SPATIAL_TODO}")
         if text_emb is None:
             return EpsClosure(self.unet)
         return CfgEpsClosure(self.unet, text_emb, cfg_scale)

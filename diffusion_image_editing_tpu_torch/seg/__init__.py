@@ -15,9 +15,12 @@ from .optim import make_optimizer, param_groups, warmup_poly_schedule  # noqa: F
 from .train import (  # noqa: F401
     TrainConfig,
     TrainState,
+    create_model,
     create_train_state,
+    make_sharded_train_step,
     make_train_step,
     restore_checkpoint,
     save_checkpoint,
+    shard_batch,
     train_loop,
 )

@@ -1,13 +1,19 @@
-"""BiSeNet training on one device: OHEM 3-head loss, warmup + poly SGD over
-four parameter groups, torch checkpoints with resume. The port of the JAX
-package's `seg/train.py`.
+"""BiSeNet training: OHEM 3-head loss, warmup + poly SGD over four parameter
+groups, torch checkpoints with resume, on one device or data-parallel over
+a `dp` mesh axis. The port of the JAX package's `seg/train.py`.
 
 A step takes an NHWC numpy batch from the data pipeline (or an NCHW
 tensor), moves it to the model's device, normalises a uint8 batch there,
 runs the model in training mode (its norms update their running
 statistics), and takes one SGD step at the schedule's learning rate.
-Data-parallel training and `norm="abn_sync"` need torch.distributed and are
-not ported yet (ROADMAP Queue A items 18-19).
+
+Data-parallel (`make_sharded_train_step`, the reference's DDP): each rank
+steps on its share of the batch, then one all-reduce gives every rank the
+mean over `dp` of the gradients, the loss and the running statistics, as
+the JAX package's `pmean`s do; parameters and optimizer state stay equal
+on every rank. Norm statistics are each rank's own, or with
+`norm="abn_sync"` the group's (synced ABN); synced ABN's weight and bias
+gradients are the group's sums before that mean, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,14 +26,15 @@ from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.device import resolve_device
 from ..models.bisenet import BiSeNet
+from ..parallel.mesh import is_first_rank, make_mesh, mean_over, shard_leading_axis
 from .data import IMAGENET_MEAN, IMAGENET_STD
 from .losses import ohem_ce_loss
 from .optim import make_optimizer, set_learning_rate, warmup_poly_schedule
-
-DDP_TODO = "data-parallel training and norm='abn_sync' are ROADMAP Queue A items 18-19"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,21 +80,23 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype in ("bf16", "bfloat16") else torch.float32
 
 
-def create_model(cfg: TrainConfig, device=None) -> BiSeNet:
-    if cfg.norm == "abn_sync":
-        raise NotImplementedError(DDP_TODO)
+def create_model(cfg: TrainConfig, device=None, axis_name=None) -> BiSeNet:
+    """The BiSeNet of `cfg`; with `norm="abn_sync"`, its norms sync their
+    statistics over `axis_name` (a process group or a 1-D mesh; none: one
+    rank, the same as "abn")."""
     return BiSeNet(n_classes=cfg.n_classes, norm=cfg.norm, width=cfg.width,
-                   dtype=compute_dtype(cfg), device=device)
+                   dtype=compute_dtype(cfg), device=device, axis_name=axis_name)
 
 
 def create_train_state(cfg: TrainConfig, seed: int = 0,
-                       device: Optional[Union[str, torch.device]] = None):
+                       device: Optional[Union[str, torch.device]] = None, axis_name=None):
     """(model, state). The weights come from torch's initialisers under
-    `seed`, drawn on the CPU, so they are the same on every device."""
+    `seed`, drawn on the CPU, so they are the same on every device and
+    every rank."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = create_model(cfg, device="cpu")
+        model = create_model(cfg, device="cpu", axis_name=axis_name)
     model.to(device)
     optimizer = make_optimizer(model, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
     schedule = warmup_poly_schedule(cfg.lr0, cfg.warmup_steps, cfg.warmup_start_lr,
@@ -123,25 +132,65 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _loss_and_grads(model: BiSeNet, cfg: TrainConfig, state: TrainState, images,
+                    labels) -> torch.Tensor:
+    """The sum of the three heads' OHEM losses on the batch, its gradients
+    left in the parameters' `.grad`; the norms update their running
+    statistics."""
+    device = next(model.parameters()).device
+    x, y = _prep_batch(images, labels, device)
+    model.train()
+    set_learning_rate(state.optimizer, state.schedule(state.step))
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = sum(ohem_ce_loss(out, y, cfg.score_thres, cfg.n_min) for out in model(x))
+    loss.backward()
+    return loss.detach()
+
+
 def make_train_step(model: BiSeNet, cfg: TrainConfig):
     """One SGD step on the sum of the three heads' OHEM losses. Returns
     `train_step(state, images, labels) -> (state, loss)`; it updates the
     state in place and returns the loss as a 0-d tensor on the device."""
-    n_min = cfg.n_min
 
     def train_step(state: TrainState, images, labels):
-        device = next(model.parameters()).device
-        x, y = _prep_batch(images, labels, device)
-        model.train()
-        set_learning_rate(state.optimizer, state.schedule(state.step))
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = sum(ohem_ce_loss(out, y, cfg.score_thres, n_min) for out in model(x))
-        loss.backward()
+        loss = _loss_and_grads(model, cfg, state, images, labels)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return train_step
+
+
+def make_sharded_train_step(model: BiSeNet, cfg: TrainConfig, mesh: DeviceMesh):
+    """The data-parallel step over the mesh's `dp` axis (the reference's DDP,
+    the JAX package's `shard_map` step): this rank's forward and backward
+    on its share of the batch (`shard_batch`), then the mean over the
+    `dp` ranks of every gradient, the loss and the running statistics in
+    one all-reduce, then the SGD step, the same on every rank. Returns
+    `train_step(state, images, labels) -> (state, loss)` with the mean
+    loss. An explicit all-reduce, not DistributedDataParallel: DDP would
+    average synced ABN's weight and bias gradients, which are the group's
+    sums here, as in the JAX package (its `psum`, then `pmean`)."""
+    group = mesh["dp"]
+    params = [p for p in model.parameters() if p.requires_grad]
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+
+    def train_step(state: TrainState, images, labels):
+        loss = _loss_and_grads(model, cfg, state, images, labels)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        mean_over([p.grad for p in params] + [loss] + stats, group)
+        state.optimizer.step()
+        state.step += 1
+        return state, loss
+
+    return train_step
+
+
+def shard_batch(batch: Tuple[np.ndarray, np.ndarray], mesh: DeviceMesh):
+    """This rank's rows of a global (images, labels) batch, split over `dp`."""
+    return shard_leading_axis(tuple(batch), mesh, "dp")
 
 
 # ---------------------------------------------------------------------------
@@ -185,18 +234,33 @@ def restore_checkpoint(ckpt_dir: Union[str, Path], state: TrainState) -> TrainSt
 
 def train_loop(cfg: TrainConfig, data_iter, ckpt_dir: Optional[str] = None,
                num_steps: Optional[int] = None, seed: int = 0, log_every: int = 50,
-               logger=None, device: Optional[Union[str, torch.device]] = None):
+               logger=None, device: Optional[Union[str, torch.device]] = None,
+               mesh: Optional[DeviceMesh] = None):
     """Train until `num_steps` (default `cfg.max_iter`) steps are taken,
     resuming from `ckpt_dir`'s latest checkpoint and saving there every
-    `cfg.ckpt_every` steps and at the end. Returns (model, state, losses),
-    the losses of the steps this call took as floats. The loop does not
-    wait for the device between steps except to log."""
-    if cfg.norm == "abn_sync":
-        raise NotImplementedError(DDP_TODO)
-    model, state = create_train_state(cfg, seed, device)
+    `cfg.ckpt_every` steps and at the end (the first rank writes). Returns
+    (model, state, losses), the losses of the steps this call took as
+    floats. The loop does not wait for the device between steps except to
+    log.
+
+    With a `mesh` (a `dp` axis), or whenever a process group is up (then a
+    1-D `dp` mesh over the whole world), every step is
+    `make_sharded_train_step`'s: `data_iter` yields the global batch, of
+    which each rank takes its rows, and `norm="abn_sync"` syncs the norms
+    over `dp`. Without either it is the single-device step."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh(axis_names=("dp",))
+    axis = mesh["dp"] if mesh is not None and cfg.norm == "abn_sync" else None
+    model, state = create_train_state(cfg, seed, device, axis_name=axis)
     if ckpt_dir is not None:
         state = restore_checkpoint(ckpt_dir, state)
-    step_fn = make_train_step(model, cfg)
+    if mesh is None:
+        step_fn = make_train_step(model, cfg)
+    else:
+        sharded = make_sharded_train_step(model, cfg, mesh)
+
+        def step_fn(state, images, labels):
+            return sharded(state, *shard_batch((images, labels), mesh))
     target = num_steps if num_steps is not None else cfg.max_iter
     losses = []
     while state.step < target:
@@ -205,8 +269,8 @@ def train_loop(cfg: TrainConfig, data_iter, ckpt_dir: Optional[str] = None,
         losses.append(loss)
         if logger and state.step % log_every == 0:
             logger.info("it %d loss %.4f", state.step, float(loss))
-        if ckpt_dir is not None and state.step % cfg.ckpt_every == 0:
+        if ckpt_dir is not None and state.step % cfg.ckpt_every == 0 and is_first_rank():
             save_checkpoint(ckpt_dir, state)
-    if ckpt_dir is not None:
+    if ckpt_dir is not None and is_first_rank():
         save_checkpoint(ckpt_dir, state)
     return model, state, torch.stack(losses).tolist() if losses else []

@@ -1,7 +1,7 @@
 """Where the PyTorch port's SD-1.5 512 px main path spends its time on the
 GPU, through the pipeline's own calls.
 
-    python3 scripts/torch_profile_edit.py [--fused]
+    python3 scripts/torch_profile_edit.py [--fused | --sweep]
 
 Builds the port's SD-1.5 UNet and SD VAE (bf16, seeded random weights), a
 512 px image and an `EditPipeline`, as chip_smoke.py does, then on the card:
@@ -28,6 +28,11 @@ backward, the fused conv's backward (`conv_transpose2d`, `silu_backward`, the
 sums) and the rest. The pieces other than K7 are profiler ranges opened
 around them (`install_fused_ranges`), so that run also records host
 activity.
+With `--sweep`, chip_smoke.py's `[sweep]` instead (bench.py's sweep workload:
+8 loss scales of SingleColorAttrFunc on one random latent as one batch):
+times its two pieces of a step, the CFG UNet call at batch 16 and the swept
+nudge (8 batch-1 decodes with their gradient), and a 5-step
+`guided_edit_sweep`, then profiles that sweep as above.
 Prints the card's name and power limit first. Needs one CUDA GPU.
 """
 
@@ -198,10 +203,42 @@ def profile(label, fn, events_wall_ms, top=12, ranges=False):
           + "; ".join(f"{name} {ms:.2f}" for name, ms in span_ms.items()))
 
 
+def profile_sweep(sd, dev) -> int:
+    from diffusion_image_editing_tpu_torch.parallel import guided_edit_sweep, sweep_attr_func
+
+    g = chip_smoke.SWEEP_GRID
+    swept = sweep_attr_func(SingleColorAttrFunc(**chip_smoke.SWEEP_GUIDE),
+                            loss_scale=chip_smoke.SWEEP_SCALES)
+    lat = sd.unet.config.sample_size
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x1 = torch.randn((1, sd.unet.config.in_channels, lat, lat), generator=gen, device=dev)
+    xg = x1.repeat(g, 1, 1, 1)
+    eps_fn, sched, decode = sd.eps_fn(sd.prep_text(None), 3.5), sd.schedule, sd.decode_fn()
+    t, idx = int(sched.timesteps[20]), 20
+    eps = eps_fn(xg, t)
+    short = schedule_for_model("sd", SHORT)
+
+    def sweep():
+        return guided_edit_sweep(short, eps_fn, x1, swept, decode_fn=decode)
+
+    unet_ms = event_ms(lambda: eps_fn(xg, t), reps=5)
+    nudge_ms = event_ms(lambda: swept.apply_batched(xg, None, eps, t, idx, sched, decode), 3)
+    sweep_ms = event_ms(sweep)
+    print(f"[events] sweep of {g}: CFG UNet call (batch {2 * g}) {unet_ms:.2f} ms; swept nudge "
+          f"({g} decodes with their gradient) {nudge_ms:.2f} ms; {SHORT}-step sweep "
+          f"{sweep_ms:.2f} ms = {sweep_ms / SHORT:.2f} ms a step, "
+          f"{g * SHORT / sweep_ms * 1e3:.3f} sample-steps/s")
+    profile(f"sweep {SHORT} steps", sweep, sweep_ms)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--fused", action="store_true",
-                        help="profile the fused-conv configuration and split its device time")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--fused", action="store_true",
+                      help="profile the fused-conv configuration and split its device time")
+    mode.add_argument("--sweep", action="store_true",
+                      help="profile chip_smoke.py's [sweep]: a grid of 8 loss scales as one batch")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -225,6 +262,8 @@ def main() -> int:
                                   text.to(torch.bfloat16), dev)
     pipe = EditPipeline(sd)
     attr = SingleColorAttrFunc(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)
+    if opts.sweep:
+        return profile_sweep(sd, dev)
 
     def invert():
         return pipe.prepare_real_image_edit(

@@ -1,7 +1,8 @@
 """Where one step of the PyTorch port's BiSeNet trainer with `--norm abn`
-spends its time on the GPU.
+(or `abn_sync`) spends its time on the GPU.
 
     python3 scripts/torch_profile_seg_train.py [--dtypes float32,bfloat16] [--steps 5]
+        [--norms abn,abn_sync]
 
 Builds the trainer at the reference recipe (BiSeNet, ResNet-18 context
 path, width 64, 19 classes, 448 px crops, batch 16, OHEM 3-head loss, SGD
@@ -20,20 +21,28 @@ then for each compute dtype on the card:
     convolutions (cuDNN and its layout transposes), and the OHEM loss.
     Kernels are given to a part by the torch op that launched them: the
     script wraps `mean_var`, `abn_backward` and `ohem_ce_loss` in profiler
-    ranges for the run.
-Prints the card's name and power limit first. Needs one CUDA GPU.
+    ranges for the run, and `torch.distributed.all_reduce` and the
+    trainer's `mean_over` (the step's all-reduce of the gradients, loss and
+    running statistics).
+With `--norms abn_sync` the synced trainer runs too, through
+`make_sharded_train_step` over a one-rank NCCL group and a `dp` mesh: its
+collectives are NCCL's, over one rank. Prints the card's name and power
+limit first. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -42,7 +51,8 @@ from diffusion_image_editing_tpu_torch.seg import SyntheticFaceMask, batch_itera
 from diffusion_image_editing_tpu_torch.seg import train as T  # noqa: E402
 
 RANGES = {"abn.mean_var": (A, "mean_var"), "abn.backward": (A, "abn_backward"),
-          "seg.ohem_loss": (T, "ohem_ce_loss")}
+          "seg.ohem_loss": (T, "ohem_ce_loss"), "dist.all_reduce": (dist, "all_reduce"),
+          "seg.mean_over": (T, "mean_over")}
 K8 = "abn_apply_kernel"
 CONV_KERNELS = ("conv", "Conv", "cudnn", "xmma", "cutlass", "sm90_", "nchwToNhwc",
                 "nhwcToNchw", "implicit_gemm", "dgrad", "wgrad")
@@ -123,6 +133,8 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--dtypes", default="float32,bfloat16")
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--norms", default="abn",
+                   help="abn and/or abn_sync (through make_sharded_train_step over one NCCL rank)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -136,14 +148,26 @@ def main() -> int:
     images, labels = next(batch_iterator(SyntheticFaceMask(n=16, size=448, raw=True), 16))
     for name, (mod, attr) in RANGES.items():
         setattr(mod, attr, ranged(name, getattr(mod, attr)))
-    # Every dtype is timed before the first profiler session, so that no
+    norms = args.norms.split(",")
+    mesh = None
+    if "abn_sync" in norms:
+        store = os.path.join(tempfile.mkdtemp(prefix="profile_store_"), "store")
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+        from diffusion_image_editing_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(axis_names=("dp",))
+    # Every run is timed before the first profiler session, so that no
     # timing follows the profiler's set-up and tear-down in this process.
     runs = []
-    for dtype in args.dtypes.split(","):
-        cfg = T.TrainConfig(norm="abn", compute_dtype=dtype)
+    for norm, dtype in ((n, d) for n in norms for d in args.dtypes.split(",")):
+        cfg = T.TrainConfig(norm=norm, compute_dtype=dtype)
         torch.cuda.reset_peak_memory_stats()
-        model, state = T.create_train_state(cfg, 0, dev)
-        step_fn = T.make_train_step(model, cfg)
+        if norm == "abn_sync":
+            model, state = T.create_train_state(cfg, 0, dev, axis_name=mesh["dp"])
+            step_fn = T.make_sharded_train_step(model, cfg, mesh)
+        else:
+            model, state = T.create_train_state(cfg, 0, dev)
+            step_fn = T.make_train_step(model, cfg)
 
         def step(step_fn=step_fn, state=state):
             return step_fn(state, images, labels)[1]
@@ -160,13 +184,16 @@ def main() -> int:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / args.steps
         ms = start.elapsed_time(end) / args.steps
-        print(f"[{dtype}] {ms:.2f} ms/step from CUDA events over {args.steps} steps "
+        label = dtype if norm == "abn" else f"{norm} {dtype}"
+        print(f"[{label}] {ms:.2f} ms/step from CUDA events over {args.steps} steps "
               f"({16 / ms * 1e3:.1f} img/s; host clock {host_ms:.2f} ms/step), loss "
               f"{float(loss):.4f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
               f"GiB, on {smi}")
-        runs.append((dtype, step, ms))
-    for dtype, step, ms in runs:
-        profile_step(dtype, step, ms)
+        runs.append((label, step, ms))
+    for label, step, ms in runs:
+        profile_step(label, step, ms)
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

@@ -179,9 +179,31 @@ def test_cpu_uses_the_plain_version_and_counts_no_launch():
         T.abn_apply(_nchw(x), *(torch.zeros(8) for _ in range(4)))
 
 
-def test_sync_is_not_ported_yet():
-    x = torch.zeros(2, 4, 3, 3)
-    with pytest.raises(NotImplementedError, match="Queue A item 18"):
-        T.fused_abn(x, torch.ones(4), torch.zeros(4), axis_name="dp")
-    with pytest.raises(NotImplementedError, match="Queue A item 18"):
-        T.FusedABNorm(4, axis_name="dp")
+def test_sync_is_not_ported_yet(tmp_path):
+    """Synced statistics are ported: `axis_name` (a process group) runs. Over
+    a gloo group of one rank the functional form, its gradients and the
+    layer equal the unsynced ones to the bit (a sum over one rank and a
+    division by 1). Two ranks: tests/test_torch_dist.py."""
+    import torch.distributed as dist
+
+    x, w, b, cot = _inputs(8, (2, 3, 3, 8))
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        runs = []
+        for axis in (None, group):
+            xt = _nchw(x).requires_grad_(True)
+            wt, bt = (torch.tensor(a, requires_grad=True) for a in (w, b))
+            y, new_mean, new_var = T.fused_abn(xt, wt, bt, axis_name=axis,
+                                               running_mean=torch.zeros(8),
+                                               running_var=torch.ones(8))
+            grads = torch.autograd.grad((y * _nchw(cot)).sum(), (xt, wt, bt))
+            layer = T.FusedABNorm(8, axis_name=axis)
+            layer(_nchw(x))
+            runs.append((y, new_mean, new_var, *grads, layer.running_mean, layer.running_var))
+        assert T.group_size(group) == 1 and T.group_size(None) == 1
+        for got, want in zip(runs[1], runs[0]):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()

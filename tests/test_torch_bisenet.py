@@ -163,6 +163,35 @@ def test_compute_dtype_bf16_keeps_params_and_heads_f32():
     assert all(m.running_mean.dtype == torch.float32 for m in norm_layers(model))
 
 
-def test_abn_sync_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A item 18"):
-        NormAct(8, "abn_sync")
+def test_abn_sync_is_not_ported_yet(tmp_path):
+    """abn_sync is ported: `axis_name` reaches every norm of the BiSeNet, and
+    over a gloo group of one rank a training step's outputs, gradients and
+    running statistics equal norm="abn"'s to the bit (two ranks:
+    tests/test_torch_dist.py). Synced statistics for "bn" are not ported."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        torch.manual_seed(0)
+        ref = TB.BiSeNet(n_classes=N_CLASSES, norm="abn", width=WIDTH)
+        sync = TB.BiSeNet(n_classes=N_CLASSES, norm="abn_sync", width=WIDTH, axis_name=group)
+        sync.load_state_dict(ref.state_dict())
+        synced = norm_layers(sync, "abn_sync")
+        assert len(synced) == len(norm_layers(ref)) and all(m.axis_name is group for m in synced)
+        x = torch.randn(2, 3, 32, 32)
+        runs = []
+        for model in (ref, sync):
+            model.train()
+            loss = sum(o.square().mean() for o in model(x))
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs.append((loss, grads, [b.clone() for b in model.buffers()]))
+        torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=0)
+        for got, want in zip(runs[1][1] + tuple(runs[1][2]), runs[0][1] + tuple(runs[0][2])):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert NormAct(8, "abn_sync").axis_name is None  # no group: one rank
+        with pytest.raises(NotImplementedError, match="abn_sync"):
+            NormAct(8, "bn", axis_name=group)
+    finally:
+        dist.destroy_process_group()

@@ -109,9 +109,12 @@ def test_without_device_the_cli_asks_for_cuda(ckpt, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cmd,flags,item", [
     ("edit", ["--guidance-codec", "proxy"], "item 16"),
-    ("edit", ["--encoder-reuse", "2"], "item 16"), ("edit", ["--shard", "cfg2xsp4"], "item 18"),
+    ("edit", ["--encoder-reuse", "2"], "item 16"), ("edit", ["--shard", "cfg2xsp4"], "item 18b"),
     ("generate", ["--encoder-reuse", "3"], "item 16"),
-    ("generate", ["--shard", "sp8"], "item 18"),
+    ("generate", ["--shard", "sp8"], "item 18b"),
+    # --shard cfg2 is ported; it needs two ranks (torchrun), and one process has one.
+    ("edit", ["--shard", "cfg2"], "needs 2 devices, have 1"),
+    ("generate", ["--shard", "cfg2"], "needs 2 devices, have 1"),
 ])
 def test_later_options_exit_naming_their_item(ckpt, cmd, flags, item):
     image = ["--image", str(ckpt / "face.png")] if cmd == "edit" else []

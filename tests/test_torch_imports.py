@@ -48,3 +48,18 @@ def test_importing_every_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_parallel_is_checked_and_starts_no_group():
+    """parallel/ is among the files checked above, and importing it (with
+    the trainer and the CLI, which use it) starts no process group."""
+    names = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sweep.py",
+            "parallel/edit_shard.py"} <= names
+    code = ("import torch.distributed as dist\n"
+            "import diffusion_image_editing_tpu_torch.parallel, "
+            "diffusion_image_editing_tpu_torch.seg, diffusion_image_editing_tpu_torch.cli\n"
+            "print(dist.is_initialized())\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "False", res.stdout + res.stderr

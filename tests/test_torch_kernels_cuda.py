@@ -31,8 +31,10 @@ the same way. The forward's 128-row design (padded
 width 48: head dim 40, whose row sum comes from the PV product, and 48,
 which sums P itself; padded width 80, two row fragments a warp: 72 and 80)
 at query and key lengths that are no multiple of its 128-row block or its
-64-key tile, 77 and 1 keys, several batches and heads, one launch each; a
-negative scale goes to the 4-warp design. Tolerances, bf16 in and out as on the
+64-key tile, 77 and 1 keys, several batches and heads (batch 16 of 8
+heads, a sweep's CFG UNet), one launch each; a negative scale goes to the
+4-warp design; more heads than the launch grid's y dimension takes
+(65535) are refused. Tolerances, bf16 in and out as on the
 main path, each as max |kernel - plain| / max |plain|: forward 2e-2, a few
 times the readings that chip_smoke.py prints at the main path's shapes
 (PERF.md); gradients 2e-2 (P and dS are rounded to bf16 in the kernels'
@@ -158,6 +160,7 @@ def test_forward_and_lse_match_plain(gen, b, s_q, s_k, h, d):
         (2, 1024, 77, 3, 80, 0.11),     # head dim 80: two row fragments a warp
         (1, 100, 130, 2, 72, 0.12),     # 72 in 80: the ones column
         (1, 200, 300, 2, 80, 0.11),
+        (16, 1000, 77, 8, 40, 0.16),    # batch 16 (a sweep's CFG UNet): 128 heads on grid y
     ],
 )
 def test_forward_rows128_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
@@ -270,6 +273,13 @@ def test_bwd_dq_wide_design_matches_plain_and_reruns_bit_equal(gen, b, s_q, s_k,
     assert launched == {"flash_attn_bwd_dq": 1}
     assert got.dtype == torch.bfloat16 and _rel(got, want) <= GRAD_TOL
     assert torch.equal(got, A.flash_attn_bwd_dq(*args))  # deterministic: no atomics
+
+
+def test_more_heads_than_the_grid_takes_are_refused(gen):
+    """One block row a head on grid y, at most 65535 of them."""
+    q = _rand((A.GRID_Y_MAX // 8 + 1, 1, 8, 40), gen)
+    with pytest.raises(ValueError, match="gridDim|grid's y"):
+        A.flash_attn_fwd(q, q, q, 0.16, with_lse=False)
 
 
 @pytest.mark.parametrize("d", [96, 120, 256])

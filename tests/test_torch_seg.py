@@ -263,9 +263,19 @@ def test_cli_seg_train_on_cpu(tmp_path, capsys):
     assert rc == 0
     assert "seg-train: step 2, 2 steps this run" in capsys.readouterr().out
     assert (tmp_path / "step_00000002.pt").exists()
-    with pytest.raises(NotImplementedError, match="Queue A items 18-19"):
-        cli.main(["seg-train", "--device", "cpu", "--norm", "abn_sync", "--num-steps", "1",
-                  "--image-size", "32", "--width", "4", "--prefetch", "0"])
+    # norm abn_sync runs: without torchrun it is the single-process trainer,
+    # its statistics synced over one rank, so it equals abn to the bit.
+    sync_dir = tmp_path / "sync"
+    rc = cli.main(["seg-train", "--device", "cpu", "--image-size", "32", "--batch-size", "2",
+                   "--width", "4", "--norm", "abn_sync", "--num-steps", "2", "--prefetch", "0",
+                   "--num-workers", "0", "--raw-feed", "--ckpt-dir", str(sync_dir)])
+    assert rc == 0
+    assert "seg-train: step 2, 2 steps this run" in capsys.readouterr().out
+    abn = torch.load(tmp_path / "step_00000002.pt", weights_only=True)["model"]
+    sync = torch.load(sync_dir / "step_00000002.pt", weights_only=True)["model"]
+    assert abn.keys() == sync.keys()
+    for k in abn:
+        assert torch.equal(abn[k], sync[k]), k
 
 
 def test_seg_imports_without_pil():
