@@ -114,6 +114,34 @@ Phases, each printing its own lines; any failure exits non-zero:
              to `CfgEpsClosure` on the [main] UNet. Prints the device count:
              a 2-rank group needs two GPUs (the 2-rank split is held on the
              CPU by gloo).
+7e. item 16 - the opt-in accelerations on the [main] models, each against
+             its exact form in the same call:
+             [proxy]: bench.py's `proxy`: the affine proxy fitted
+             (`guidance_decode_proxy`, seconds), its per-pixel error against
+             the real decode of a fresh latent, then [main]'s path with
+             `edit_image(guidance_codec="proxy")`: steps/s beside [main]'s,
+             peak memory, launch counts (no decode gradient: K2/K3 0; K1 at
+             512 and K5/K6 only in the encode and the final decode);
+             [encprop]: bench.py's `encprop`: k = 1 through CfgEpsFeatClosure
+             bit-equal to the plain loop (5 guided steps, deterministic
+             cuDNN), then 50 colour-guided DDIM steps at k = 3 and the plain
+             loop timed beside it, launch counts = ceil(50 / 3) full + the
+             rest `reuse` forwards + 50 decode VJPs;
+             [int8]: bench.py's `int8`: the same 50-step loop under
+             `conv_mode("int8_large", min_h=128)` forward-only and with
+             `int8_bwd` (fails when no int8 conv ran), steps/s beside the
+             plain loop, peak memory; the full-size decode's relative error
+             against cuDNN's, dx's cosine against the exact dgrad and dw
+             bit-equal at (1, 128, 512, 512), and the int8 conv alone
+             against cuDNN's bf16 conv at the decode's three int8 shapes;
+             [seg_fast] (after [int8]): bench.py's `e2e_seg_fast`: [seg_edit]'s flow
+             with `guidance_codec="proxy", encoder_reuse=3`, seconds beside
+             [seg_edit]'s, launch counts.
+             [tiny] also holds a TINY int8 conv (the s32 product of the
+             same int8 operands exactly equal; forward and int8_bwd dx), a
+             TINY UNet's `reuse` forward and a proxy fitted and one nudge
+             through it, card against CPU, and that conv mode "int8" runs
+             no cuDNN 3x3 conv.
 8. prompt  - the SD path as a user starts it, at full width, after the [main]
              models are freed: an HF-layout SD-1.5 checkpoint directory
              (UNet, VAE under the legacy attention names, CLIP ViT-L/14
@@ -193,7 +221,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              plain ABN on the card, finite losses, weights and running
              statistics changed), a second resume, and one eval-mode forward.
 
-`[pace]` lines (after the build, before [main], [sweep], [ldm_clf] and [ddpm_edit])
+`[pace]` lines (after the build, before [main], [sweep], [proxy], [ldm_clf] and
+[ddpm_edit])
 read the host's and the card's pace: a fixed Python loop, one small
 launch, the objects the garbage collector tracks, a bf16 matmul's rate.
 
@@ -220,6 +249,7 @@ import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 # Forward, dQ, dK and dV: max |kernel - plain| / max |plain|, a few times the
 # readings at these shapes (PERF.md). The kernels round P (and dS) to bf16 for
 # their products and write bf16; the plain versions keep P and dS in f32.
@@ -898,8 +928,79 @@ def phase_tiny() -> None:
     failed += _tiny_masks()
     failed += _tiny_families()
     failed += _tiny_evals()
+    failed += _tiny_item16()
     if failed:
         raise RuntimeError(f"tiny models on the card disagree with the CPU: {failed}")
+
+
+def _tiny_item16(devices=(("cuda", torch.bfloat16), ("cpu", torch.float32))) -> list:
+    """The opt-in accelerations at TINY size, the first device against the
+    second: (a) an int8 conv: the s8 x s8 -> s32 product of the same int8
+    operands exactly equal, the forward and the int8_bwd dx within
+    TINY_TOL (f32 on both: within 1e-6); (b) the TINY UNet's `reuse`
+    forward on the features of its own `full` forward at another step, and
+    (c) a proxy fitted from each device's TINY decode of the same latents and
+    one SingleColorAttrFunc nudge through it. Returns the names that
+    disagree."""
+    import copy
+
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.engine import CfgEpsFeatClosure, DecodeClosure
+    from diffusion_image_editing_tpu_torch.guidance import (
+        SingleColorAttrFunc, solve_decode_proxy)
+    from diffusion_image_editing_tpu_torch.models import (
+        TINY_SD_UNET, TINY_VAE, AutoencoderKL, UNet2DCondition)
+    from diffusion_image_editing_tpu_torch.ops import conv as C
+
+    torch.manual_seed(2)
+    rng = np.random.default_rng(2)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))  # noqa
+    x, w, g = arr(2, 12, 16, 16), arr(20, 12, 3, 3) * 0.1, arr(2, 20, 16, 16)
+    xq, _ = C.quantize_int8(x, (0, 1, 2, 3))
+    wq, _ = C.quantize_int8(w, (1, 2, 3))
+    unet = UNet2DCondition(TINY_SD_UNET, device="cpu")
+    vae = AutoencoderKL(TINY_VAE, device="cpu")
+    text, lat, z = arr(2, 77, 32), arr(1, 4, 16, 16), arr(4, 4, 16, 16)
+    sched = schedule_for_model("sd", 4)
+    t = int(sched.timesteps[1])
+    runs = {}
+    for dev, dtype in devices:
+        u, v = copy.deepcopy(unet).to(dev, dtype), copy.deepcopy(vae).to(dev, dtype)
+        xd = x.to(dev, dtype).requires_grad_(True)
+        y = C.conv3x3_int8(xd, w.to(dev, dtype), int8_bwd=True)
+        (dx,) = torch.autograd.grad(y, xd, g.to(dev, dtype))
+        eps_fn = CfgEpsFeatClosure(u, text.to(dev, dtype), 3.5)
+        _, feats = eps_fn.full(lat.to(dev), np.array([801]))
+        proxy = solve_decode_proxy(z.to(dev), DecodeClosure(v, 0.18215)(z.to(dev)).detach())
+        nudged, _ = SingleColorAttrFunc(**dict(HEADLINE_GUIDE, t2=4)).apply(
+            lat.to(dev), None, z[:1].to(dev), t, 1, sched.to(dev), proxy)
+        runs[dev] = {"int8 s32": C.int8_conv3x3_s32(xq.to(dev), wq.to(dev)),
+                     "int8 forward": y.detach(), "int8_bwd dx": dx,
+                     "reuse": eps_fn.reuse(lat.to(dev) * 0.9, np.array([761]), feats),
+                     "proxy w": proxy.w, "proxy nudge": nudged - lat.to(dev)}
+    failed = []
+    (a, dtype), (b, _) = devices
+    tols = {"int8 s32": 0.0, "int8 forward": TINY_TOL["latent"], "int8_bwd dx": TINY_TOL["latent"],
+            "reuse": TINY_TOL["eps"], "proxy w": TINY_TOL["decode"],
+            "proxy nudge": TINY_TOL["decode_vjp"]}
+    if dtype == torch.float32:
+        tols.update({"int8 forward": 1e-6, "int8_bwd dx": 1e-6})
+    for name, tol in tols.items():
+        ref = runs[b][name].double().cpu()
+        err = ((runs[a][name].double().cpu() - ref).abs().max() / ref.abs().max()).item()
+        ok = err <= tol and math.isfinite(err)
+        log(f"[tiny] item 16 {name} {tuple(ref.shape)}: max|{a} {dtype} - {b}| / max|{b}| "
+            f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"item 16 {name}")
+    before = dict(C.CALL_COUNTS)
+    with C.conv_mode("int8"), torch.no_grad():
+        copy.deepcopy(vae).to(devices[0][0], dtype).decode(lat.to(devices[0][0], dtype))
+    calls = {k: C.CALL_COUNTS[k] - before[k] for k in C.CALL_COUNTS}
+    log(f"[tiny] item 16 a TINY decode under conv mode int8: conv calls {calls} (no cuDNN 3x3)")
+    if calls["xla"] or not calls["int8"]:
+        failed.append("item 16 int8 mode fell back to cuDNN")
+    return failed
 
 
 def _tiny_prompt() -> list:
@@ -1418,9 +1519,10 @@ def plain_watch(targets):
             setattr(mod, name, fn)
 
 
-def run_path(pipe, img, dev):
-    """Inversion + GUIDED colour-guided steps + final decode; returns the
-    output and the inversion's and the edit's seconds."""
+def run_path(pipe, img, dev, **edit_kw):
+    """Inversion + GUIDED colour-guided steps + final decode (`edit_kw` go
+    to `edit_image`); returns the output and the inversion's and the edit's
+    seconds."""
     from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
 
     attr = SingleColorAttrFunc(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)
@@ -1432,24 +1534,32 @@ def run_path(pipe, img, dev):
     torch.cuda.synchronize()
     t_inv = time.perf_counter()
     out = pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, attr_func=attr,
-                          inversion_method="ddpm", t_skip=T_SKIP, mode="split")
+                          inversion_method="ddpm", t_skip=T_SKIP, mode="split", **edit_kw)
     torch.cuda.synchronize()
     return out, t_inv - t_start, time.perf_counter() - t_inv
 
 
-def counted_run(tag, pipe, img, dev, smi):
+# Readings that later phases print beside their own, from this call: the
+# guided steps/s of each counted run, by tag, and "headline", the plain
+# 50-step colour-guided loop that [encprop] times.
+STEPS_S = {}
+SECONDS = {}  # whole-run seconds of [seg_edit] and [seg_fast]
+
+
+def counted_run(tag, pipe, img, dev, smi, **edit_kw):
     """A warm-up run, then one run with every launch count set to 0 just
     before it and read just after; checks the image. Returns the counts and
     the plain GroupNorm calls on the card during the counted run."""
     from diffusion_image_editing_tpu_torch import ops
 
-    run_path(pipe, img, dev)  # warm-up: first-call library set-up stays out of the timed run
+    run_path(pipe, img, dev, **edit_kw)  # warm-up: first-call set-up stays out of the timed run
     torch.cuda.reset_peak_memory_stats()
     with plain_groupnorm_watch() as plain_calls:
         ops.reset_launch_counts()
-        out, inv_s, edit_s = run_path(pipe, img, dev)
+        out, inv_s, edit_s = run_path(pipe, img, dev, **edit_kw)
         counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    STEPS_S[tag] = GUIDED / edit_s
     log(f"[{tag}] e2e {inv_s + edit_s:.3f} s (inversion {inv_s:.3f} s, {GUIDED} guided steps "
         f"{edit_s:.3f} s = {GUIDED / edit_s:.3f} steps/s), peak memory "
         f"{peak / 2**30:.2f} GiB, on {smi}")
@@ -1583,6 +1693,7 @@ def phase_fused(smi: str, unet, vae) -> dict:
 SEG_CLASS = 17  # hair, bench.py's e2e_seg class
 SEG_LOSS_SCALE = 200.0
 SEG_COVERAGE = (0.01, 0.99)  # bounds on the mask's share of the latent
+SEG_FAST_K = 3  # [seg_fast]'s encoder-propagation interval (bench.py:400)
 
 
 def write_seg_checkpoint(path: str, image, lat: int, dev) -> tuple:
@@ -1626,18 +1737,23 @@ def write_seg_checkpoint(path: str, image, lat: int, dev) -> tuple:
     return written, raise_, cover
 
 
-def phase_seg_edit(smi: str, unet, vae) -> dict:
+def phase_seg_edit(smi: str, unet, vae, fast: bool = False) -> dict:
     """bench.py's e2e_seg workload on the [main] models, face alignment
     left out: BiSeNet parsing of a random 512 px image -> hair mask ->
     encode -> edit-friendly DDPM inversion (batched, chunk 10, t_skip 10)
     -> the masked, resynthesized edit with 40 NetAttrFunc-guided steps, each
     with a gradient through the full VAE decoder and the BiSeNet -> decode.
-    Returns the launch counts of the run."""
+    With `fast` it is bench.py's e2e_seg_fast ([seg_fast]): the same flow
+    with `guidance_codec="proxy"` (the gradient through the fitted affine
+    proxy and the BiSeNet, the proxy fitted before the counted run) and
+    `encoder_reuse=SEG_FAST_K`. Returns the launch counts of the run."""
     from diffusion_image_editing_tpu_torch import ops
     from diffusion_image_editing_tpu_torch.guidance import NetAttrFunc
     from diffusion_image_editing_tpu_torch.ops.resize import imagenet_normalize, to_unit_range
     from diffusion_image_editing_tpu_torch.pipeline import EditPipeline, create_segmentation_model
 
+    tag = "seg_fast" if fast else "seg_edit"
+    fast_kw = dict(guidance_codec="proxy", encoder_reuse=SEG_FAST_K) if fast else {}
     dev = next(unet.parameters()).device
     sd, _, img = make_pipeline(unet, vae, dev)
     with tempfile.TemporaryDirectory(prefix="seg_ckpt_") as root:
@@ -1651,9 +1767,9 @@ def phase_seg_edit(smi: str, unet, vae) -> dict:
     if set(state) != set(written) or not all(
             v.dtype == written[k].dtype and torch.equal(v.cpu(), written[k])
             for k, v in state.items()):
-        raise RuntimeError("[seg_edit] the loaded BiSeNet is not the checkpoint written")
+        raise RuntimeError(f"[{tag}] the loaded BiSeNet is not the checkpoint written")
     n_params = sum(p.numel() for p in seg.module.parameters())
-    log(f"[seg_edit] BiSeNet width 64, 19 classes, norm bn, f32, {n_params / 1e6:.1f} M "
+    log(f"[{tag}] BiSeNet width 64, 19 classes, norm bn, f32, {n_params / 1e6:.1f} M "
         f"parameters, seeded random weights with class {SEG_CLASS}'s logit raised by "
         f"{raise_:.4f} (chosen for a coverage of {cover:.4f}); written as a face-parsing "
         f"checkpoint and loaded by create_segmentation_model in {load_s:.3f} s, {len(state)} "
@@ -1676,13 +1792,22 @@ def phase_seg_edit(smi: str, unet, vae) -> dict:
         return out
 
     pipe.prepare_for_edit = timed_prepare
-    expected = path_launches(per_forward_launches(forward_pieces(sd, dev)))
+    per = per_forward_launches(forward_pieces(sd, dev))
+    expected = path_launches(per)
+    if fast:
+        reuse = GUIDED - math.ceil(GUIDED / SEG_FAST_K)
+        expected = implied_with_reuse(per, reuse_launches(sd, dev), UNET_CALLS - reuse, reuse, 0,
+                                      1, ENCODES)
+        t0 = time.perf_counter()
+        sd.guidance_decode_proxy(generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        log(f"[{tag}] proxy fitted in {time.perf_counter() - t0:.3f} s (one batch-8 decode)")
 
     def edit(attr_func):
         return pipe.edit_image(xt, eta=1.0, zs=zs, xts=xts, mask=mask, attr_func=attr_func,
                                inversion_method="ddpm", t_skip=T_SKIP, resynthesize=True,
                                generator=torch.Generator(device=dev).manual_seed(9),
-                               collect=False, mode="split")
+                               collect=False, mode="split", **fast_kw)
 
     torch.cuda.reset_peak_memory_stats()
     with plain_groupnorm_watch() as gn_calls, plain_attention_watch() as attn_calls, \
@@ -1700,29 +1825,36 @@ def phase_seg_edit(smi: str, unet, vae) -> dict:
         counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     inv_s, edit_s = t_inv - t0 - prep_s[0], t_end - t_inv
-    log(f"[seg_edit] segment + mask + encode {prep_s[0]:.3f} s, inversion {inv_s:.3f} s, "
+    STEPS_S[tag] = GUIDED / edit_s
+    SECONDS[tag] = t_end - t0
+    log(f"[{tag}] segment + mask + encode {prep_s[0]:.3f} s, inversion {inv_s:.3f} s, "
         f"{GUIDED} NetAttrFunc-guided steps {edit_s:.3f} s = {GUIDED / edit_s:.3f} steps/s, whole "
         f"run {t_end - t0:.3f} s, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    if fast:
+        log(f"[{tag}] beside [seg_edit] in this call: whole run {SECONDS['seg_edit']:.3f} s, "
+            f"{STEPS_S['seg_edit']:.3f} steps/s; here {SECONDS[tag]:.3f} s "
+            f"({SECONDS['seg_edit'] / SECONDS[tag]:.2f}x), {STEPS_S[tag]:.3f} steps/s "
+            f"({STEPS_S[tag] / STEPS_S['seg_edit']:.2f}x)")
     plain = {k: v for k, v in {**gn_calls, **attn_calls, **abn_calls}.items()
              if not k.endswith("causal")}
-    log(f"[seg_edit] launches {counts}")
-    log(f"[seg_edit] expected {expected} (the [main] path's: BiSeNet runs no kernel); plain "
+    log(f"[{tag}] launches {counts}")
+    log(f"[{tag}] expected {expected} (the [main] path's pieces: BiSeNet runs no kernel); plain "
         f"attention, GroupNorm and ABN calls on the card {plain}")
     if counts != expected:
-        raise RuntimeError(f"[seg_edit] launch counts {counts} differ from the path's {expected}")
+        raise RuntimeError(f"[{tag}] launch counts {counts} differ from the path's {expected}")
     if any(plain.values()):
-        raise RuntimeError(f"[seg_edit] a plain attention, GroupNorm or ABN ran on the card: "
+        raise RuntimeError(f"[{tag}] a plain attention, GroupNorm or ABN ran on the card: "
                            f"{plain}")
 
     lat = sd.data_dimensionality
     coverage = mask[:, 0].float().mean().item()
     hair = (parsing == SEG_CLASS).float().mean().item()
-    log(f"[seg_edit] parsing map {tuple(parsing.shape)}: class {SEG_CLASS} on {hair:.4f} of it; "
+    log(f"[{tag}] parsing map {tuple(parsing.shape)}: class {SEG_CLASS} on {hair:.4f} of it; "
         f"mask {tuple(mask.shape)} covers {coverage:.4f} of the latent (bounds {SEG_COVERAGE}), "
         f"alpha channel all ones {bool((mask[:, 3] == 1).all())}")
     if tuple(mask.shape) != (1, 4, lat, lat) or not bool((mask[:, 3] == 1).all()) or not (
             SEG_COVERAGE[0] <= coverage <= SEG_COVERAGE[1]):
-        raise RuntimeError(f"[seg_edit] the mask {tuple(mask.shape)} covers {coverage:.4f}")
+        raise RuntimeError(f"[{tag}] the mask {tuple(mask.shape)} covers {coverage:.4f}")
     imgs = out.imgs
     size = vae.config.sample_size
     finite = bool(torch.isfinite(imgs).all())
@@ -1730,12 +1862,12 @@ def phase_seg_edit(smi: str, unet, vae) -> dict:
     moved = (imgs.float() - unguided.float()).abs().max().item()
     with torch.no_grad():
         mass = [attr.loss(x).item() for x in (imgs, unguided)]
-    log(f"[seg_edit] image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
+    log(f"[{tag}] image {tuple(imgs.shape)} {imgs.dtype}, finite {finite}, range "
         f"[{imgs.min().item():.3f}, {imgs.max().item():.3f}]; max |guided - unguided| {moved:.4f} "
         f"(the same inversion, mask and noise); class {SEG_CLASS} mass guided {mass[0]:.5f}, "
         f"unguided {mass[1]:.5f}")
     if not finite or tuple(imgs.shape) != (1, 3, size, size) or not moved > 0:
-        raise RuntimeError("[seg_edit] the edit is not a finite image that the guidance moved")
+        raise RuntimeError(f"[{tag}] the edit is not a finite image that the guidance moved")
     return counts
 
 
@@ -2228,6 +2360,266 @@ def phase_dist(smi: str, unet, vae, dev=torch.device("cuda")) -> dict:
         raise RuntimeError(f"[dist] abn_sync launched {s['counts']}, not {expected}, or a plain "
                            f"ABN ran on the card")
     return s["counts"]
+
+
+# ---------------------------------------------------------------------------
+# 7e. proxy, encprop, int8 (and seg_fast, in 7.): the opt-in accelerations
+# ---------------------------------------------------------------------------
+
+ENCPROP_K = 3  # bench.py's phase_encprop interval
+ENCPROP_CHECK_STEPS = 5
+INT8_MIN_H = 128  # the JAX package's default gate
+# (label, N, C, H, W): the int8 convs of a 512 px decode under int8_large
+# (C -> C, 3 x 3), timed alone against cuDNN's bf16 conv.
+INT8_CONV_CASES = [("decode 512x512x128", 1, 128, 512, 512), ("decode 256x256x256", 1, 256, 256, 256),
+                   ("decode 128x128x512", 1, 512, 128, 128)]
+HEADLINE_GUIDE = dict(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=STEPS)  # bench.py
+
+
+def reuse_launches(sd, dev) -> dict:
+    """Kernel launches of one CFG UNet `reuse` forward (mid + up on the
+    features of a full forward), counted alone."""
+    from diffusion_image_editing_tpu_torch import ops
+
+    lat = sd.data_dimensionality
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, sd.latent_channels, lat, lat), dtype=np.float32)).to(dev)
+    eps_fn = sd.eps_fn(sd.prep_text(None), features=True)
+    _, feats = eps_fn.full(x, np.array([501]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    eps_fn.reuse(x, np.array([481]), feats)
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+def implied_with_reuse(per: dict, per_reuse: dict, full: int, reuse: int, grad_decodes: int,
+                       decodes: int, encodes: int) -> dict:
+    """`implied_launches` with `full` whole UNet calls and `reuse` calls that
+    run mid + up only."""
+    total = implied_launches(per, full, grad_decodes, decodes, encodes)
+    return {k: v + reuse * per_reuse[k] for k, v in total.items()}
+
+
+def headline_run(sd, eps_fn, decode_fn, x, k: int = 1, sched=None):
+    """bench.py's headline loop: STEPS DDIM steps at eta 0 from x, each
+    colour-guided through `decode_fn`; encoder propagation at interval k."""
+    from diffusion_image_editing_tpu_torch.engine import edit_split
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
+    sched = sched or sd.schedule
+    attr = SingleColorAttrFunc(**dict(HEADLINE_GUIDE, t2=sched.num_inference_steps))
+    out = edit_split(sched, eps_fn, x, attr_func=attr, decode_fn=decode_fn, encoder_reuse=k).x0
+    torch.cuda.synchronize()
+    return out
+
+
+def counted_headline(sd, eps_fn, decode_fn, xt, k: int = 1):
+    """A warm pass on another latent and a timed pass with the launch counts
+    set to 0 just before it (bench.py's _timed_pass); returns (seconds,
+    counts, peak bytes, output)."""
+    from diffusion_image_editing_tpu_torch import ops
+
+    headline_run(sd, eps_fn, decode_fn, xt + 1.0, k)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = headline_run(sd, eps_fn, decode_fn, xt, k)
+    seconds = time.perf_counter() - t0
+    return seconds, ops.launch_counts(), torch.cuda.max_memory_allocated(), out
+
+
+def headline_latent(sd, dev, seed: int = 13):
+    lat = sd.data_dimensionality
+    return torch.randn((1, sd.latent_channels, lat, lat),
+                       generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def phase_proxy(smi: str, unet, vae) -> dict:
+    """bench.py's `proxy` workload on the [main] models, through the entry
+    point a user calls: the proxy fitted (`guidance_decode_proxy`, one
+    batch-8 decode), its per-pixel error against the real decode of a fresh
+    latent, then [main]'s path (DDPM inversion, GUIDED colour-guided steps,
+    final decode) with `edit_image(guidance_codec="proxy")`: no decode
+    gradient, so no K2/K3; K1 at the VAE's head and K5/K6 only in the final
+    decode and the encode. Returns the counted run's launches."""
+    dev = next(unet.parameters()).device
+    sd, pipe, img = make_pipeline(unet, vae, dev)
+    t0 = time.perf_counter()
+    proxy = sd.guidance_decode_proxy(generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    z = headline_latent(sd, dev, seed=21)
+    with torch.no_grad():
+        real = sd.decode(z).float()
+        approx = proxy(z).float()
+    up = proxy.up
+    pooled = real.reshape(real.shape[0], real.shape[1], -1, up, real.shape[3] // up, up).mean(
+        dim=(3, 5))
+    direct = torch.einsum("nchw,cd->ndhw", z, proxy.w) + proxy.b[:, None, None]
+    rms = lambda t: t.pow(2).mean().sqrt().item()  # noqa: E731
+    log(f"[proxy] fitted in {fit_s:.3f} s (batch-8 decode at {vae.config.sample_size} px + a "
+        f"{proxy.w.shape[0] + 1}x{proxy.w.shape[0] + 1} solve): w {tuple(proxy.w.shape)}, up {up}; "
+        f"on a fresh latent, per pixel: rms |proxy - decode| {rms(approx - real):.4f} against "
+        f"rms |decode| {rms(real):.4f}, mean abs {(approx - real).abs().mean().item():.4f}; per "
+        f"latent pixel (the decode mean-pooled): rms {rms(direct - pooled):.4f} against "
+        f"{rms(pooled):.4f}")
+    if not (torch.isfinite(approx).all() and approx.shape == real.shape):
+        raise RuntimeError(f"[proxy] the proxy gives {tuple(approx.shape)}, not a finite "
+                           f"{tuple(real.shape)}")
+    per = per_forward_launches(forward_pieces(sd, dev))
+    expected = implied_launches(per, UNET_CALLS, 0, 1, ENCODES)
+    if expected["flash_attn_bwd_dq"] or expected["flash_attn_bwd_dkv"]:
+        raise RuntimeError(f"[proxy] the pieces imply a decode gradient: {expected}")
+    counts, plain_calls = counted_run("proxy", pipe, img, dev, smi, guidance_codec="proxy")
+    check_counts("proxy", counts, expected, plain_calls)
+    log(f"[proxy] beside [main] in this call: {STEPS_S['main']:.3f} steps/s; through the proxy "
+        f"{STEPS_S['proxy']:.3f} ({STEPS_S['proxy'] / STEPS_S['main']:.2f}x), on {smi}")
+    return counts
+
+
+def phase_encprop(smi: str, unet, vae) -> dict:
+    """bench.py's `encprop` workload (k = ENCPROP_K) on the [main] models:
+    `edit_split` with the CFG feature closure, STEPS colour-guided DDIM steps
+    through the full decode, the down path every k-th step. First, on the
+    card, k = 1 through the feature closure bit-equal to the plain loop over
+    ENCPROP_CHECK_STEPS guided steps (cuDNN deterministic for the check).
+    Then a warm and a timed pass at k, and a timed pass of the plain loop
+    (the headline); launch counts checked against ceil(STEPS / k) full and
+    the rest `reuse` forwards. Returns the timed k pass's launches."""
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+
+    dev = next(unet.parameters()).device
+    sd, _, _ = make_pipeline(unet, vae, dev)
+    emb = sd.prep_text(None)
+    plain_fn, feat_fn, decode_fn = sd.eps_fn(emb), sd.eps_fn(emb, features=True), sd.decode_fn()
+    xt = headline_latent(sd, dev)
+
+    sched = schedule_for_model("sd", ENCPROP_CHECK_STEPS)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = headline_run(sd, plain_fn, decode_fn, xt, 1, sched)
+        b = headline_run(sd, feat_fn, decode_fn, xt, 1, sched)
+        c = headline_run(sd, feat_fn, decode_fn, xt, ENCPROP_K, sched)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[encprop] {ENCPROP_CHECK_STEPS} guided steps: k = 1 through CfgEpsFeatClosure "
+        f"bit-equal to the plain loop: {torch.equal(a, b)}; k = {ENCPROP_K} differs from it by "
+        f"{rel_err(c, a):.3e} of max |latent|")
+    if not torch.equal(a, b):
+        raise RuntimeError(f"[encprop] k = 1 through the feature closure is not the plain loop: "
+                           f"{rel_err(b, a):.3e}")
+
+    per = per_forward_launches(forward_pieces(sd, dev))
+    per_reuse = reuse_launches(sd, dev)
+    full = math.ceil(STEPS / ENCPROP_K)
+    expected = implied_with_reuse(per, per_reuse, full, STEPS - full, STEPS, STEPS, 0)
+    log(f"[encprop] one reuse forward launches {per_reuse}; one full forward {per['eps']}")
+    k_s, counts, peak, out = counted_headline(sd, feat_fn, decode_fn, xt, ENCPROP_K)
+    base_s, _, base_peak, base = counted_headline(sd, plain_fn, decode_fn, xt, 1)
+    STEPS_S["headline"] = STEPS / base_s
+    log(f"[encprop] {STEPS} guided DDIM steps at k = {ENCPROP_K}: {k_s:.3f} s = "
+        f"{STEPS / k_s:.3f} steps/s, peak {peak / 2**30:.2f} GiB; the plain loop {base_s:.3f} s "
+        f"= {STEPS / base_s:.3f} steps/s, peak {base_peak / 2**30:.2f} GiB; {base_s / k_s:.2f}x; "
+        f"k = {ENCPROP_K} against the plain loop's final latent {rel_err(out, base):.3e}; "
+        f"[main] {STEPS_S['main']:.3f} steps/s in this call, on {smi}")
+    log(f"[encprop] launches {counts}; implied by {full} full and {STEPS - full} reuse CFG "
+        f"forwards and {STEPS} decodes with their gradient: {expected}")
+    if counts != expected or not torch.isfinite(out).all():
+        raise RuntimeError(f"[encprop] launch counts {counts} differ from {expected}, or the "
+                           f"latent is not finite")
+    return counts
+
+
+def phase_int8(smi: str, unet, vae) -> dict:
+    """bench.py's `int8` workload on the [main] models: the headline loop
+    (STEPS colour-guided DDIM steps through the full decode) under
+    `conv_mode("int8_large", min_h=INT8_MIN_H)`, forward-only and with
+    `int8_bwd`, each a warm and a timed pass; fails if no int8 conv ran
+    (bench.py: "traced no int8 convs -- invalid"). Then the full-size
+    decode's relative error against the cuDNN decode, dx's cosine against
+    the exact dgrad and dw bit-equal at the largest int8 shape, and the int8
+    conv's time alone against cuDNN's at the decode's int8 shapes. Returns
+    the int8_bwd pass's launches."""
+    from diffusion_image_editing_tpu_torch.ops import conv as C
+
+    dev = next(unet.parameters()).device
+    sd, _, _ = make_pipeline(unet, vae, dev)
+    plain_fn, decode_fn = sd.eps_fn(sd.prep_text(None)), sd.decode_fn()
+    xt = headline_latent(sd, dev)
+    per = per_forward_launches(forward_pieces(sd, dev))
+    expected = implied_launches(per, STEPS, STEPS, STEPS, 0)
+    base = STEPS_S.get("headline")
+    counts = None
+    for bwd in (False, True):
+        before = dict(C.CALL_COUNTS)
+        with C.conv_mode("int8_large", min_h=INT8_MIN_H, int8_bwd=bwd):
+            secs, counts, peak, out = counted_headline(sd, plain_fn, decode_fn, xt)
+        calls = {k: C.CALL_COUNTS[k] - before[k] for k in C.CALL_COUNTS}
+        log(f"[int8] int8_large min_h {INT8_MIN_H}, int8_bwd {bwd}: {STEPS} guided DDIM steps "
+            f"{secs:.3f} s = {STEPS / secs:.3f} steps/s (the plain loop "
+            f"{base if base is None else round(base, 3)} steps/s, [main] {STEPS_S['main']:.3f}, "
+            f"in this call), peak {peak / 2**30:.2f} GiB; conv calls over both passes {calls}, "
+            f"on {smi}")
+        if not calls["int8"]:
+            raise RuntimeError("[int8] ran no int8 conv -- invalid")
+        if counts != expected or not torch.isfinite(out).all():
+            raise RuntimeError(f"[int8] launch counts {counts} differ from {expected}, or the "
+                               f"latent is not finite")
+    log(f"[int8] launches {counts}; implied by {STEPS} CFG UNet calls and {STEPS} decodes with "
+        f"their gradient: {expected}")
+
+    z = headline_latent(sd, dev, seed=21)
+    with torch.no_grad():
+        ref = sd.decode(z).float()
+        with C.conv_mode("int8_large", min_h=INT8_MIN_H):
+            q = sd.decode(z).float()
+    dec_err = ((q - ref).norm() / ref.norm()).item()
+    g = torch.Generator(device=dev).manual_seed(23)
+    _, n, c, h, w = INT8_CONV_CASES[0]
+    x = torch.randn((n, c, h, w), generator=g, device=dev).to(torch.bfloat16)
+    wt = (torch.randn((c, c, 3, 3), generator=g, device=dev) * 0.03).to(torch.bfloat16)
+    cot = torch.randn((n, c, h, w), generator=g, device=dev).to(torch.bfloat16)
+    grads = {}
+    for bwd in (None, True):
+        xx, ww = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+        y = F.conv2d(xx, ww, padding=1) if bwd is None else C.conv3x3_int8(xx, ww, int8_bwd=True)
+        y.backward(cot)
+        grads[bwd] = xx.grad.float(), ww.grad
+    a, b = grads[None][0].flatten(), grads[True][0].flatten()
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    dw_equal = torch.equal(grads[None][1], grads[True][1])
+    log(f"[int8] full-size decode {tuple(ref.shape)} under int8_large: relative L2 error "
+        f"{dec_err:.4e} against the cuDNN decode; at ({n}, {c}, {h}, {w}) -> {c}: int8_bwd dx "
+        f"cosine {cos:.6f} against the exact dgrad, dw bit-equal {dw_equal}")
+    if not (math.isfinite(dec_err) and dec_err < 0.15 and cos > 0.99 and dw_equal):
+        raise RuntimeError(f"[int8] decode error {dec_err}, dx cosine {cos}, dw equal {dw_equal}")
+    del x, wt, cot, grads, a, b
+    for label, n, c, h, w in INT8_CONV_CASES:
+        x = torch.randn((n, c, h, w), generator=g, device=dev).to(torch.bfloat16)
+        wt = (torch.randn((c, c, 3, 3), generator=g, device=dev) * 0.03).to(torch.bfloat16)
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            q_ms = time_ms(lambda: C.conv3x3_int8(x, wt), reps=5)
+            q_peak = torch.cuda.max_memory_allocated()
+            xq, _ = C.quantize_int8(x, (0, 1, 2, 3))
+            wq, _ = C.quantize_int8(wt, (1, 2, 3))
+            mm_ms = time_ms(lambda: C.int8_conv3x3_s32(xq, wq), reps=5)
+            cols = torch.randint(-127, 128, (n * h * w, 9 * c), generator=g, device=dev,
+                                 dtype=torch.int8)
+            wmat = torch.randint(-127, 128, (9 * c, c), generator=g, device=dev,
+                                 dtype=torch.int8)
+            prod_ms = time_ms(lambda: torch._int_mm(cols, wmat), reps=5)
+            bf_ms = time_ms(lambda: F.conv2d(x, wt, padding=1), reps=5)
+        flops = 2 * n * h * w * 9 * c * c
+        log(f"[int8] {label} -> {c}: int8 conv {q_ms:.4f} ms (of it the s8 product with its "
+            f"column matrix {mm_ms:.4f}, the ({n * h * w}, {9 * c}) x ({9 * c}, {c}) _int_mm "
+            f"alone {prod_ms:.4f}), cuDNN bf16 {bf_ms:.4f} ms; {flops / 1e12:.4f} T "
+            f"operations a call: at the int8 peak {flops / PEAK_INT8_OPS * 1e3:.4f} ms, at the "
+            f"bf16 peak {flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; peak memory of the int8 call "
+            f"{q_peak / 2**30:.2f} GiB, on {smi}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3037,6 +3429,11 @@ def main() -> int:
     pace_probe("before [sweep]")
     sweep_counts = phase_sweep(smi, unet, vae)
     dist_counts = phase_dist(smi, unet, vae)
+    pace_probe("before [proxy]")
+    proxy_counts = phase_proxy(smi, unet, vae)
+    encprop_counts = phase_encprop(smi, unet, vae)
+    int8_counts = phase_int8(smi, unet, vae)
+    seg_fast_counts = phase_seg_edit(smi, unet, vae, fast=True)
     del unet, vae
     gc.collect()
     torch.cuda.empty_cache()
@@ -3061,7 +3458,9 @@ def main() -> int:
         e["launches"] = {"affine_silu_conv3x3": fused_counts,
                          "abn_apply": seg_counts}.get(name, counts)[name]
         e["launches_by_phase"] = {"remat": remat_counts[name], "metrics": metrics_counts[name],
-                                  "sweep": sweep_counts[name], "dist": dist_counts[name]}
+                                  "sweep": sweep_counts[name], "dist": dist_counts[name],
+                                  "proxy": proxy_counts[name], "encprop": encprop_counts[name],
+                                  "int8": int8_counts[name], "seg_fast": seg_fast_counts[name]}
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,9 @@ round trip's PSNR. `seg-train` trains BiSeNet on CelebAMask-HQ
 (`--data-root`) or, without it, on synthetic data; `seg-eval` writes
 parsing overlays of a directory of images. Each runs on one CUDA device
 unless `--device cpu` asks for the CPU; none falls back to the CPU on its
-own. The flags are the JAX package's; the options of later slices exit
-with a message naming their ROADMAP Queue A item.
+own. The flags are the JAX package's, `--encoder-reuse` (encoder
+propagation) and `edit --guidance-codec proxy` among them; the spatial
+split exits naming its ROADMAP Queue A item.
 
 Under `torchrun --nproc-per-node N` each rank takes `cuda:LOCAL_RANK` (NCCL;
 gloo with `--device cpu`). `seg-train` then trains data-parallel over the
@@ -50,13 +51,6 @@ import torch
 import torch.distributed as dist
 
 from .parallel.mesh import is_first_rank, world_size
-
-
-def _refuse_unported(args) -> None:
-    if args.encoder_reuse > 1:
-        raise SystemExit("--encoder-reuse > 1 is not ported yet: Queue A item 16")
-    if getattr(args, "guidance_codec", "full") != "full":
-        raise SystemExit("--guidance-codec proxy is not ported yet: Queue A item 16")
 
 
 def _parse_mesh(spec: str):
@@ -87,7 +81,6 @@ def _parse_mesh(spec: str):
 def _build_wrapper(args, sample_clipping: bool):
     from .pipeline import create_diffusion_model
 
-    _refuse_unported(args)
     mesh = _parse_mesh(args.shard) if args.shard else None
     if args.family == "sd" and not (
             args.checkpoint_dir and os.path.isdir(os.path.join(args.checkpoint_dir, "tokenizer"))):
@@ -120,7 +113,8 @@ def cmd_generate(args) -> None:
     w = _build_wrapper(args, args.sample_clipping)
     imgs, *_ = w.generate_images(
         num_images=args.num_images, eta=args.eta, num_inference_steps=args.steps,
-        seed=args.seed, prompt_ids=_prompt_ids(w, args.prompt), cfg_scale=args.cfg_scale)
+        seed=args.seed, prompt_ids=_prompt_ids(w, args.prompt), cfg_scale=args.cfg_scale,
+        encoder_reuse=args.encoder_reuse)
     if not is_first_rank():
         return
     for i, pil in enumerate(tensors_to_pils(imgs)):
@@ -187,7 +181,8 @@ def cmd_edit(args) -> None:
         xt, eta=args.eta, zs=zs, xts=xts, mask=mask, attr_func=attr, prompt_ids=ids,
         cfg_scale=args.cfg_scale, inversion_method=args.inversion_method, t_skip=t_skip,
         resynthesize=args.resynthesize, mode=args.edit_mode,
-        generator=torch.Generator(device=w.device).manual_seed(args.seed))
+        generator=torch.Generator(device=w.device).manual_seed(args.seed),
+        encoder_reuse=args.encoder_reuse, guidance_codec=args.guidance_codec)
     if is_first_rank():
         tensor_to_pil(out.imgs).save(args.out)
         print(args.out)
@@ -269,7 +264,9 @@ def _common(sp) -> None:
     sp.add_argument("--steps", type=int, default=50)
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--encoder-reuse", type=int, default=1,
-                    help="encoder propagation interval; only 1 (exact) is ported")
+                    help="encoder propagation interval k (Faster Diffusion, arXiv "
+                         "2312.09608): the UNet's down path runs every k-th step only; "
+                         "1 = exact")
     sp.add_argument("--shard", default=None, metavar="SPEC",
                     help="split each CFG UNet call over the ranks of torchrun: cfg2 "
                          "(the spatial sp/dp split is item 18b)")
@@ -321,7 +318,9 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--edit-mode", default="split", choices=["split", "fused"],
                    help="the edit loop's mode (the same loop in the port)")
     e.add_argument("--guidance-codec", default="full", choices=["full", "proxy"],
-                   help="proxy: not ported (item 16)")
+                   help="proxy: guidance gradients through the fitted affine latent -> "
+                        "RGB map instead of the decoder; the output is still decoded by "
+                        "the decoder")
     e.add_argument("--guidance-stride", type=int, default=1,
                    help="apply the guidance nudge every K-th step inside [t1, t2)")
     e.add_argument("--out", default="edited.png")

@@ -1,8 +1,10 @@
 from .denoise import (  # noqa: F401
     CfgEpsClosure,
+    CfgEpsFeatClosure,
     DecodeClosure,
     EncodeClosure,
     EpsClosure,
+    EpsFeatClosure,
     Trajectory,
     generate,
 )

@@ -28,6 +28,18 @@ class EpsClosure:
             return self.unet(x, t)
 
 
+class EpsFeatClosure(EpsClosure):
+    """`EpsClosure` with encoder propagation (see `CfgEpsFeatClosure`)."""
+
+    def full(self, x: torch.Tensor, t):
+        with torch.no_grad():
+            return self.unet(x, t, return_encoder_features=True)
+
+    def reuse(self, x: torch.Tensor, t, feats) -> torch.Tensor:
+        with torch.no_grad():
+            return self.unet(x, t, encoder_features=feats)
+
+
 class CfgEpsClosure:
     """Classifier-free guidance as ONE batched-2 UNet call.
 
@@ -39,16 +51,39 @@ class CfgEpsClosure:
         self.text_emb = text_emb
         self.cfg_scale = cfg_scale
 
-    def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
+    def _pair(self, x: torch.Tensor, t):
         b = x.shape[0]
         t = torch.as_tensor(np.asarray(t) if not torch.is_tensor(t) else t, device=x.device)
         if t.dim() == 1:
             t = torch.cat([t, t])
         ctx = self.text_emb.repeat_interleave(b, dim=0)  # (2B, L, D) uncond first
-        with torch.no_grad():
-            eps = self.unet(torch.cat([x, x]), t, ctx)
+        return torch.cat([x, x]), t, ctx
+
+    def _mix(self, eps: torch.Tensor) -> torch.Tensor:
         eps_uncond, eps_text = eps.chunk(2)
         return eps_uncond + self.cfg_scale * (eps_text - eps_uncond)
+
+    def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
+        with torch.no_grad():
+            return self._mix(self.unet(*self._pair(x, t)))
+
+
+class CfgEpsFeatClosure(CfgEpsClosure):
+    """`CfgEpsClosure` with encoder propagation (Faster Diffusion, arXiv
+    2312.09608): `full` also returns the UNet's down-path activations of
+    the batch-2B pair; `reuse` takes them and recomputes only mid + up with
+    the current timestep embedding. Approximate by design, opt-in through
+    `encoder_reuse`; `reuse` given the same (x, t)'s features equals
+    `full`'s eps exactly."""
+
+    def full(self, x: torch.Tensor, t):
+        with torch.no_grad():
+            eps, feats = self.unet(*self._pair(x, t), return_encoder_features=True)
+        return self._mix(eps), feats
+
+    def reuse(self, x: torch.Tensor, t, feats) -> torch.Tensor:
+        with torch.no_grad():
+            return self._mix(self.unet(*self._pair(x, t), encoder_features=feats))
 
 
 class DecodeClosure:
@@ -107,9 +142,10 @@ def generate(
     else len(zs), else the schedule's (the reference's truncation); zs[-n:]
     (S', B, C, H, W) is the per-step variance noise, required when eta > 0.
     `step_rule` "ddim" takes `ddim_step`, "ddpm" the edit-friendly
-    `reverse_step`."""
-    from .edit import edit_split, refuse_encoder_reuse  # engine.edit imports this module
+    `reverse_step`. `encoder_reuse=k > 1`: encoder propagation (see
+    `engine.edit.edit_split`), which needs a feature-capable eps_fn."""
+    from .edit import edit_split  # engine.edit imports this module
 
-    refuse_encoder_reuse(encoder_reuse)
     return Trajectory(*edit_split(sched, eps_fn, xt, eta=eta, zs=zs, step_rule=step_rule,
-                                  collect=collect, num_steps=num_steps))
+                                  collect=collect, num_steps=num_steps,
+                                  encoder_reuse=encoder_reuse))

@@ -7,7 +7,7 @@ attribute function's nudge: a gradient through decode and loss. The JAX
 package has two forms of the loop, one jitted scan (`edit`) and a host loop
 of jitted steps (`edit_split`); in torch there is one host loop,
 `edit_split`, which also serves unguided generation, and `edit` only adds
-the JAX signature's `encoder_reuse` check to it."""
+the JAX signature to it."""
 
 from __future__ import annotations
 
@@ -40,14 +40,25 @@ def edit_split(
     step_rule: str = "ddim",
     collect: bool = False,
     num_steps: Optional[int] = None,
+    encoder_reuse: int = 1,
 ) -> EditResult:
     """Guided denoising over the last n timesteps, one host step at a time:
     n = `num_steps`, else len(zs), else the schedule's; zs[-n:] is the
     per-step variance noise. t_skip is applied by the caller slicing
     xt = xts[t_skip] and zs = zs[t_skip:]. With no `attr_func` this is the
-    generation loop (`engine.denoise.generate`)."""
+    generation loop (`engine.denoise.generate`).
+
+    `encoder_reuse=k > 1`: encoder propagation (Faster Diffusion, arXiv
+    2312.09608). Step i (counted from the first step run) runs the eps_fn's
+    `full` when i % k == 0 and keeps its down-path features; the other
+    steps run `reuse` on them (mid + up only). Approximate, opt-in; needs an
+    eps_fn with `full` / `reuse` (`CfgEpsFeatClosure`, `EpsFeatClosure`).
+    Neither eps nor the features carry a gradient."""
     if eta > 0 and zs is None:
         raise ValueError("eta > 0 requires zs")
+    if encoder_reuse > 1 and not hasattr(eps_fn, "reuse"):
+        raise ValueError("encoder_reuse > 1 needs a feature-capable eps_fn "
+                         "(engine.denoise.CfgEpsFeatClosure/EpsFeatClosure)")
     if step_rule not in ("ddim", "ddpm"):
         raise ValueError(f"Unknown step rule {step_rule!r}")
     n = num_steps if num_steps is not None else (
@@ -58,10 +69,17 @@ def edit_split(
         decode_fn = DecodeClosure()  # identity codec
     x = xt
     xts_out, eps_out, px0_out = [], [], []
+    feats = None
     for i, t in enumerate(sched.timesteps[-n:]):
         t = int(t)
         z = zs[i] if zs is not None else torch.zeros_like(x)
-        eps = eps_fn(x, t).detach()
+        if encoder_reuse > 1 and i % encoder_reuse:
+            eps = eps_fn.reuse(x, t, feats).detach()
+        elif encoder_reuse > 1:
+            eps, feats = eps_fn.full(x, t)
+            eps = eps.detach()
+        else:
+            eps = eps_fn(x, t).detach()
         x, px0 = step(sched, x, eps, t, eta=eta, noise=z if eta > 0 else None)
         if attr_func is not None:
             x, z = attr_func.apply_batched(x, z, eps, t, i, sched, decode_fn,
@@ -91,13 +109,6 @@ def edit(
 ) -> EditResult:
     """The whole guided loop in one call (the JAX package's `mode="fused"`
 form): `edit_split`'s loop."""
-    refuse_encoder_reuse(encoder_reuse)
     return edit_split(sched, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func,
                       decode_fn=decode_fn, mask=mask, x0_ref=x0_ref, step_rule=step_rule,
-                      collect=collect)
-
-
-def refuse_encoder_reuse(encoder_reuse: int) -> None:
-    if encoder_reuse > 1:
-        raise NotImplementedError("encoder_reuse > 1 (encoder propagation) comes with "
-                                  "Queue A item 16")
+                      collect=collect, encoder_reuse=encoder_reuse)

@@ -10,3 +10,4 @@ from .attr_functions import (  # noqa: F401
     single_color_loss,
 )
 from .registry import AttrFuncRegistry, create_attr_func_registry  # noqa: F401
+from .proxy import ProxyDecodeClosure, fit_decode_proxy, solve_decode_proxy  # noqa: F401

@@ -55,7 +55,7 @@ class ConvBNReLU(nn.Module):
                  device=None, axis_name=None):
         super().__init__()
         self.conv = Conv(in_chan, out_chan, ks, stride, padding, compute_dtype=dtype,
-                         device=device)
+                         dispatch=True, device=device)
         self.bn = NormAct(out_chan, norm, True, dtype, device, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,22 +22,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.abn import FusedABNorm
+from ..ops.conv import conv3x3
 
 NORMS = ("bn", "abn", "abn_sync")
 
 
 class Conv(nn.Conv2d):
     """Conv2d without bias that computes in `compute_dtype` (Flax's
-    `nn.Conv(dtype=...)`): input and f32 weight are cast to it."""
+    `nn.Conv(dtype=...)`): input and f32 weight are cast to it. With
+    `dispatch` (a 3x3 stride-1 SAME conv where the JAX package uses its
+    `Conv3x3`) it goes through `ops.conv.conv3x3` and so follows the conv
+    mode."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, compute_dtype: torch.dtype = torch.float32, **factory):
+                 padding: int = 0, compute_dtype: torch.dtype = torch.float32,
+                 dispatch: bool = False, **factory):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=False,
                          **factory)
         self.compute_dtype = compute_dtype
+        self.dispatch = dispatch and (kernel_size, stride, padding) == (3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.dispatch:
+            return conv3x3(x.to(dt), self.weight.to(dt))
         return self._conv_forward(x.to(dt), self.weight.to(dt), None)
 
 
@@ -105,9 +113,9 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         kw = dict(compute_dtype=dtype, device=device)
-        self.conv1 = Conv(in_chan, out_chan, 3, stride, 1, **kw)
+        self.conv1 = Conv(in_chan, out_chan, 3, stride, 1, dispatch=True, **kw)
         self.bn1 = NormAct(out_chan, norm, True, dtype, device, axis_name)
-        self.conv2 = Conv(out_chan, out_chan, 3, 1, 1, **kw)
+        self.conv2 = Conv(out_chan, out_chan, 3, 1, 1, dispatch=True, **kw)
         self.bn2 = NormAct(out_chan, norm, False, dtype, device, axis_name)
         self.downsample = None
         if in_chan != out_chan or stride != 1:

@@ -90,8 +90,7 @@ LDM_CELEBAHQ_256_UNET = UNet2DConfig(  # CompVis/ldm-celebahq-256 `unet`
 
 class UNet2D(nn.Module):
     """DDPM / LDM UNet, NCHW. Built on `device` (None = CUDA, raising
-    without it) with parameters in `dtype`; `forward` returns f32 eps.
-    (`encoder_features` waits for ROADMAP Queue A item 16.)"""
+    without it) with parameters in `dtype`; `forward` returns f32 eps."""
 
     def __init__(self, config: UNet2DConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -142,8 +141,11 @@ class UNet2D(nn.Module):
         self.conv_norm_out = GroupNormLayer(ch, g, eps, "silu", **fk)
         self.conv_out = Conv3x3(ch, cfg.out_channels, **fk)
 
-    def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
-        """sample (B, C, H, W); timesteps a scalar or (B,)."""
+    def forward(self, sample: torch.Tensor, timesteps, encoder_features=None,
+                return_encoder_features: bool = False):
+        """sample (B, C, H, W); timesteps a scalar or (B,). `encoder_features`
+        / `return_encoder_features`: encoder propagation, as in
+        `UNet2DCondition.forward`."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         t = torch.as_tensor(np.asarray(timesteps) if not torch.is_tensor(timesteps)
@@ -154,17 +156,21 @@ class UNet2D(nn.Module):
                                    cfg.freq_shift)
         temb = self.time_embedding(t_emb)
 
-        h = self.conv_in(sample.to(dtype))
-        skips = [h]
-        for block in self.down_blocks:
-            for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
-                if hasattr(block, "attentions"):
-                    h = block.attentions[j](h)
-                skips.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                skips.append(h)
+        if encoder_features is not None:
+            h, skips = encoder_features["h"], list(encoder_features["skips"])
+        else:
+            h = self.conv_in(sample.to(dtype))
+            skips = [h]
+            for block in self.down_blocks:
+                for j, resnet in enumerate(block.resnets):
+                    h = resnet(h, temb)
+                    if hasattr(block, "attentions"):
+                        h = block.attentions[j](h)
+                    skips.append(h)
+                if hasattr(block, "downsamplers"):
+                    h = block.downsamplers[0](h)
+                    skips.append(h)
+        feats = {"h": h, "skips": tuple(skips)} if return_encoder_features else None
 
         h = self.mid_block.resnets[0](h, temb)
         if hasattr(self.mid_block, "attentions"):
@@ -178,4 +184,5 @@ class UNet2D(nn.Module):
                     h = block.attentions[j](h)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
-        return self.conv_out(self.conv_norm_out(h)).float()
+        out = self.conv_out(self.conv_norm_out(h)).float()
+        return (out, feats) if return_encoder_features else out

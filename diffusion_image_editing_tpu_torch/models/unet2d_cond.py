@@ -227,8 +227,16 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNormLayer(ch, g, eps, "silu", **fk)
         self.conv_out = Conv3x3(ch, cfg.out_channels, **fk)
 
-    def forward(self, sample: torch.Tensor, timesteps, context: torch.Tensor) -> torch.Tensor:
-        """sample (B, C, H, W); timesteps a scalar or (B,); context (B, L, D)."""
+    def forward(self, sample: torch.Tensor, timesteps, context: torch.Tensor,
+                encoder_features=None, return_encoder_features: bool = False):
+        """sample (B, C, H, W); timesteps a scalar or (B,); context (B, L, D).
+
+        Encoder propagation (Faster Diffusion, arXiv 2312.09608), opt-in:
+        `return_encoder_features=True` also returns the down path's output
+        {"h": ..., "skips": (...)} (NCHW); a call given `encoder_features`
+        skips conv_in and every down block and recomputes mid + up with the
+        current timestep embedding. Features of the same (sample, t) give
+        the full forward's eps exactly."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         t = torch.as_tensor(np.asarray(timesteps) if not torch.is_tensor(timesteps)
@@ -240,17 +248,21 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(t_emb)
         context = context.to(dtype)
 
-        h = self.conv_in(sample.to(dtype))
-        skips = [h]
-        for block in self.down_blocks:
-            for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
-                if hasattr(block, "attentions"):
-                    h = block.attentions[j](h, context)
-                skips.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                skips.append(h)
+        if encoder_features is not None:
+            h, skips = encoder_features["h"], list(encoder_features["skips"])
+        else:
+            h = self.conv_in(sample.to(dtype))
+            skips = [h]
+            for block in self.down_blocks:
+                for j, resnet in enumerate(block.resnets):
+                    h = resnet(h, temb)
+                    if hasattr(block, "attentions"):
+                        h = block.attentions[j](h, context)
+                    skips.append(h)
+                if hasattr(block, "downsamplers"):
+                    h = block.downsamplers[0](h)
+                    skips.append(h)
+        feats = {"h": h, "skips": tuple(skips)} if return_encoder_features else None
 
         h = self.mid_block.resnets[0](h, temb)
         h = self.mid_block.attentions[0](h, context)
@@ -263,4 +275,5 @@ class UNet2DCondition(nn.Module):
                     h = block.attentions[j](h, context)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
-        return self.conv_out(self.conv_norm_out(h)).float()
+        out = self.conv_out(self.conv_norm_out(h)).float()
+        return (out, feats) if return_encoder_features else out

@@ -217,15 +217,18 @@ class EditPipeline:
         loop ("split") are one host loop in torch. `decode_remat="blocks"`
         checkpoints each decoder block in the guidance gradient (less
         memory, one more decoder forward a nudge); "auto" and "none" do
-        not."""
+        not. Opt-in accelerations, both approximate: `guidance_codec="proxy"`
+        runs the guidance gradient through the wrapper's fitted affine
+        latent -> RGB proxy (`guidance_decode_proxy`) instead of the decoder
+        (the output image is still decoded by the real decoder);
+        `encoder_reuse=k > 1` runs the UNet's down path on every k-th step
+        only (encoder propagation)."""
         if mode not in ("fused", "split"):
             raise ValueError(f"Unknown mode {mode!r}")
         if decode_remat not in ("auto", "blocks", "none"):
             raise ValueError(f"Unknown decode_remat: {decode_remat}")
         if guidance_codec not in ("full", "proxy"):
             raise ValueError(f"Unknown guidance_codec: {guidance_codec}")
-        if guidance_codec == "proxy":
-            raise NotImplementedError("guidance_codec='proxy' comes with Queue A item 16")
         self.check_inputs(attr_func, eta, mask, resynthesize, zs)
         xt, zs = self.edit_noise_maps(xt, zs, mask, resynthesize, generator, noise)
         if xts is not None:
@@ -235,12 +238,14 @@ class EditPipeline:
             xt = xts[t_skip]
             zs = zs[t_skip:]
         w = self.diffusion_wrapper
-        eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
+        eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale, features=encoder_reuse > 1)
         step_rule = "ddpm" if (inversion_method == "ddpm" and t_skip is not None) else "ddim"
+        dec_fn = (w.guidance_decode_proxy() if guidance_codec == "proxy"
+                  else w.decode_fn(remat_blocks=decode_remat == "blocks"))
         result = edit(
-            w.schedule, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func,
-            decode_fn=w.decode_fn(remat_blocks=decode_remat == "blocks"), mask=mask,
-            x0_ref=x0_ref, step_rule=step_rule, collect=collect, encoder_reuse=encoder_reuse,
+            w.schedule, eps_fn, xt, eta=eta, zs=zs, attr_func=attr_func, decode_fn=dec_fn,
+            mask=mask, x0_ref=x0_ref, step_rule=step_rule, collect=collect,
+            encoder_reuse=encoder_reuse,
         )
         return EditorOutput(imgs=w.decode(result.x0),
                             pred_original_samples=result.pred_original_samples,

@@ -16,7 +16,8 @@ import torch.nn as nn
 from ..core.device import resolve_device
 from ..core.schedule import Schedule
 from ..engine import denoise as D
-from ..engine.denoise import CfgEpsClosure, DecodeClosure, EncodeClosure, EpsClosure
+from ..engine.denoise import (CfgEpsClosure, CfgEpsFeatClosure, DecodeClosure, EncodeClosure,
+                              EpsClosure, EpsFeatClosure)
 
 
 class DiffusionWrapper:
@@ -39,6 +40,7 @@ class DiffusionWrapper:
         self.latent_channels = unet.config.in_channels
         self._encode = EncodeClosure()
         self._decode = self._decode_remat = DecodeClosure()  # the identity either way
+        self._decode_proxy = None
         self._mesh = None
 
     def _frozen(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
@@ -65,6 +67,7 @@ class DiffusionWrapper:
         check_cfg_mesh(mesh)
         w = copy.copy(self)
         w._mesh = mesh
+        w._decode_proxy = None
         return w
 
     # ---- codec boundary --------------------------------------------------
@@ -73,6 +76,22 @@ class DiffusionWrapper:
         `remat_blocks=True` returns one whose gradient checkpoints each
         decoder block (`models.vae.Decoder`), with the same weights."""
         return self._decode_remat if remat_blocks else self._decode
+
+    def guidance_decode_proxy(self, generator: Optional[torch.Generator] = None, n: int = 8,
+                              refresh: bool = False):
+        """The fitted affine latent -> RGB proxy codec for guidance
+        (`guidance/proxy.py`): the guidance gradient runs through a per-pixel
+        affine map instead of the decoder. Opt-in; fitted once per wrapper
+        (one n-batch decode, latents from `generator`, else one seeded with
+        0 on the device) and cached until `refresh`."""
+        if self._decode_proxy is None or refresh:
+            from ..guidance.proxy import fit_decode_proxy
+
+            d = self.data_dimensionality
+            self._decode_proxy = fit_decode_proxy(
+                self.decode_fn(), (self.latent_channels, d, d), generator=generator, n=n,
+                device=self.device)
+        return self._decode_proxy
 
     def encode(self, sample: torch.Tensor) -> torch.Tensor:
         return self._encode(sample.to(self.device))
@@ -87,7 +106,17 @@ class DiffusionWrapper:
         return None
 
     # ---- denoiser --------------------------------------------------------
-    def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5):
+    def eps_fn(self, text_emb: Optional[torch.Tensor] = None, cfg_scale: float = 3.5,
+               features: bool = False):
+        """The (CFG) denoiser. `features=True` returns the encoder-propagation
+        closure (`full` / `reuse`; `encoder_reuse` in the loops), which is
+        not combined with a mesh, as in the JAX package."""
+        if features:
+            if self._mesh is not None:
+                raise ValueError("encoder propagation + to_mesh not supported")
+            if text_emb is None:
+                return EpsFeatClosure(self.unet)
+            return CfgEpsFeatClosure(self.unet, text_emb, cfg_scale)
         if self._mesh is not None:
             from ..parallel.edit_shard import (SPATIAL_TODO, check_cfg_mesh,
                                                make_sharded_cfg_eps_fn)
@@ -135,11 +164,12 @@ class DiffusionWrapper:
         """One denoising run; returns (decoded image NCHW in [-1, 1],
         Trajectory). Both modes run `engine.denoise.generate`: the JAX
         package's jitted scan ("fused") and host loop ("split") are one host
-        loop in torch."""
+        loop in torch. `encoder_reuse=k > 1`: encoder propagation (opt-in,
+        approximate; k = 1 is exact)."""
         if mode not in ("fused", "split"):
             raise ValueError(f"Unknown mode {mode!r}")
         sched = self._sched_for(num_inference_steps)
-        eps_fn = self.eps_fn(self.prep_text(prompt_ids), cfg_scale)
+        eps_fn = self.eps_fn(self.prep_text(prompt_ids), cfg_scale, features=encoder_reuse > 1)
         zs = None if zs is None else zs.to(self.device)
         traj = D.generate(sched, eps_fn, xt.to(self.device), eta=eta, zs=zs, collect=collect,
                           encoder_reuse=encoder_reuse)

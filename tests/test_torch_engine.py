@@ -71,6 +71,25 @@ J_EPS = JD.EpsClosure(j_eps, jnp.asarray(MIX))
 J_DEC = JD.DecodeClosure(j_decode, jnp.asarray(TO_RGB), 1.0)
 
 
+def j_eps_feat(params, x, t, encoder_features=None, return_encoder_features=False):
+    """`j_eps` split at its channel mix, the "encoder", for encoder propagation."""
+    feats = jnp.einsum("bhwc,cd->bhwd", x, params) if encoder_features is None \
+        else encoder_features
+    eps = jnp.tanh(feats) * (1 + _t_col(t, 4, jnp) / 1000)
+    return (eps, feats) if return_encoder_features else eps
+
+
+def t_eps_feat(x, t, encoder_features=None, return_encoder_features=False):
+    feats = torch.einsum("bchw,cd->bdhw", x, torch.from_numpy(MIX)) \
+        if encoder_features is None else encoder_features
+    eps = torch.tanh(feats) * (1 + _t_col(t, 4, torch) / 1000)
+    return (eps, feats) if return_encoder_features else eps
+
+
+J_EPS_FEAT = JD.EpsFeatClosure(j_eps_feat, jnp.asarray(MIX))
+T_EPS_FEAT = TD.EpsFeatClosure(t_eps_feat)
+
+
 def nchw(a):
     a = np.asarray(a)
     return np.ascontiguousarray(
@@ -372,8 +391,19 @@ def test_generate_step_rule_and_refusals(traj):
     assert out.xts is None
     with pytest.raises(ValueError):
         TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), eta=1.0)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # encoder_reuse > 1 needs a feature-capable eps_fn, as in JAX; with one
+    # it runs and agrees with JAX's loop, and k = 1 through it is the plain loop.
+    with pytest.raises(ValueError, match="feature-capable"):
         TD.generate(ts, t_eps, torch.from_numpy(nchw(xt)), encoder_reuse=2)
+    x = torch.from_numpy(nchw(xt))
+    ref = JD.generate(js, J_EPS_FEAT, jnp.asarray(xt), encoder_reuse=2, collect=True)
+    out = TD.generate(ts, T_EPS_FEAT, x, encoder_reuse=2, collect=True)
+    _close(out.model_outputs, ref.model_outputs, ALG)
+    _close(out.x0, ref.x0, ALG)
+    plain = TD.generate(ts, t_eps, x, collect=True)
+    k1 = TD.generate(ts, T_EPS_FEAT, x, encoder_reuse=1, collect=True)
+    torch.testing.assert_close(k1.xts, plain.xts, rtol=0, atol=0)
+    assert not torch.equal(out.x0, plain.x0)
 
 
 @pytest.mark.parametrize("rule", ["ddim", "ddpm"])
@@ -384,8 +414,9 @@ def test_edit_matches_jax_and_the_split_loop(traj, rule):
     inv = JI.ddpm_invert_batched(js, J_EPS, jnp.asarray(x0), eta=1.0, xts=xts)
     eta, zs = (1.0, inv.zs[2:]) if rule == "ddpm" else (0.0, None)
     x_start = inv.xts[2]
-    ref = JE.edit(js, J_EPS, x_start, eta=eta, zs=zs, attr_func=JA.SingleColorAttrFunc(**ATTR),
-                  decode_fn=J_DEC, step_rule=rule, collect=True)
+    jkw = dict(eta=eta, zs=zs, attr_func=JA.SingleColorAttrFunc(**ATTR), decode_fn=J_DEC,
+               step_rule=rule, collect=True)
+    ref = JE.edit(js, J_EPS, x_start, **jkw)
     kw = dict(eta=eta, zs=None if zs is None else torch.from_numpy(nchw(zs)),
               attr_func=TA.SingleColorAttrFunc(**ATTR), decode_fn=t_decode, step_rule=rule,
               collect=True)
@@ -394,5 +425,13 @@ def test_edit_matches_jax_and_the_split_loop(traj, rule):
     for name in ("x0", "xts", "model_outputs", "pred_original_samples"):
         _close(getattr(out, name), getattr(ref, name), GRAD)
         torch.testing.assert_close(getattr(out, name), getattr(split, name), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="feature-capable"):
         TE.edit(ts, t_eps, torch.from_numpy(nchw(x_start)), encoder_reuse=2)
+    # Encoder propagation at k = 3 against JAX's scan; k = 1 through the
+    # feature closure is bit-equal to the plain loop.
+    ref3 = JE.edit(js, J_EPS_FEAT, x_start, encoder_reuse=3, **{**jkw, "collect": False})
+    out3 = TE.edit(ts, T_EPS_FEAT, torch.from_numpy(nchw(x_start)), encoder_reuse=3,
+                   **{**kw, "collect": False})
+    _close(out3.x0, ref3.x0, GRAD)
+    k1 = TE.edit(ts, T_EPS_FEAT, torch.from_numpy(nchw(x_start)), encoder_reuse=1, **kw)
+    torch.testing.assert_close(k1.xts, out.xts, rtol=0, atol=0)

@@ -135,9 +135,15 @@ def test_edit_image_checks_its_inputs(pipe):
     # (tests/test_torch_remat.py holds it against the JAX package).
     remat = pipe.edit_image(xt, attr_func=attr, decode_remat="blocks")
     torch.testing.assert_close(remat.imgs, fused.imgs, rtol=0, atol=0)
+    # The opt-in accelerations run: the proxy codec steers the nudges (the
+    # image is still decoded by the decoder), k = 2 reuses the encoder, and
+    # k = 1 through the feature closure is the plain loop.
     for kwargs in (dict(guidance_codec="proxy"), dict(encoder_reuse=2)):
-        with pytest.raises(NotImplementedError, match="item"):
-            pipe.edit_image(xt, attr_func=attr, **kwargs)
+        out = pipe.edit_image(xt, attr_func=attr, **kwargs)
+        assert out.imgs.shape == fused.imgs.shape and torch.isfinite(out.imgs).all()
+        assert not torch.equal(out.imgs, fused.imgs), kwargs
+    with pytest.raises(ValueError, match="guidance_codec"):
+        pipe.edit_image(xt, attr_func=attr, guidance_codec="vae")
     # A segmentation function is taken (tests/test_torch_segguide.py runs it).
     seg_fn = lambda img: torch.zeros(32, 32, dtype=torch.long)  # noqa: E731
     assert EditPipeline(pipe.diffusion_wrapper, segmentation_fn=seg_fn).segmentation_fn is seg_fn
