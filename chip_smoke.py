@@ -142,6 +142,30 @@ Phases, each printing its own lines; any failure exits non-zero:
              TINY UNet's `reuse` forward and a proxy fitted and one nudge
              through it, card against CPU, and that conv mode "int8" runs
              no cuDNN 3x3 conv.
+7f. spatial - the spatial split of one edit (ROADMAP item 18b): four
+             processes spawned on the one GPU (a gloo group over a
+             FileStore; NCCL refuses two ranks on one device, so each
+             collective goes through a host copy), each launching the
+             kernels on its own rows. The SD edit on cfg2xsp2 with the [main]
+             models (a 512 px image, 10-step DDIM inversion, 10 colour-guided
+             steps) and the DDPM 256 px edit on sp4, against the same runs
+             whole in this process, each within SPATIAL_TOL: one UNet call,
+             one decode and its gradient, one encode; every inversion step
+             and every guided step, each from the whole run's own latent
+             (the counted edit's guided steps are its own, each restarted
+             from the whole run's latent); the final image. Each check's
+             control, the split with zeros in place of the neighbours' halo
+             rows, must exceed its tolerance. The four ranks' latents,
+             steps and images bit-equal, each rank's K1, K5 and K6
+             (and for SD K2, K3) launches non-zero, no plain attention or
+             GroupNorm on the card; ms per step printed, four processes
+             sharing one card. [kernels] holds K1-K3 at the split's
+             S_q != S_k shapes and K5's (mean, M2) output.
+7g. extra  - item 19's blocks: DeeplabV3Head (ASPP, 19 classes) and an
+             IdentityResidualBlock at width 256 on a (4, 256, 64, 64) bf16
+             map, eval and training mode, every ABN through K8, against the
+             same blocks with K8's plain version (EXTRA_TOL), K8's launches
+             counted; after [seg].
 8. prompt  - the SD path as a user starts it, at full width, after the [main]
              models are freed: an HF-layout SD-1.5 checkpoint directory
              (UNet, VAE under the legacy attention names, CLIP ViT-L/14
@@ -321,16 +345,30 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("ddpm unet 16x16 b10", (10, 256, 1, 512), (10, 256, 1, 512)),
     ("ddpm unet 8x8 b10", (10, 64, 1, 512), (10, 64, 1, 512)),
     ("tiny unet2d 8x8", (2, 64, 1, 64), (2, 64, 1, 64)),
+    # The spatial split ([spatial]): a rank's queries against every rank's keys.
+    # cfg2xsp2's UNet (one branch a rank, its rows over sp = 2) at each level,
+    # the VAE's mid-block with the decode's rows over all four ranks, and the
+    # DDPM UNet's 512-wide head on sp4.
+    ("split unet self 64x64 sp2", (1, 2048, 8, 40), (1, 4096, 8, 40)),
+    ("split unet self 32x32 sp2", (1, 512, 8, 80), (1, 1024, 8, 80)),
+    ("split unet self 16x16 sp2", (1, 128, 8, 160), (1, 256, 8, 160)),
+    ("split unet self 8x8 sp2", (1, 32, 8, 160), (1, 64, 8, 160)),
+    ("split vae mid 64x64 over 4", (1, 1024, 1, 512), (1, 4096, 1, 512)),
+    ("split ddpm unet 16x16 sp4", (1, 64, 1, 512), (1, 256, 1, 512)),
+    ("split ddpm unet 8x8 sp4", (1, 16, 1, 512), (1, 64, 1, 512)),
 ]
 LSE_CASES = [  # the forward with lse: the UNet's width, and the VAE's (40 launches a run)
     ("unet self 64x64", (2, 4096, 8, 40)),
     ("vae mid 64x64", (1, 4096, 1, 512)),
 ]
-BWD_CASES = [  # queries and keys of one length; the ragged case fills no block or tile
-    ("vae mid 64x64", (1, 4096, 1, 512)),  # also the VQ decoder's, in [ldm_clf]'s gradient
-    ("unet self 32x32", (2, 1024, 8, 80)),
-    ("vae ragged", (1, 1000, 2, 512)),
-    ("tiny unet2d 8x8", (2, 64, 1, 64)),  # the narrow design at head dim 64
+BWD_CASES = [  # (label, q shape, kv shape); the ragged case fills no block or tile
+    ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512)),  # also [ldm_clf]'s VQ decoder's
+    ("unet self 32x32", (2, 1024, 8, 80), (2, 1024, 8, 80)),
+    ("vae ragged", (1, 1000, 2, 512), (1, 1000, 2, 512)),
+    ("tiny unet2d 8x8", (2, 64, 1, 64), (2, 64, 1, 64)),  # the narrow design at head dim 64
+    # [spatial]'s decode gradient: a quarter of the VAE mid-block's queries
+    # against all 4096 keys (dK and dV are this rank's partial sums).
+    ("split vae mid 64x64 over 4", (1, 1024, 1, 512), (1, 4096, 1, 512)),
 ]
 # GroupNorm: max |kernel - plain| / max |plain|; both round the same f32 value
 # to bf16, so they differ by at most one bf16 step (2^-7 relative) where the
@@ -354,6 +392,14 @@ GN_CASES = [  # (label, (N, C, H, W)); a kernel's table entry is its first shape
     ("ddpm 256x256x128 b1", (1, 128, 256, 256)),
     ("vq 256x256x256 b1", (1, 256, 256, 256)),
     ("ddpm 256x256x256 b10", (10, 256, 256, 256)),
+]
+# K5's (mean, M2) output at [spatial]'s local slabs (a rank's rows): mean as
+# MEAN_TOL, M2 within M2_TOL relative (twice RSTD_TOL: M2 goes as rstd^-2).
+M2_TOL = 2e-4
+GN_M2_CASES = [
+    ("split unet 64x64x320 sp2", (1, 320, 32, 64)),
+    ("split vae 512x512x128 over 4", (1, 128, 128, 512)),
+    ("split ddpm 256x256x128 sp4", (1, 128, 64, 256)),
 ]
 # Fused conv: max |kernel - plain| / max |plain|. f32 accumulation in another
 # order; the kernel rounds conv + bias once, the plain version rounds the
@@ -615,10 +661,12 @@ def phase_kernels() -> dict:
             failures.append(f"fwd with lse {label}")
         del q, k, v, out, primal, lse
 
-    for label, shape in BWD_CASES:
+    for label, shape, kv_shape in BWD_CASES:
         b, s, h, d = shape
+        s_k = kv_shape[1]
         scale = d ** -0.5
-        q, k, v, dout = (_randn(shape, gen, dev) for _ in range(4))
+        q, dout = _randn(shape, gen, dev), _randn(shape, gen, dev)
+        k, v = _randn(kv_shape, gen, dev), _randn(kv_shape, gen, dev)
         with torch.no_grad():
             out, lse = flash_attn_fwd(q, k, v, scale, with_lse=True)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -649,14 +697,15 @@ def phase_kernels() -> dict:
             lambda: torch.autograd.grad(lib_out, leaves, lib_dout, retain_graph=True))
         ok = (lse_err <= LSE_TOL and all(e <= GRAD_TOL for e in errs)
               and all(e <= GRAD_TOL for e in path_errs))
-        n = float(b * h * s * s * d)
-        io = 2.0 * q.numel()  # bytes of one (B, S, H, D) bf16 tensor
-        stats = 4.0 * b * h * s  # bytes of one (B*H, S) f32 row statistic
+        n = float(b * h * s * s_k * d)
+        io_q, io_k = 2.0 * q.numel(), 2.0 * k.numel()  # bytes of one bf16 q-like, kv-like tensor
+        stats = 4.0 * b * h * s  # bytes of one (B*H, S_q) f32 row statistic
+        # dQ reads q, k, v, dO and writes dQ; dK/dV reads q, k, v, dO and writes dK, dV.
         e_dq = _entry("flash_attn_bwd_dq", list(shape), abs_errs[0], dq_ms, plain_dq_ms,
-                      6 * n, 5 * io + 2 * stats, None)
+                      6 * n, 3 * io_q + 2 * io_k + 2 * stats, None)
         e_dkv = _entry("flash_attn_bwd_dkv", list(shape), max(abs_errs[1:]), dkv_ms,
-                       plain_dkv_ms, 8 * n, 6 * io + 2 * stats, None)
-        log(f"[kernels] bwd {label} {shape}: lse_err {lse_err:.3e} (tol {LSE_TOL}); kernels vs "
+                       plain_dkv_ms, 8 * n, 2 * io_q + 4 * io_k + 2 * stats, None)
+        log(f"[kernels] bwd {label} q{shape} kv{kv_shape}: lse_err {lse_err:.3e} (tol {LSE_TOL}); kernels vs "
             f"plain on the same lse and delta: max_abs_err dq {abs_errs[0]:.3e} dk "
             f"{abs_errs[1]:.3e} dv {abs_errs[2]:.3e}, relative dq {errs[0]:.3e} dk {errs[1]:.3e} "
             f"dv {errs[2]:.3e}; autograd through attention() vs the plain autograd, relative "
@@ -775,6 +824,32 @@ def _groupnorm_kernels(gen, dev, entries, failures) -> None:
                     entries.setdefault("group_norm_stats", e5)
                     entries.setdefault("group_norm_apply", e6)
         del x, ref_mean, ref_rstd
+        torch.cuda.empty_cache()
+
+    for label, shape in GN_M2_CASES:  # K5's (mean, M2) output, as [spatial] takes it
+        x = _randn(shape, gen, dev)
+        with torch.no_grad():
+            ref_mean, ref_m2 = GN.group_norm_mean_m2(x, GN_GROUPS)
+            mean, m2 = GN.group_norm_stats(x, GN_GROUPS, m2=True)
+            again = GN.group_norm_stats(x, GN_GROUPS, m2=True)
+            torch.cuda.synchronize()
+            mean_err = ((mean - ref_mean).abs() / (ref_mean.abs() + 1)).max().item()
+            m2_err = ((m2 - ref_m2).abs() / ref_m2).max().item()
+            same = torch.equal(mean, again[0]) and torch.equal(m2, again[1])
+            ms = time_ms(lambda: GN.group_norm_stats(x, GN_GROUPS, m2=True))
+            plain_ms = time_ms(lambda: GN.group_norm_mean_m2(x, GN_GROUPS), reps=5)
+            view = x.view(shape[0], GN_GROUPS, -1)
+            lib_ms = time_ms(lambda: torch.var_mean(view, dim=-1, correction=0))
+        b_ms, by = bound_ms(3.0 * x.numel(), 2.0 * x.numel() + 8.0 * shape[0] * GN_GROUPS,
+                            PEAK_F32_FLOPS)
+        ok = mean_err <= MEAN_TOL and m2_err <= M2_TOL and same
+        log(f"[kernels] group_norm {label} {shape} K5 (mean, M2): mean {mean_err:.2e} (tol "
+            f"{MEAN_TOL}), M2 {m2_err:.2e} (tol {M2_TOL}), rerun bit-equal {same} "
+            f"{'ok' if ok else 'FAIL'} | K5 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.var_mean {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        if not ok:
+            failures.append(f"group_norm {label} K5 (mean, M2)")
+        del x
         torch.cuda.empty_cache()
 
 
@@ -2623,6 +2698,519 @@ def phase_int8(smi: str, unet, vae) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7f. spatial: one edit split over four processes sharing the card
+# ---------------------------------------------------------------------------
+
+SPATIAL_WORLD = 4
+SPATIAL_STEPS = 10  # DDIM inversion steps, then as many colour-guided edit steps
+SPATIAL_GUIDE = dict(target=0.9, color_idx=0, loss_scale=20.0, t1=0, t2=SPATIAL_STEPS)
+SPATIAL_CFG = 3.5  # the pipeline's default CFG scale
+SPATIAL_TIMEOUT_S = 600
+# The split against the whole in the same call, both bf16; the two differ
+# only in where and in what order they round (a rank's rows and halo,
+# GroupNorm moments folded over the ranks, attention of a rank's queries).
+# Pieces on fixed inputs, max |split - whole| / max |whole|: one UNet call
+# (CFG for SD), one decode and its latent gradient, one encode; "image" is
+# the edit's final decode of the whole run's last latent. Steps, each from
+# the whole run's own latent x_i, so that no step inherits another's
+# rounding: one DDIM inversion step and one guided step (the UNet, the DDIM
+# update, the colour nudge through the decode's VJP), max |split - whole
+# x_{i+1}| / max |whole x_{i+1} - x_i| (the step's move), the largest over
+# the steps. A step's error is its eps's (and nudge's) times the step's
+# coefficient, read against a move in which the x and eps terms can partly
+# cancel, so it reads above the pieces: on an H100 the SD steps read
+# 0.126 (inversion) and 0.121 (guided), the pieces 0.016-0.044, DDPM's
+# 0.020 and 0.0096; the DDPM image, through the identity codec, is exact.
+# Each tolerance is 2-3x its reading (PERF.md, [spatial]). Each check has a
+# control that must exceed its tolerance: the same split with zeros in
+# place of the neighbours' halo rows (`zero_halo`); on an H100 the
+# controls read 0.57-1.26.
+SPATIAL_TOL = {"sd": {"eps": 0.1, "decode": 0.05, "decode_vjp": 0.1, "encode": 0.05,
+                      "inversion_step": 0.3, "guided_step": 0.3, "image": 0.05},
+               "ddpm": {"eps": 0.025, "inversion_step": 0.05, "guided_step": 0.05,
+                        "image": 0.0}}
+SPATIAL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                   "group_norm_stats", "group_norm_apply")
+# family -> (mesh, the kernels every rank must launch in the counted edit).
+# DDPM's codec is the identity, so its guidance gradient runs no attention
+# backward.
+SPATIAL_RUNS = {"sd": ("cfg2xsp2", SPATIAL_KERNELS),
+                "ddpm": ("sp4", ("flash_attn_fwd", "group_norm_stats", "group_norm_apply"))}
+
+
+def spatial_models(family: str, dev, cfgs: dict):
+    """The seeded models of a [spatial] run, bf16, as `build_models` makes
+    [main]'s: (unet, vae) for SD, (unet, None) for DDPM."""
+    from diffusion_image_editing_tpu_torch.models import AutoencoderKL, UNet2D, UNet2DCondition
+
+    torch.manual_seed(0)
+    if family == "sd":
+        return (UNet2DCondition(cfgs["sd_unet"], device=dev, dtype=torch.bfloat16),
+                AutoencoderKL(cfgs["sd_vae"], device=dev, dtype=torch.bfloat16))
+    return UNet2D(cfgs["ddpm_unet"], device=dev, dtype=torch.bfloat16), None
+
+
+def weights_digest(*modules) -> str:
+    """A digest of every parameter's first 1024 values, bytes exact."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in modules:
+        if m is None:
+            continue
+        for name, t in m.state_dict().items():
+            h.update(name.encode())
+            h.update(t.detach().flatten()[:1024].float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def spatial_wrapper(family: str, unet, vae, dev):
+    """[spatial]'s wrapper and 512 / 256 px input image (seeded): SD with
+    [main]'s fixed text embedding, or unclipped DDPM."""
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+    from diffusion_image_editing_tpu_torch.pipeline import DDPM
+
+    rng = np.random.default_rng(0)
+    if family == "sd":
+        text_emb = torch.from_numpy(rng.standard_normal(
+            (2, 77, unet.config.cross_attention_dim), dtype=np.float32)).to(torch.bfloat16)
+        w = fixed_text_sd(unet, vae, schedule_for_model("sd", SPATIAL_STEPS), text_emb, dev)
+        size = vae.config.sample_size
+    else:
+        w = DDPM(unet, schedule_for_model("ddpm", SPATIAL_STEPS, clip_sample=False), device=dev)
+        size = unet.config.sample_size
+    img = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 3, size, size)).astype(np.float32))
+    return w, img.to(dev)
+
+
+def spatial_pieces(w, family: str, dev) -> dict:
+    """One UNet call (CFG for SD), and for SD one decode with its latent
+    gradient and one encode, on fixed inputs; outputs on the host in f32."""
+    if family == "sd":
+        pieces = forward_pieces(w, dev)
+        decoded, vjp = pieces["decode"]()
+        return {"eps": pieces["eps"]().float().cpu(),
+                "decode": (decoded.float().cpu(), vjp.float().cpu()),
+                "encode": pieces["encode"]().float().cpu()}
+    d, c = w.unet.config.sample_size, w.unet.config.in_channels
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, c, d, d),
+                                                                  dtype=np.float32)).to(dev)
+    return {"eps": w.eps_fn()(x, np.array([501])).float().cpu()}
+
+
+def inversion_step(w, x, i: int):
+    """Step i of the pipeline's DDIM inversion (`engine.invert.ddim_invert`'s
+    loop) from the latent x, through the wrapper's closures."""
+    from diffusion_image_editing_tpu_torch.core import schedule as S
+
+    sched = w.schedule
+    t = int(sched.timesteps[::-1][i])
+    return S.next_step(sched, x, w.eps_fn(w.prep_text(None), SPATIAL_CFG)(x, t), t)
+
+
+def guided_step(w, x, i: int):
+    """Step i of the guided edit (`engine.edit.edit_split`'s loop at eta 0)
+    from the latent x: the UNet, the DDIM update, the colour nudge through
+    the decode's VJP."""
+    from diffusion_image_editing_tpu_torch.core import schedule as S
+    from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
+    sched = w.schedule
+    t = int(sched.timesteps[i])
+    eps = w.eps_fn(w.prep_text(None), SPATIAL_CFG)(x, t).detach()
+    x, _ = S.ddim_step(sched, x, eps, t)
+    x, _ = SingleColorAttrFunc(**SPATIAL_GUIDE).apply_batched(
+        x, torch.zeros_like(x), eps, t, i, sched, w.decode_fn(), mask=None, x0=None)
+    return x
+
+
+def inversion_path(w, img) -> list:
+    """The latents of the DDIM inversion of img, step by step: x_0 (the
+    encoded image) to x_SPATIAL_STEPS, on the host in f32."""
+    from diffusion_image_editing_tpu_torch.pipeline import EditPipeline
+
+    x = EditPipeline(w).prepare_for_edit(img)[0]
+    path = [x.float().cpu()]
+    for i in range(SPATIAL_STEPS):
+        x = inversion_step(w, x, i)
+        path.append(x.float().cpu())
+    return path
+
+
+class StepProbe:
+    """Stands in for the attribute function of an edit: runs the colour
+    guidance's `apply_batched` and keeps each step's latent (on the host in
+    f32). Given the whole run's latents `path` (x_0 the edit's start, x_i+1
+    after step i), it returns path[i + 1] in its place, so that every step
+    of the edit starts from the whole run's own latent."""
+
+    def __init__(self, path=None):
+        from diffusion_image_editing_tpu_torch.guidance import SingleColorAttrFunc
+
+        self.attr, self.path, self.outs = SingleColorAttrFunc(**SPATIAL_GUIDE), path, []
+
+    def apply_batched(self, x, z, eps, t, step_idx, sched, decode_fn, **kwargs):
+        out, z = self.attr.apply_batched(x, z, eps, t, step_idx, sched, decode_fn, **kwargs)
+        self.outs.append(out.detach().float().cpu())
+        if self.path is None:
+            return out, z
+        return self.path[int(step_idx) + 1].to(out.device, out.dtype), z
+
+
+def spatial_edit(w, img, start, probe: StepProbe) -> dict:
+    """The pipeline's DDIM inversion of `img`, then SPATIAL_STEPS guided
+    steps (`probe`) from `start` and the decode, through the public
+    pipeline: the inverted latent, the image and the seconds of each."""
+    from diffusion_image_editing_tpu_torch.pipeline import EditPipeline
+
+    pipe = EditPipeline(w)
+    dev = img.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    xt, *_ = pipe.prepare_real_image_edit(img, eta=0.0, inversion_method="ddim")
+    sync()
+    t1 = time.perf_counter()
+    out = pipe.edit_image(start.to(dev), attr_func=probe, collect=True)
+    sync()
+    t2 = time.perf_counter()
+    return {"xt": xt.float().cpu(), "imgs": out.imgs.float().cpu(),
+            "inv_s": t1 - t0, "edit_s": t2 - t1}
+
+
+@contextlib.contextmanager
+def zero_halo():
+    """The control of [spatial]'s checks: the split with zeros in place of
+    the neighbours' rows in every halo exchange, forward and backward (each
+    rank's rows meet the convs as an image of their own; GroupNorm and
+    attention still see every rank), the fault a split most easily has."""
+    from diffusion_image_editing_tpu_torch.ops.split import _HaloRows
+
+    saved = {k: _HaloRows.__dict__[k] for k in ("forward", "backward")}
+
+    def forward(ctx, x, split, above, below):
+        ctx.above, ctx.below = above, below
+        return F.pad(x, (0, 0, above, below))
+
+    def backward(ctx, g):
+        return g[:, :, ctx.above:g.shape[2] - ctx.below], None, None, None
+
+    _HaloRows.forward, _HaloRows.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(_HaloRows, k, v)
+
+
+def _tree_map(fn, obj):
+    """`fn` on every leaf of nested dicts, lists and tuples."""
+    if isinstance(obj, dict):
+        return {k: _tree_map(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_tree_map(fn, v) for v in obj)
+    return fn(obj)
+
+
+def _spatial_mesh(spec: str):
+    from diffusion_image_editing_tpu_torch.parallel import cfg_mesh, make_mesh
+
+    return cfg_mesh(cfg=2, sp=2) if spec == "cfg2xsp2" else make_mesh((4,), ("sp",))
+
+
+def spatial_rank(rank: int, world: int, store_path: str, payload: dict, queue) -> None:
+    """One of [spatial]'s ranks: a gloo group over a FileStore, every rank
+    on the same device; builds each family's seeded models (their digest
+    must be the parent's), splits them over the family's mesh, runs the
+    pieces, each inversion step from the whole run's latent, one counted
+    edit whose guided steps each start from the whole run's latent, and the
+    controls under `zero_halo`, and puts its results on `queue`."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from diffusion_image_editing_tpu_torch import ops
+
+    torch.set_num_threads(2)
+    dev = torch.device(payload["device"])
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT_S))
+    try:
+        out = {}
+        for family, (spec, _) in SPATIAL_RUNS.items():
+            whole = _tree_map(torch.from_numpy, payload["whole"][family])
+            unet, vae = spatial_models(family, dev, payload["cfgs"])
+            digest = weights_digest(unet, vae)
+            if digest != payload["digest"][family]:
+                raise RuntimeError(f"rank {rank}: {family} weights digest {digest} is not the "
+                                   f"parent's {payload['digest'][family]}")
+            w, img = spatial_wrapper(family, unet, vae, dev)
+            wm = w.to_mesh(_spatial_mesh(spec))
+            pieces = spatial_pieces(wm, family, dev)  # also warms the split's shapes
+            inv, path = whole["inv"], whole["path"]
+            inv_steps = [inversion_step(wm, inv[i].to(dev), i).float().cpu()
+                         for i in range(SPATIAL_STEPS)]
+            probe = StepProbe(path)
+            with plain_groupnorm_watch() as plain_gn, plain_attention_watch() as plain_attn:
+                ops.reset_launch_counts()
+                res = spatial_edit(wm, img, path[0], probe)
+                counts = ops.launch_counts()
+            with zero_halo():
+                control = dict(spatial_pieces(wm, family, dev),
+                               inversion_step=inversion_step(wm, inv[0].to(dev), 0).float().cpu(),
+                               guided_step=guided_step(wm, path[0].to(dev), 0).float().cpu())
+            out[family] = dict(res, pieces=pieces, inversion_steps=inv_steps,
+                               guided_steps=probe.outs,
+                               control=control, counts=counts, plain=dict(plain_gn, **plain_attn),
+                               eps_fn=type(wm.eps_fn(wm.prep_text(None))).__name__)
+            del unet, vae, w, wm
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        # numpy through the queue: a tensor would be shared by a file
+        # descriptor that dies with this process
+        queue.put((rank, _tree_map(lambda v: v.numpy() if torch.is_tensor(v) else v, out)))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def step_err(got, path, i: int) -> float:
+    """max |got - path[i + 1]| / max |path[i + 1] - path[i]|: a step's error
+    relative to the whole step's move."""
+    want, move = path[i + 1].float(), (path[i + 1] - path[i]).float()
+    return ((got.float() - want).abs().max() / move.abs().max()).item()
+
+
+def spatial_checks(family: str, ref: dict, r0: dict) -> list:
+    """[spatial]'s checks of rank 0's results against the whole run's: each
+    as (name, reading, its control's reading, the shape compared, the
+    steps' readings or None)."""
+    checks = []
+    for name, want in ref["pieces"].items():
+        wants = want if isinstance(want, tuple) else (want,)
+        gots = r0["pieces"][name] if isinstance(want, tuple) else (r0["pieces"][name],)
+        ctrls = r0["control"][name] if isinstance(want, tuple) else (r0["control"][name],)
+        for part, g, c, wv in zip(("", "_vjp"), gots, ctrls, wants):
+            checks.append((name + part, rel_err(g, wv), rel_err(c, wv), tuple(wv.shape), None))
+    for kind, path in (("inversion_step", ref["inv"]), ("guided_step", ref["path"])):
+        errs = [step_err(g, path, i) for i, g in enumerate(r0[kind + "s"])]
+        checks.append((kind, max(errs), step_err(r0["control"][kind], path, 0),
+                       tuple(path[0].shape), errs))
+    # the final image decodes the whole run's last latent: its control is
+    # the decode piece's
+    checks.append(("image", rel_err(r0["imgs"], ref["imgs"]),
+                   checks[[c[0] for c in checks].index("decode")][2] if family == "sd" else None,
+                   tuple(ref["imgs"].shape), None))
+    return checks
+
+
+def phase_spatial(smi: str, unet, vae, dev=torch.device("cuda"), ddpm_cfg=None) -> dict:
+    """ROADMAP item 18b on the card: SPATIAL_WORLD processes on the one
+    device (a gloo group over a FileStore; NCCL refuses two ranks on one
+    GPU), each launching the kernels on its own rows, run the SD-1.5 edit
+    on cfg2xsp2 with the [main] models and the DDPM 256 px edit on sp4;
+    the parent runs the same whole. Checks every piece, every inversion and
+    guided step (each from the whole run's latent) and the final image
+    against the whole run within SPATIAL_TOL, each control beyond it, every
+    rank's results bit-equal, each rank's launches of the family's kernels
+    non-zero, no plain attention or GroupNorm on the card. Returns rank 0's
+    launch counts of both edits added up."""
+    import dataclasses
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    from diffusion_image_editing_tpu_torch.models import DDPM_CELEBAHQ_256
+
+    ddpm_cfg = ddpm_cfg or DDPM_CELEBAHQ_256
+    cfgs = {"sd_unet": dataclasses.replace(unet.config, fused_conv=False),
+            "sd_vae": dataclasses.replace(vae.config, fused_conv=False), "ddpm_unet": ddpm_cfg}
+    whole, digest = {}, {}
+    for family in SPATIAL_RUNS:
+        if family == "sd":
+            models = (unet, vae)
+        else:
+            models = spatial_models("ddpm", dev, cfgs)
+        digest[family] = weights_digest(*models)
+        w, img = spatial_wrapper(family, *models, dev)
+        pieces = spatial_pieces(w, family, dev)
+        inv = inversion_path(w, img)
+        spatial_edit(w, img, inv[-1], StepProbe())  # warm-up
+        probe = StepProbe()
+        whole[family] = dict(spatial_edit(w, img, inv[-1], probe), pieces=pieces, inv=inv,
+                             path=[inv[-1]] + probe.outs)
+        del w, models
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="spatial_store_") as root:
+        payload = {"device": str(dev), "cfgs": cfgs, "digest": digest,
+                   "whole": {f: _tree_map(lambda v: v.numpy(),
+                                          {k: whole[f][k] for k in ("inv", "path")})
+                             for f in whole}}
+        procs = [ctx.Process(target=spatial_rank, args=(r, SPATIAL_WORLD,
+                                                        os.path.join(root, "store"), payload,
+                                                        results))
+                 for r in range(SPATIAL_WORLD)]
+        for p in procs:
+            p.start()
+        got, deadline = {}, time.monotonic() + SPATIAL_TIMEOUT_S
+        try:
+            while len(got) < SPATIAL_WORLD:
+                try:
+                    rank, value = results.get(timeout=5)
+                    got[rank] = value
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs if not p.is_alive() and p.exitcode]
+                    if dead or time.monotonic() > deadline:
+                        raise RuntimeError(f"[spatial] ranks gave {sorted(got)} of "
+                                           f"{SPATIAL_WORLD} results; exit codes "
+                                           f"{[p.exitcode for p in procs]}")
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=30)
+    bad = {r: v for r, v in got.items() if isinstance(v, str)}
+    if bad:
+        raise RuntimeError(f"[spatial] ranks failed: {bad}")
+    got = {r: _tree_map(lambda v: torch.from_numpy(v) if isinstance(v, np.ndarray) else v, res)
+           for r, res in got.items()}
+    log(f"[spatial] {SPATIAL_WORLD} processes on {dev} (gloo, host copies for the "
+        f"collectives; the kernels run on the card) in {time.perf_counter() - t0:.1f} s, "
+        f"on {smi}")
+
+    failures, total = [], None
+    for family, (spec, must) in SPATIAL_RUNS.items():
+        ref, r0 = whole[family], got[0][family]
+        for name, reading, control, shape, steps in spatial_checks(family, ref, r0):
+            tol = SPATIAL_TOL[family][name]
+            ok = reading <= tol and (control is None or control > tol)
+            what = ("max over the steps, each from the whole run's latent, / the step's move"
+                    if name.endswith("_step") else "max |split - whole| / max |whole|")
+            log(f"[spatial] {family} {spec} {name} {shape}: {what} {reading:.4e} (tol {tol}); "
+                "control with zero halo rows "
+                + ("none (the identity codec)" if control is None else f"{control:.4e}")
+                + (f"; by step {[float(f'{e:.3g}') for e in steps]}" if steps else "")
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{family} {name}")
+        finite = all(bool(torch.isfinite(r0[k]).all()) for k in ("xt", "imgs"))
+        keys = ("xt", "imgs", "inversion_steps", "guided_steps")
+        same = all(torch.equal(a, b) for r in got for k in keys
+                   for a, b in zip(_as_list(got[r][family][k]), _as_list(r0[k])))
+        log(f"[spatial] {family} {spec}: the {SPATIAL_WORLD} ranks' inverted latent "
+            f"{tuple(r0['xt'].shape)}, steps and image {tuple(r0['imgs'].shape)} bit-equal: "
+            f"{same}; finite: {finite}; closure {r0['eps_fn']}")
+        if not (same and finite):
+            failures.append(f"{family} ranks part or not finite")
+        for r in sorted(got):
+            g = got[r][family]
+            counts = {k: g["counts"][k] for k in g["counts"] if g["counts"][k]}
+            log(f"[spatial] {family} {spec} rank {r}: launches {counts}; plain on the card "
+                f"{g['plain']}; inversion {g['inv_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step, "
+                f"guided edit {g['edit_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step (four processes "
+                f"sharing one card, not a speed of the split)")
+            if any(g["counts"][k] == 0 for k in must) or any(g["plain"].values()):
+                failures.append(f"{family} rank {r} launches or plain calls")
+        log(f"[spatial] {family} whole on one process: inversion "
+            f"{ref['inv_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step, guided edit "
+            f"{ref['edit_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step")
+        total = ({k: v for k, v in r0["counts"].items()} if total is None
+                 else {k: total[k] + r0["counts"][k] for k in total})
+    if failures:
+        raise RuntimeError(f"[spatial] failed: {failures}")
+    return total
+
+
+def _as_list(v) -> list:
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+# ---------------------------------------------------------------------------
+# 7g. extra: item 19's blocks through K8
+# ---------------------------------------------------------------------------
+
+EXTRA_TOL = 2e-2  # max |K8 - plain| / max |plain| of a bf16 block: twice ABN_TOL's bf16 step
+
+
+def _bf16_convs(module):
+    """Convolutions in bf16, the ABNs' f32 parameters and statistics as they are."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(torch.bfloat16)
+    return module
+
+
+def phase_extra(smi: str, dev=torch.device("cuda")) -> dict:
+    """`DeeplabV3Head` (ASPP, 19 classes) and a 2-conv `IdentityResidualBlock`
+    at width 256 on a (4, 256, 64, 64) bf16 map, eval and training mode,
+    every ABN through K8, against the same block with K8's plain version;
+    times both. Returns the launch counts of the kernel runs."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.models import DeeplabV3Head, IdentityResidualBlock
+    from diffusion_image_editing_tpu_torch.ops import abn as ABN
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.manual_seed(3)
+    blocks = {"DeeplabV3Head": (DeeplabV3Head(256, 256, 256, 19, device=dev), 3),
+              "IdentityResidualBlock": (IdentityResidualBlock(256, (256, 256), device=dev), 2)}
+    x = _randn((4, 256, 64, 64), gen, dev)
+    failures, total = [], None
+    for name, (block, n_abn) in blocks.items():
+        _bf16_convs(block)
+        with torch.no_grad():
+            for m in block.modules():
+                if isinstance(m, ABN.FusedABNorm):
+                    c = m.weight.shape[0]
+                    m.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen, device=dev))
+                    m.bias.copy_(0.1 * torch.randn(c, generator=gen, device=dev))
+                    m.running_mean.copy_(0.1 * torch.randn(c, generator=gen, device=dev))
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        for mode in ("eval", "train"):
+            block.train(mode == "train")
+            state = {k: v.clone() for k, v in block.state_dict().items()}
+            with torch.no_grad():
+                ops.reset_launch_counts()
+                y = block(x)
+                counts = ops.launch_counts()
+                block.load_state_dict(state)
+                orig, ABN._apply = ABN._apply, ABN.abn_apply_reference
+                try:
+                    ref = block(x)
+                    block.load_state_dict(state)
+                    plain_ms = time_ms(lambda: block(x), reps=5)
+                finally:
+                    ABN._apply = orig
+                block.load_state_dict(state)
+                ms = time_ms(lambda: block(x))
+                block.load_state_dict(state)
+            rel = rel_err(y, ref)
+            ok = (rel <= EXTRA_TOL and bool(torch.isfinite(y).all())
+                  and counts["abn_apply"] == n_abn)
+            log(f"[extra] {name} {mode} x{tuple(x.shape)} bf16 -> {tuple(y.shape)}: K8 vs its "
+                f"plain version max |diff| {(y.float() - ref.float()).abs().max().item():.4e}, "
+                f"relative {rel:.4e} (tol {EXTRA_TOL}); K8 launches {counts['abn_apply']} "
+                f"(want {n_abn}) {'ok' if ok else 'FAIL'} | block with K8 {ms:.4f} ms, with "
+                f"the plain ABN {plain_ms:.4f} ms, on {smi}")
+            if not ok:
+                failures.append(f"{name} {mode}")
+            total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    if failures:
+        raise RuntimeError(f"[extra] failed: {failures}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 8. prompt
 # ---------------------------------------------------------------------------
 
@@ -3429,6 +4017,7 @@ def main() -> int:
     pace_probe("before [sweep]")
     sweep_counts = phase_sweep(smi, unet, vae)
     dist_counts = phase_dist(smi, unet, vae)
+    spatial_counts = phase_spatial(smi, unet, vae)
     pace_probe("before [proxy]")
     proxy_counts = phase_proxy(smi, unet, vae)
     encprop_counts = phase_encprop(smi, unet, vae)
@@ -3452,6 +4041,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seg_counts = phase_seg(smi)
+    extra_counts = phase_extra(smi)
     for name, e in entries.items():
         # K7 runs only in the fused-conv configuration, K8 only on the
         # trainer's path; the rest are read from the default path's run.
@@ -3460,7 +4050,9 @@ def main() -> int:
         e["launches_by_phase"] = {"remat": remat_counts[name], "metrics": metrics_counts[name],
                                   "sweep": sweep_counts[name], "dist": dist_counts[name],
                                   "proxy": proxy_counts[name], "encprop": encprop_counts[name],
-                                  "int8": int8_counts[name], "seg_fast": seg_fast_counts[name]}
+                                  "int8": int8_counts[name], "seg_fast": seg_fast_counts[name],
+                                  "spatial_rank0": spatial_counts[name],
+                                  "extra": extra_counts[name]}
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

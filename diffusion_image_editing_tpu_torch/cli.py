@@ -25,17 +25,17 @@ round trip's PSNR. `seg-train` trains BiSeNet on CelebAMask-HQ
 parsing overlays of a directory of images. Each runs on one CUDA device
 unless `--device cpu` asks for the CPU; none falls back to the CPU on its
 own. The flags are the JAX package's, `--encoder-reuse` (encoder
-propagation) and `edit --guidance-codec proxy` among them; the spatial
-split exits naming its ROADMAP Queue A item.
+propagation) and `edit --guidance-codec proxy` among them.
 
 Under `torchrun --nproc-per-node N` each rank takes `cuda:LOCAL_RANK` (NCCL;
 gloo with `--device cpu`). `seg-train` then trains data-parallel over the
 N ranks (each rank's share of a global batch of N x `--batch-size`;
 `--norm abn_sync` syncs the norms' statistics over them), and `generate`,
-`edit` and `metrics` take `--shard cfg2` (N = 2): the CFG pair split over
-the two ranks, one branch each. The first rank writes the outputs.
-`--shard` with an `sp` or `dp` axis (the spatial split) exits naming item
-18b.
+`edit` and `metrics` take `--shard SPEC` over the N ranks (`wrapper.to_mesh`):
+`cfg2` splits the CFG pair (one branch a rank), `sp2` / `dp8` the latent's
+rows, `cfg2xsp2` / `cfg2xsp4` both; the codec's rows split over every
+rank. A CFG call (`--family sd`) needs a `cfg` axis, as in the JAX package.
+The first rank writes the outputs.
 """
 
 from __future__ import annotations
@@ -57,20 +57,17 @@ def _parse_mesh(spec: str):
     """--shard mesh spec, as the JAX package's: "cfg2" (the CFG pair over two
     ranks), "cfg2xsp4", "sp8", "dp8": axes joined by "x". (The JAX package's
     parser reads "cfg2xsp4" as the axes "cfg" and "xsp" and refuses it.)
-    Only `cfg` may be larger than 1 (the rest is the spatial split, item
-    18b), and the run needs as many ranks as the spec's sizes multiply to."""
+    The run needs as many ranks as the spec's sizes multiply to."""
     from .parallel import make_mesh
 
     pairs = [re.fullmatch(r"([a-z]+)(\d+)", part) for part in spec.split("x")]
     if not all(pairs):
-        raise SystemExit(f"bad --shard spec {spec!r} (e.g. cfg2)")
+        raise SystemExit(f"bad --shard spec {spec!r} (e.g. cfg2xsp4, sp8)")
     pairs = [m.groups() for m in pairs]
     names = tuple(a for a, _ in pairs)
     sizes = tuple(int(n) for _, n in pairs)
-    split = [f"{a}{n}" for a, n in pairs if a != "cfg" and int(n) > 1]
-    if split:
-        raise SystemExit(f"--shard {spec}: {', '.join(split)} would split the latent's rows "
-                         "(the spatial split), not ported yet: Queue A item 18b")
+    if len(set(names)) != len(names) or min(sizes) < 1:
+        raise SystemExit(f"bad --shard spec {spec!r}: each axis once, each of size 1 or more")
     total = math.prod(sizes)
     if total != world_size():
         raise SystemExit(f"--shard {spec} needs {total} devices, have {world_size()} "
@@ -82,6 +79,13 @@ def _build_wrapper(args, sample_clipping: bool):
     from .pipeline import create_diffusion_model
 
     mesh = _parse_mesh(args.shard) if args.shard else None
+    if mesh is not None and args.family == "sd":  # the SD CLI always runs CFG
+        from .parallel import check_cfg_mesh
+
+        try:
+            check_cfg_mesh(mesh)
+        except ValueError as e:
+            raise SystemExit(f"--shard {args.shard}: {e}") from None
     if args.family == "sd" and not (
             args.checkpoint_dir and os.path.isdir(os.path.join(args.checkpoint_dir, "tokenizer"))):
         raise SystemExit("--family sd needs --checkpoint-dir with a tokenizer/ directory to "

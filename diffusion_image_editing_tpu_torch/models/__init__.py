@@ -1,4 +1,5 @@
 from .bisenet import BiSeNet, SegmentationModel  # noqa: F401
+from .extra_blocks import DeeplabV3Head, DenseModule, GlobalAvgPool2d, IdentityResidualBlock  # noqa: F401
 from .clip_text import CLIP_VIT_L_14_TEXT, TINY_CLIP_TEXT, CLIPTextConfig, CLIPTextEncoder  # noqa: F401
 from .port import (  # noqa: F401
     load_anygan_checkpoint,

@@ -17,6 +17,7 @@ from ..ops.attention import attention
 from ..ops.conv import Conv3x3
 from ..ops.fused_conv import affine_silu_conv3x3, fused_conv_wanted, gn_affine_coeffs
 from ..ops.groupnorm import group_norm
+from ..ops import split as spatial
 
 
 def timestep_embedding(
@@ -95,6 +96,9 @@ class ResnetBlock2D(nn.Module):
     @staticmethod
     def _norm_conv(norm: GroupNormLayer, conv: Conv3x3, x: torch.Tensor, fused: bool,
                    shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if fused and spatial.current() is not None:
+            raise NotImplementedError("fused_conv under a spatial split: K7 takes whole maps "
+                                      "(ROADMAP Queue A)")
         if fused and fused_conv_wanted(x.shape):
             a, b = gn_affine_coeffs(x, norm.weight, norm.bias, norm.num_groups, norm.eps, shift)
             return affine_silu_conv3x3(x, a, b, conv.weight, conv.bias)
@@ -131,15 +135,30 @@ class AttentionBlock2D(nn.Module):
         heads = self.num_heads
         hid = self.group_norm(x).reshape(n, c, h * w).transpose(1, 2)
         q = self.to_q(hid).reshape(n, h * w, heads, c // heads)
-        k = self.to_k(hid).reshape(n, h * w, heads, c // heads)
-        v = self.to_v(hid).reshape(n, h * w, heads, c // heads)
+        k, v = self_attention_kv(self.to_k(hid).reshape(n, h * w, heads, c // heads),
+                                 self.to_v(hid).reshape(n, h * w, heads, c // heads))
         out = attention(q, k, v, scale=(c // heads) ** -0.5).reshape(n, h * w, c)
         out = self.to_out[0](out).transpose(1, 2).reshape(n, c, h, w)
         return (x + out) / self.rescale_output_factor
 
 
+def self_attention_kv(k: torch.Tensor, v: torch.Tensor):
+    """K and V of a self-attention over (B, S, H, D) tokens: as they are, or
+    under a spatial split (the rank's rows are a contiguous token range)
+    every rank's, gathered along the tokens, while Q stays the rank's."""
+    split = spatial.current()
+    if split is None:
+        return k, v
+    return spatial.gather_sum(k, split), spatial.gather_sum(v, split)
+
+
 class Downsample2D(nn.Module):
-    """3x3 stride-2 conv; `padding=0` pads (0, 1, 0, 1) first (VAE encoder)."""
+    """3x3 stride-2 conv; `padding=0` pads (0, 1, 0, 1) first (VAE encoder).
+
+    Under a spatial split the rank's rows (an even count starting at an even
+    row) take the row above (padding 1: output row i reads rows 2i - 1 ..
+    2i + 1) or the row below (the (0, 1, 0, 1) pad: rows 2i .. 2i + 2),
+    zeros at the image's edge, and the conv pads the width only."""
 
     def __init__(self, in_channels: int, out_channels: int, padding: int = 1, **factory):
         super().__init__()
@@ -147,6 +166,18 @@ class Downsample2D(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=padding, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = spatial.current()
+        if split is not None:
+            if x.shape[2] % 2:
+                raise ValueError(f"Downsample2D at {x.shape[2] * split.size} rows: "
+                                 f"{x.shape[2]} rows a rank do not halve over {split.size} "
+                                 "ranks (the spatial split needs every stage's rows to "
+                                 "divide by its ranks)")
+            if self.padding == 0:
+                x = F.pad(spatial.halo_rows(x, split, above=0, below=1), (0, 1))
+                return F.conv2d(x, self.conv.weight, self.conv.bias, stride=2)
+            x = spatial.halo_rows(x, split, above=1, below=0)
+            return F.conv2d(x, self.conv.weight, self.conv.bias, stride=2, padding=(0, 1))
         if self.padding == 0:
             x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-KINDS = ("unet_cond", "unet2d", "vae", "vq", "clip_text", "bisenet", "resnet50", "lpips")
+KINDS = ("unet_cond", "unet2d", "vae", "vq", "clip_text", "bisenet", "resnet50", "lpips",
+         "abn_blocks")
 
 # (pattern, replacement) applied in order to the '/'-joined Flax path.
 _PREFIX_RULES = (
@@ -133,6 +134,26 @@ def _torchvision_state_dict(variables: Mapping[str, Any], kind: str) -> Dict[str
     return out
 
 
+def _abn_blocks_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `models/extra_blocks.py` `{"params", "batch_stats"}` (one level of
+    modules: convs and FusedABNorms) -> `models.extra_blocks`' keys: `kernel`
+    -> `weight` (OIHW), an ABN's `mean`/`var` -> `running_mean`/`running_var`,
+    `weight` and `bias` as they are."""
+    leaves = {"kernel": "weight", "weight": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})):
+            *mod, leaf = path
+            if leaf not in leaves or len(mod) != 1:
+                raise ValueError(f"unexpected abn_blocks variable {coll}/{'/'.join(path)}")
+            w = np.asarray(value, dtype=np.float32)
+            if leaf == "kernel":
+                w = _to_torch_layout(path, w)
+            out[f"{mod[0]}.{leaves[leaf]}"] = torch.tensor(w)
+    return out
+
+
 def clip_key(path: Tuple[str, ...]) -> str:
     """The transformers key of one Flax `CLIPTextEncoder` parameter path
     (the inverse of the JAX package's `_translate_clip_key`)."""
@@ -155,6 +176,8 @@ def state_dict_from_jax(params: Mapping[str, Any], kind: str) -> Dict[str, torch
         raise ValueError(f"Unknown kind {kind!r}; choose from {KINDS}")
     if kind in ("bisenet", "resnet50"):
         return _torchvision_state_dict(params, kind)
+    if kind == "abn_blocks":
+        return _abn_blocks_state_dict(params)
     if "params" in params:
         params = params["params"]
     if kind == "lpips":

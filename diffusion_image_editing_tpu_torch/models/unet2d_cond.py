@@ -24,6 +24,7 @@ from .layers import (
     ResnetBlock2D,
     TimeEmbedding,
     Upsample2D,
+    self_attention_kv,
     timestep_embedding,
 )
 
@@ -99,6 +100,8 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(b, s, self.heads, hd)
         k = self.to_k(ctx).reshape(b, ctx.shape[1], self.heads, hd)
         v = self.to_v(ctx).reshape(b, ctx.shape[1], self.heads, hd)
+        if context is None:  # the context's K/V are whole on every rank already
+            k, v = self_attention_kv(k, v)
         out = attention(q, k, v, scale=hd ** -0.5).reshape(b, s, dim)
         return self.to_out[0](out)
 

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..ops.conv import Conv3x3
+from ..ops.split import recompute_context
 from .layers import AttentionBlock2D, Downsample2D, GroupNormLayer, ResnetBlock2D, Upsample2D
 from .unet2d_cond import _Block
 
@@ -98,9 +99,11 @@ def _call(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
 
 def _checkpointed(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
     """`block(h)` keeping only `h` for the backward, which runs the block's
-    forward again. Non-reentrant: `torch.autograd.grad` with respect to the
+    forward again, under the spatial split of the forward (its halo,
+    GroupNorm and K/V collectives then run again, in the same order on
+    every rank). Non-reentrant: `torch.autograd.grad` with respect to the
     decoder's input (the guidance gradient) goes through it."""
-    return checkpoint(block, h, use_reentrant=False)
+    return checkpoint(block, h, use_reentrant=False, context_fn=recompute_context)
 
 
 def _run_mid(block: _Block, h: torch.Tensor, run=_call) -> torch.Tensor:

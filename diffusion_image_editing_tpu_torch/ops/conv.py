@@ -34,6 +34,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .split import current, halo_rows
+
 MODES = ("xla", "shift9", "int8", "int8_large")
 INT8_MIN_H_DEFAULT = 128
 
@@ -160,8 +162,18 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, int8_bwd: bool = False) -> to
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
-    """The dispatched 3x3 conv (NCHW x OIHW), + bias when given."""
+    """The dispatched 3x3 conv (NCHW x OIHW), + bias when given. Under a
+    spatial split (`ops.split`) x is the rank's rows: it takes one
+    row of each neighbour (zeros at the image's edges) and pads the width
+    only; only the "xla" mode runs split."""
     mode = _SETTINGS["mode"]
+    split = current()
+    if split is not None:
+        if mode != "xla":
+            raise NotImplementedError(f"conv mode {mode!r} under a spatial split: only \"xla\" "
+                                      "runs with the rows split (ROADMAP Queue A)")
+        CALL_COUNTS["xla"] += 1
+        return F.conv2d(halo_rows(x, split), w, bias, padding=(0, 1))
     if mode == "int8" or (mode == "int8_large" and x.shape[2] >= _SETTINGS["min_h"]):
         CALL_COUNTS["int8"] += 1
         y = conv3x3_int8(x, w, _SETTINGS["int8_bwd"])

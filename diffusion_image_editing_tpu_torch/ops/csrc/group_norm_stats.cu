@@ -1,5 +1,8 @@
 // K5: GroupNorm statistics, per (n, g) f32 mean and rstd, for slabs of any
-// size; one read of x, one launch, no scratch.
+// size; one read of x, one launch, no scratch. With `out_m2` the second
+// output is the slab's M2 = sum((x - mean)^2) instead of rstd: the moments
+// that a GroupNorm whose rows are split over ranks folds across them
+// (`ops/split.py::combine_moments`).
 //
 // Replaces the TPU kernel `_stats_kernel` of
 // diffusion_image_editing_tpu/ops/groupnorm.py, which summed x and x^2 per
@@ -81,7 +84,7 @@ __device__ __forceinline__ Moments warp_merge(Moments m) {
 template <bool VEC, bool CLUSTER>
 __global__ void __launch_bounds__(kStatsThreads)
     gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ mean_out,
-                    float* __restrict__ rstd_out, int L, float eps) {
+                    float* __restrict__ rstd_out, int L, float eps, int out_m2) {
   __shared__ float4 warp_part[kStatsThreads / 32];
   __shared__ float4 rank_part[kMaxCluster];  // read in rank 0 only
   if constexpr (CLUSTER) sm90::cluster_arrive_relaxed();  // waited on before rank 0's is written
@@ -154,24 +157,26 @@ __global__ void __launch_bounds__(kStatsThreads)
   }
   if (rank == 0 && threadIdx.x == 0) {
     mean_out[ng] = m.mean;
-    rstd_out[ng] = rsqrtf(m.m2 / static_cast<float>(L) + eps);
+    rstd_out[ng] = out_m2 ? m.m2 : rsqrtf(m.m2 / static_cast<float>(L) + eps);
   }
 }
 
 template <bool VEC, bool CLUSTER>
 cudaError_t launch_stats(const bf16* x, float* mean, float* rstd, int NG, int L, int k, float eps,
-                         cudaStream_t stream) {
+                         int out_m2, cudaStream_t stream) {
   return sm90::launch_clustered(gn_stats_kernel<VEC, CLUSTER>, CLUSTER, k, NG, kStatsThreads, 0,
-                                stream, x, mean, rstd, L, eps);
+                                stream, x, mean, rstd, L, eps, out_m2);
 }
 
 }  // namespace gn
 
-// mean and rstd are (N, G) f32 outputs; `cluster` blocks split each slab
-// (1, 2, 4 or 8, at most the slab's atoms: 16-byte vectors where
-// C / G * HW % 8 == 0, else elements). Returns a cudaError_t.
+// mean and rstd are (N, G) f32 outputs (rstd is M2 when out_m2 != 0);
+// `cluster` blocks split each slab (1, 2, 4 or 8, at most the slab's atoms:
+// 16-byte vectors where C / G * HW % 8 == 0, else elements). Returns a
+// cudaError_t.
 extern "C" int group_norm_stats(int device, const void* x, void* mean, void* rstd, int N, int C,
-                                int HW, int G, int cluster, float eps, void* stream) {
+                                int HW, int G, int cluster, float eps, int out_m2,
+                                void* stream) {
   using namespace gn;
   cudaError_t err = check_gn_shape(N, C, HW, G, kNone);
   const int L = C / G * HW, NG = N * G;
@@ -188,7 +193,7 @@ extern "C" int group_norm_stats(int device, const void* x, void* mean, void* rst
   auto st = static_cast<cudaStream_t>(stream);
   auto launch = vec ? (cluster > 1 ? launch_stats<true, true> : launch_stats<true, false>)
                     : (cluster > 1 ? launch_stats<false, true> : launch_stats<false, false>);
-  err = launch(xp, mp, rp, NG, L, cluster, eps, st);
+  err = launch(xp, mp, rp, NG, L, cluster, eps, out_m2, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

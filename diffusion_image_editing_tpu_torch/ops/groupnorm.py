@@ -37,7 +37,8 @@ of 1 MiB and more take K5 + K6.
 
 Plain versions: `group_norm_moments` (K5, and K4's statistics),
 `group_norm_apply_reference` (K6) and `group_norm_reference` (K4, and the
-whole function). `group_norm()` launches the kernels for a CUDA tensor, or
+whole function), `group_norm_mean_m2` (K5's (mean, M2) output).
+`group_norm()` launches the kernels for a CUDA tensor, or
 raises for a dtype other than bf16 or a shape they do not take; it takes the
 plain version for a CPU tensor only. Its gradient is torch ops, as the JAX
 package's is XLA ops (`_group_norm_bwd`): from x and the forward's saved f32
@@ -45,6 +46,13 @@ mean and rstd, the pre-activation is rebuilt elementwise for the
 activation's derivative, and the normalisation's backward runs without a
 second statistics pass over x. Each kernel wrapper counts its launches in
 `.launches`.
+
+Under a spatial split (`ops.split`: each rank holds some rows of
+every map) K4's one pass cannot span the ranks: K5 takes each rank's
+(mean, M2) per slab, the ranks' moments are folded by Chan's formula in
+rank order on every rank (`combine_moments`, an all-gather of N * G * 2
+floats), and K6 applies the whole (mean, rstd). The backward sums its two
+per-group terms over the ranks.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .split import all_reduce_sum, combine_moments, current
 
 ACTS = (None, "silu", "relu", "gelu")  # codes 0-3 of csrc/group_norm_common.cuh
 FUSED_MAX_SLAB_BYTES = 512 * 1024  # the route limit: larger slabs take K5 + K6
@@ -109,6 +118,14 @@ def group_norm_moments(x: torch.Tensor, num_groups: int,
     mean = xf.mean(-1)
     var = (xf - mean[..., None]).square().mean(-1)
     return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_mean_m2(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, g) f32 mean and M2 = sum((x - mean)^2), (N, G) each: the plain
+    version of K5's (mean, M2) output."""
+    xf = x.float().reshape(x.shape[0], num_groups, -1)
+    mean = xf.mean(-1)
+    return mean, (xf - mean[..., None]).square().sum(-1)
 
 
 def group_norm_apply_reference(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
@@ -168,8 +185,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # device, x, scale, bias, affine_f32, out, mean, rstd, N, C, HW, G, cluster, eps, act, stream
     "group_norm_fused": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # device, x, mean, rstd, N, C, HW, G, cluster, eps, stream
-    "group_norm_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # device, x, mean, rstd (or M2), N, C, HW, G, cluster, eps, out_m2, stream
+    "group_norm_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # device, x, mean, rstd, scale, bias, affine_f32, out, N, C, HW, G, act, stream
     "group_norm_apply": [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -299,16 +316,17 @@ def group_norm_fused(x, scale, bias, num_groups: int, eps: float, act: Optional[
     return out, mean, rstd
 
 
-def group_norm_stats(x, num_groups: int, eps: float):
-    """K5. Returns (mean, rstd), (N, G) f32 each."""
+def group_norm_stats(x, num_groups: int, eps: float = 1e-6, m2: bool = False):
+    """K5. Returns (mean, rstd), (N, G) f32 each; with `m2`, (mean, M2) with
+    M2 = sum((x - mean)^2) over each slab (eps unused)."""
     n, c, hw = _check_x("group_norm_stats", x, num_groups)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
+    second = torch.empty_like(mean)
     _build.launch("group_norm_stats", _ARGTYPES["group_norm_stats"], x.device, x.data_ptr(),
-                  mean.data_ptr(), rstd.data_ptr(), n, c, hw, num_groups,
-                  stats_cluster_blocks(x.shape, num_groups), float(eps))
+                  mean.data_ptr(), second.data_ptr(), n, c, hw, num_groups,
+                  stats_cluster_blocks(x.shape, num_groups), float(eps), int(m2))
     group_norm_stats.launches += 1
-    return mean, rstd
+    return mean, second
 
 
 def group_norm_apply(x, mean, rstd, scale, bias, act: Optional[str]):
@@ -341,28 +359,83 @@ def group_norm_kernels(x, scale, bias, num_groups: int, eps: float, act: Optiona
     return group_norm_apply(x, mean, rstd, scale, bias, act), mean, rstd
 
 
+def _split_moments(x, num_groups: int, eps: float, split):
+    """The whole (mean, rstd) of a map whose rows are split: each rank's
+    (mean, M2) by K5 (CUDA) or the plain version (CPU), folded over the
+    ranks."""
+    local = (group_norm_stats(x, num_groups, m2=True) if x.is_cuda
+             else group_norm_mean_m2(x, num_groups))
+    count = x.shape[1] // num_groups * math.prod(x.shape[2:])
+    mean, m2 = combine_moments(*local, count, split)
+    return mean, torch.rsqrt(m2 / (count * split.size) + eps)
+
+
+def split_group_norm_backward(grad, x, scale, bias, mean, rstd, num_groups: int,
+                              act: Optional[str], split, needs=(True, True, True)):
+    """`group_norm_backward` of a map whose rows are split: dx needs the
+    per-group sums of dy * scale and of dy * scale * xhat over every rank's
+    rows (one all-reduce of N * G * 2 floats). dscale and dbias are this
+    rank's share."""
+    n, c = x.shape[:2]
+    per = c // num_groups
+    shape = (n, c) + (1,) * (x.dim() - 2)
+    mean_c = mean.repeat_interleave(per, 1).reshape(shape)
+    rstd_c = rstd.repeat_interleave(per, 1).reshape(shape)
+    xhat = (x.float() - mean_c) * rstd_c
+    dy = grad.float()
+    if act is not None:
+        pre = xhat * scale.float().reshape(shape[1:])[None] + bias.float().reshape(shape[1:])[None]
+        dy = _activate_backward(dy.contiguous(), pre, act)
+    dx = dscale = dbias = None
+    if needs[0]:
+        dys = dy * scale.float().reshape(shape[1:])[None]
+        sums = all_reduce_sum(torch.stack([dys.reshape(n, num_groups, -1).sum(-1),
+                                           (dys * xhat).reshape(n, num_groups, -1).sum(-1)]),
+                              split.group)
+        count = per * math.prod(x.shape[2:]) * split.size
+        m1 = (sums[0] / count).repeat_interleave(per, 1).reshape(shape)
+        m2 = (sums[1] / count).repeat_interleave(per, 1).reshape(shape)
+        dx = (rstd_c * (dys - m1 - xhat * m2)).to(x.dtype)
+    dims = (0,) + tuple(range(2, x.dim()))
+    if needs[1]:
+        dscale = (dy * xhat).sum(dims).to(scale.dtype)
+    if needs[2]:
+        dbias = dy.sum(dims).to(bias.dtype)
+    return dx, dscale, dbias
+
+
 class _GroupNorm(torch.autograd.Function):
     """Forward by the kernels (CUDA) or the plain version (CPU); backward
-    `group_norm_backward` from x and the saved mean and rstd."""
+    `group_norm_backward` from x and the saved mean and rstd. Under a
+    spatial split the statistics are folded over the ranks (K5, then K6)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, act):
-        if x.is_cuda:
+        split = current()
+        if x.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"group_norm: no kernel for device {x.device}")
+        if split is not None:
+            mean, rstd = _split_moments(x, num_groups, eps, split)
+            out = (group_norm_apply(x, mean, rstd, scale, bias, act) if x.is_cuda
+                   else group_norm_apply_reference(x, mean, rstd, scale, bias, act))
+        elif x.is_cuda:
             out, mean, rstd = group_norm_kernels(x, scale, bias, num_groups, eps, act)
-        elif x.device.type == "cpu":
+        else:
             mean, rstd = group_norm_moments(x, num_groups, eps)
             out = group_norm_apply_reference(x, mean, rstd, scale, bias, act)
-        else:
-            raise ValueError(f"group_norm: no kernel for device {x.device}")
         ctx.save_for_backward(x, scale, bias, mean, rstd)
-        ctx.num_groups, ctx.act = num_groups, act
+        ctx.num_groups, ctx.act, ctx.split = num_groups, act, split
         return out
 
     @staticmethod
     def backward(ctx, grad):
         x, scale, bias, mean, rstd = ctx.saved_tensors
-        grads = group_norm_backward(grad, x, scale, bias, mean, rstd, ctx.num_groups, ctx.act,
-                                    ctx.needs_input_grad[:3])
+        if ctx.split is not None:
+            grads = split_group_norm_backward(grad, x, scale, bias, mean, rstd, ctx.num_groups,
+                                              ctx.act, ctx.split, ctx.needs_input_grad[:3])
+        else:
+            grads = group_norm_backward(grad, x, scale, bias, mean, rstd, ctx.num_groups,
+                                        ctx.act, ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
 
 

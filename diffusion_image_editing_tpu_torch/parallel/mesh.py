@@ -18,6 +18,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..ops.split import all_gather_into, all_reduce_sum
+
 Group = Union[dist.ProcessGroup, DeviceMesh]
 
 
@@ -106,13 +108,6 @@ def gather_leading_axis(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -
     return out
 
 
-def all_gather_into(out: torch.Tensor, x: torch.Tensor, group: dist.ProcessGroup) -> None:
-    """`out` = the group's `x`s concatenated on the leading axis in rank
-    order (`all_gather_single` where torch has it, else its older name)."""
-    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    gather(out, x, group=group)
-
-
 def mean_over(tensors: Sequence[torch.Tensor], group: Group) -> None:
     """Replace each tensor, in place, by its mean over the group's ranks
     (one all-reduce of the tensors packed together; floating tensors of
@@ -122,8 +117,7 @@ def mean_over(tensors: Sequence[torch.Tensor], group: Group) -> None:
         return
     group = axis_group(group)
     world = dist.get_world_size(group)
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]), group)
     flat /= world
     offset = 0
     for t in tensors:

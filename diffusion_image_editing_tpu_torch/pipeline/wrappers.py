@@ -48,26 +48,40 @@ class DiffusionWrapper:
             return None
         return module.to(self.device).eval().requires_grad_(False)
 
-    def to_mesh(self, mesh) -> "DiffusionWrapper":
-        """A shallow copy (the same modules) whose CFG denoiser splits the
-        [uncond; cond] pair over the mesh's `cfg` axis
-        (`parallel.ShardedCfgEpsClosure`): each rank runs one branch of every
-        UNet call, and the rest of each step runs whole on every rank. The
-        same EditPipeline / generate / invert code then runs split:
+    def _codec(self) -> Tuple[Optional[nn.Module], float]:
+        """(autoencoder, latent scale); None for the identity codec."""
+        return None, 1.0
 
-            mesh = parallel.cfg_mesh(cfg=2)        # under torchrun, 2 ranks
+    def _set_codec(self) -> None:
+        """The codec closures of `_codec()`, off any mesh (a subclass calls
+        it once its autoencoder is set)."""
+        vae, scale = self._codec()
+        self._encode = EncodeClosure(vae, scale)
+        self._decode = DecodeClosure(vae, scale)
+        self._decode_remat = DecodeClosure(vae, scale, remat=True)
+
+    def to_mesh(self, mesh) -> "DiffusionWrapper":
+        """A shallow copy (the same modules) whose closures split one edit
+        over the mesh (`parallel.edit_shard`): a CFG UNet call's pair over
+        the `cfg` axis and its rows over `sp`, an unconditional call's rows
+        over the whole mesh, and the codec's (encode, decode and the
+        decode's gradient, checkpointed or not) over the whole mesh. The same
+        EditPipeline / generate / invert code then runs split:
+
+            mesh = parallel.cfg_mesh(cfg=2, sp=2)   # under torchrun, 4 ranks
             pipe = EditPipeline(wrapper.to_mesh(mesh), seg_model)
 
-        Only `cfg` may be larger than 1: the spatial split of the JAX
-        package's `to_mesh` (`sp`, and the latent's rows over the whole mesh
-        for an unconditional call and for the decode) is ROADMAP Queue A
-        item 18b and raises NotImplementedError."""
-        from ..parallel.edit_shard import check_cfg_mesh
+        Every rank gets the same bytes from every closure. Making the
+        closures may make process groups: every rank calls `to_mesh`."""
+        from ..parallel.edit_shard import SpatialDecodeClosure, SpatialEncodeClosure
 
-        check_cfg_mesh(mesh)
         w = copy.copy(self)
         w._mesh = mesh
         w._decode_proxy = None
+        vae, scale = self._codec()
+        w._encode = SpatialEncodeClosure(vae, scale, mesh)
+        w._decode = SpatialDecodeClosure(vae, scale, mesh)
+        w._decode_remat = SpatialDecodeClosure(vae, scale, mesh, remat=True)
         return w
 
     # ---- codec boundary --------------------------------------------------
@@ -118,14 +132,11 @@ class DiffusionWrapper:
                 return EpsFeatClosure(self.unet)
             return CfgEpsFeatClosure(self.unet, text_emb, cfg_scale)
         if self._mesh is not None:
-            from ..parallel.edit_shard import (SPATIAL_TODO, check_cfg_mesh,
-                                               make_sharded_cfg_eps_fn)
+            from ..parallel.edit_shard import ShardedEpsClosure, make_sharded_cfg_eps_fn
 
-            if text_emb is not None:
-                return make_sharded_cfg_eps_fn(self.unet, text_emb, cfg_scale, self._mesh)
-            if check_cfg_mesh(self._mesh) > 1:
-                raise NotImplementedError(f"an unconditional UNet call on a cfg mesh has no "
-                                          f"pair to split; splitting its rows is {SPATIAL_TODO}")
+            if text_emb is None:
+                return ShardedEpsClosure(self.unet, self._mesh)
+            return make_sharded_cfg_eps_fn(self.unet, text_emb, cfg_scale, self._mesh)
         if text_emb is None:
             return EpsClosure(self.unet)
         return CfgEpsClosure(self.unet, text_emb, cfg_scale)
@@ -220,9 +231,10 @@ class LDM(DiffusionWrapper):
     def __init__(self, unet: nn.Module, sched: Schedule, vqvae: nn.Module, device=None):
         super().__init__(unet, sched, device)
         self.vqvae = self._frozen(vqvae)
-        self._encode = EncodeClosure(self.vqvae, 1.0)
-        self._decode = DecodeClosure(self.vqvae, 1.0)
-        self._decode_remat = DecodeClosure(self.vqvae, 1.0, remat=True)
+        self._set_codec()
+
+    def _codec(self):
+        return self.vqvae, 1.0
 
 
 class SD(DiffusionWrapper):
@@ -241,10 +253,10 @@ class SD(DiffusionWrapper):
         self.vae = self._frozen(vae)
         self.text_encoder = self._frozen(text_encoder)
         self.tokenizer = tokenizer
-        scale = vae.config.scaling_factor
-        self._encode = EncodeClosure(self.vae, scale)
-        self._decode = DecodeClosure(self.vae, scale)
-        self._decode_remat = DecodeClosure(self.vae, scale, remat=True)
+        self._set_codec()
+
+    def _codec(self):
+        return self.vae, self.vae.config.scaling_factor
 
     # ---- text ------------------------------------------------------------
     def encode_text_ids(self, input_ids) -> torch.Tensor:

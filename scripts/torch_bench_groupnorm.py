@@ -188,7 +188,7 @@ class Case:
                 "out": self.out.data_ptr(), "mean": self.mean.data_ptr(),
                 "rstd": self.rstd.data_ptr(), "partial": self.partial.data_ptr(),
                 "scratch_floats": self.partial.numel(), "N": n, "C": c, "HW": h * w,
-                "G": self.groups, "eps": self.eps, "act": GN.ACTS.index(self.act),
+                "G": self.groups, "eps": self.eps, "act": GN.ACTS.index(self.act), "out_m2": 0,
                 "cluster": cluster_of(name, self.shape, self.groups),
                 "stream": torch.cuda.current_stream(self.x.device).cuda_stream}
 

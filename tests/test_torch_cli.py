@@ -127,9 +127,11 @@ def test_opt_in_accelerations_run(ckpt, cmd, flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd,flags,item", [
-    ("edit", ["--shard", "cfg2xsp4"], "item 18b"),
-    ("generate", ["--shard", "sp8"], "item 18b"),
-    # --shard cfg2 is ported; it needs two ranks (torchrun), and one process has one.
+    # Every --shard spec is ported; it needs as many ranks (torchrun) as its
+    # sizes multiply to, and one process has one. Runs on two and four gloo
+    # ranks: tests/test_torch_spatial.py::test_cli_shard_runs_on_gloo_ranks.
+    ("edit", ["--shard", "cfg2xsp4"], "needs 8 devices, have 1"),
+    ("generate", ["--shard", "sp8"], "needs 8 devices, have 1"),
     ("edit", ["--shard", "cfg2"], "needs 2 devices, have 1"),
     ("generate", ["--shard", "cfg2"], "needs 2 devices, have 1"),
 ])

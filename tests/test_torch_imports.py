@@ -50,12 +50,24 @@ def test_importing_every_module_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("package", ["pipeline", "engine", "models", "parallel", "ops", "cli"])
+def test_each_package_imports_first(package):
+    """A package imported first in a fresh interpreter, as a user's script
+    does: no import cycle (the models read the spatial split from
+    `ops.split`, below `parallel`, which imports the engine, which imports
+    the models)."""
+    res = subprocess.run([sys.executable, "-c", f"import {PORT.name}.{package}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
 def test_parallel_is_checked_and_starts_no_group():
     """parallel/ is among the files checked above, and importing it (with
     the trainer and the CLI, which use it) starts no process group."""
     names = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sweep.py",
-            "parallel/edit_shard.py"} <= names
+            "parallel/edit_shard.py", "ops/split.py", "models/extra_blocks.py",
+            "ops/native/__init__.py"} <= names
     code = ("import torch.distributed as dist\n"
             "import diffusion_image_editing_tpu_torch.parallel, "
             "diffusion_image_editing_tpu_torch.seg, diffusion_image_editing_tpu_torch.cli\n"
