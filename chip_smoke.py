@@ -30,7 +30,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                64 x 64 320 -> 320, 32 x 32 1920 -> 640, 16 x 16 2560 -> 1280
                and 8 x 8 1280 -> 1280 (batch 2), the VAE's 64 x 64 512 -> 512
                (batch 1) and a 4 x 4 map of 8 channels; yardstick `F.conv2d`
-               (cuDNN) on the pre-activated input;
+               (cuDNN) on the pre-activated input; then its halo form at a
+               rank's rows of the spatial split (SPLIT_CONV_CASES): the
+               UNet's 32 of 64 rows as the first, a middle and the last
+               rank, and 2 and 1 rows of the 8 x 8 x 1280 stage, each time
+               printed beside the whole map's;
              * activated batch norm (K8) at the segmentation trainer's
                shapes (batch 16 at 448 px): the stem's 224 x 224 x 64, layer4's
                14 x 14 x 512, the 1 x 1 x 128 norms, one bf16 and one ELU
@@ -160,7 +164,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              (and for SD K2, K3) launches non-zero, no plain attention or
              GroupNorm on the card; ms per step printed, four processes
              sharing one card. [kernels] holds K1-K3 at the split's
-             S_q != S_k shapes and K5's (mean, M2) output.
+             S_q != S_k shapes and K5's (mean, M2) output. Then each
+             family's opt-in accelerations on its mesh (SPATIAL_VARIANTS):
+             `fused_conv` on every ResnetBlock2D (K7's halo form) and
+             `conv_mode("int8_large", min_h=INT8_MIN_H, int8_bwd=True)`:
+             the pieces and two guided steps against the whole run with the
+             same setting, within SPATIAL_TOL's "<variant> <check>", each
+             control (zero halo rows) beyond it, ranks bit-equal, K7
+             launched on every rank of the fused run, int8 convs and no
+             cuDNN 3x3 conv at INT8_MIN_H rows or more of the whole map in
+             the int8 run, no plain K7, GroupNorm or attention on the card.
 7g. extra  - item 19's blocks: DeeplabV3Head (ASPP, 19 classes) and an
              IdentityResidualBlock at width 256 on a (4, 256, 64, 64) bf16
              map, eval and training mode, every ABN through K8, against the
@@ -412,6 +425,16 @@ CONV_CASES = [  # (label, N, Cin, Cout, H, W)
     ("unet 8x8 1280->1280 b2", 2, 1280, 1280, 8, 8),
     ("unet 32x32 1920->640 b2", 2, 1920, 640, 32, 32),
     ("4x4 8->24 b2", 2, 8, 24, 4, 4),
+]
+# K7's halo form at a rank's rows of the spatial split: (label, N, Cin, Cout,
+# the rank's rows, W, (top_real, bottom_real)); x holds the rows and a
+# neighbour's row above and below, zero where not real (the image's edge).
+SPLIT_CONV_CASES = [
+    ("split unet 64x64 320->320 b2, first of 2 ranks", 2, 320, 320, 32, 64, (False, True)),
+    ("split unet 64x64 320->320 b2, a middle rank", 2, 320, 320, 32, 64, (True, True)),
+    ("split unet 64x64 320->320 b2, last of 2 ranks", 2, 320, 320, 32, 64, (True, False)),
+    ("split unet 8x8 1280->1280 b2, 2 rows a rank (sp4)", 2, 1280, 1280, 2, 8, (True, True)),
+    ("split unet 8x8 1280->1280 b2, 1 row a rank (sp8)", 2, 1280, 1280, 1, 8, (True, False)),
 ]
 # The same full-width computations in the default and the fused-conv
 # configuration, both bf16, max |fused - default| / max |default|: about the
@@ -853,21 +876,22 @@ def _groupnorm_kernels(gen, dev, entries, failures) -> None:
         torch.cuda.empty_cache()
 
 
-def conv_case(label, n, cin, cout, h, w, gen, dev):
+def conv_case(label, n, cin, cout, h, w, gen, dev, halo=None):
     """K7 at one shape against its plain version on the same inputs, then
     the kernel's, the plain version's and cuDNN's time (`F.conv2d` on the
     pre-activated input). Bound: 2 * N * H * W * Cout * 9 * Cin tensor-core
-    operations against x, w and y read or written once. Returns the JSON
-    entry and whether the kernel is within CONV_TOL."""
+    operations against x, w and y read or written once. With `halo`
+    (top_real, bottom_real), the halo form at a rank's h rows: x holds h + 2.
+    Returns the JSON entry and whether the kernel is within CONV_TOL."""
     from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
 
-    x = _randn((n, cin, h, w), gen, dev)
+    x = _randn((n, cin, h + (0 if halo is None else 2), w), gen, dev)
     a = 1 + 0.2 * torch.randn((n, cin), generator=gen, device=dev)
     b = 0.5 * torch.randn((n, cin), generator=gen, device=dev)
     wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5)
     wt = wt.to(torch.bfloat16)
     bias = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
-    args = (x, a, b, wt, bias)
+    args = (x, a, b, wt, bias, halo)
     with torch.no_grad():
         y = FC.affine_silu_conv3x3_kernel(*args)
         ref = FC.affine_silu_conv3x3_reference(*args)
@@ -876,8 +900,9 @@ def conv_case(label, n, cin, cout, h, w, gen, dev):
         rel = err / ref.float().abs().max().item()
         ms = time_ms(lambda: FC.affine_silu_conv3x3_kernel(*args))
         plain_ms = time_ms(lambda: FC.affine_silu_conv3x3_reference(*args), reps=5)
-        act = F.silu(x.float() * a[:, :, None, None] + b[:, :, None, None]).to(x.dtype)
-        lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=1))
+        act = FC.edges_zeroed(F.silu(x.float() * a[:, :, None, None]
+                                      + b[:, :, None, None]).to(x.dtype), halo)
+        lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=FC.conv_padding(halo)))
     flops = 2.0 * n * h * w * cout * 9 * cin
     nbytes = 2.0 * (x.numel() + wt.numel() + y.numel()) + 8.0 * n * cin + 2.0 * cout
     e = _entry("affine_silu_conv3x3", [n, cin, cout, h, w], err, ms, plain_ms, flops,
@@ -892,12 +917,23 @@ def conv_case(label, n, cin, cout, h, w, gen, dev):
 
 
 def _conv_kernels(gen, dev, entries, failures) -> None:
-    """K7 at the path's fused-conv shapes (`conv_case`)."""
+    """K7 at the path's fused-conv shapes (`conv_case`), then its halo form
+    at SPLIT_CONV_CASES, each beside the whole map's time at its width."""
+    whole = {}
     for label, n, cin, cout, h, w in CONV_CASES:
         e, ok = conv_case(label, n, cin, cout, h, w, gen, dev)
         if not ok:
             failures.append(f"fused conv {label}")
         entries.setdefault("affine_silu_conv3x3", e)
+        whole[(n, cin, cout, w)] = (h, e["ms"])
+        torch.cuda.empty_cache()
+    for label, n, cin, cout, h, w, halo in SPLIT_CONV_CASES:
+        e, ok = conv_case(label, n, cin, cout, h, w, gen, dev, halo)
+        rows, ms = whole[(n, cin, cout, w)]
+        log(f"[kernels] fused conv {label}: halo form {e['ms']:.4f} ms at {h} + 2 rows "
+            f"{halo}, the whole {rows}-row map {ms:.4f} ms")
+        if not ok:
+            failures.append(f"fused conv {label}")
         torch.cuda.empty_cache()
 
 
@@ -2725,10 +2761,26 @@ SPATIAL_TIMEOUT_S = 600
 # control that must exceed its tolerance: the same split with zeros in
 # place of the neighbours' halo rows (`zero_halo`); on an H100 the
 # controls read 0.57-1.26.
+# The opt-in accelerations' entries ("<variant> <check>", SPATIAL_VARIANTS):
+# fused_conv reads as the base run (the same roundings in other places), so
+# it keeps the base run's values. Under int8_large a rounding difference
+# upstream can move an activation across a quantization boundary, one step
+# of max / 127, and the decoder stacks some 30 such convs: on an H100 the
+# SD decode read 0.086 and its gradient 0.18, DDPM's eps (its 256 and 128
+# rows quantized) 0.053 and its guided step 0.11, each 2-5x the exact
+# run's, while one int8 conv split is the whole conv's bits
+# (`int8_conv_exact`); the controls read 0.59-0.77. Those entries are 2-3x
+# their readings; the rest, where no int8 conv runs or the exact pieces
+# dominate, the base run's (PERF.md, "[spatial]").
 SPATIAL_TOL = {"sd": {"eps": 0.1, "decode": 0.05, "decode_vjp": 0.1, "encode": 0.05,
-                      "inversion_step": 0.3, "guided_step": 0.3, "image": 0.05},
+                      "inversion_step": 0.3, "guided_step": 0.3, "image": 0.05,
+                      "fused eps": 0.1, "fused decode": 0.05, "fused decode_vjp": 0.1,
+                      "fused encode": 0.05, "fused guided_step": 0.3,
+                      "int8 eps": 0.1, "int8 decode": 0.2, "int8 decode_vjp": 0.4,
+                      "int8 encode": 0.05, "int8 guided_step": 0.3},
                "ddpm": {"eps": 0.025, "inversion_step": 0.05, "guided_step": 0.05,
-                        "image": 0.0}}
+                        "image": 0.0, "fused eps": 0.025, "fused guided_step": 0.05,
+                        "int8 eps": 0.12, "int8 guided_step": 0.25}}
 SPATIAL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                    "group_norm_stats", "group_norm_apply")
 # family -> (mesh, the kernels every rank must launch in the counted edit).
@@ -2736,6 +2788,126 @@ SPATIAL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
 # backward.
 SPATIAL_RUNS = {"sd": ("cfg2xsp2", SPATIAL_KERNELS),
                 "ddpm": ("sp4", ("flash_attn_fwd", "group_norm_stats", "group_norm_apply"))}
+# The opt-in accelerations under the split, each family on its mesh: the
+# pieces (one UNet call; for SD one decode with its latent gradient and one
+# encode) and the guided steps SPATIAL_VARIANT_STEPS, each from the whole
+# run's latent, against the same whole with the same setting. "fused":
+# every ResnetBlock2D with fused_conv (K7's halo form, launched on every
+# rank); "int8": conv_mode("int8_large", min_h=INT8_MIN_H, int8_bwd=True),
+# where no cuDNN 3x3 conv may run at a map of INT8_MIN_H rows or more; their
+# tolerances are SPATIAL_TOL's "<variant> <check>" entries.
+SPATIAL_VARIANTS = ("fused", "int8")
+SPATIAL_VARIANT_STEPS = (0, SPATIAL_STEPS // 2)
+
+
+@contextlib.contextmanager
+def spatial_variant(variant, *modules):
+    """The body with [spatial]'s `variant` (None: the models as built):
+    "fused" turns fused_conv on in every ResnetBlock2D of `modules` (the
+    parameters are the same either way), "int8" sets the int8_large conv
+    mode with int8_bwd."""
+    from diffusion_image_editing_tpu_torch.models.layers import ResnetBlock2D
+    from diffusion_image_editing_tpu_torch.ops.conv import conv_mode
+
+    blocks = [m for mod in modules if mod is not None for m in mod.modules()
+              if isinstance(m, ResnetBlock2D)]
+    saved = [b.fused_conv for b in blocks]
+    with contextlib.ExitStack() as stack:
+        if variant == "fused":
+            for b in blocks:
+                b.fused_conv = True
+            stack.callback(lambda: [setattr(b, "fused_conv", f) for b, f in zip(blocks, saved)])
+        elif variant == "int8":
+            stack.enter_context(conv_mode("int8_large", min_h=INT8_MIN_H, int8_bwd=True))
+        yield
+
+
+@contextlib.contextmanager
+def cudnn_conv3x3_rows():
+    """The whole map's rows of every stride-1 3x3 `F.conv2d` (cuDNN) that the
+    body runs, in a list; under a spatial split a rank's output rows times
+    the ranks."""
+    from diffusion_image_editing_tpu_torch.ops.split import current
+
+    seen, orig = [], F.conv2d
+
+    def watched(x, weight, bias=None, stride=1, padding=0, *args, **kwargs):
+        if tuple(weight.shape[-2:]) == (3, 3) and stride in (1, (1, 1)):
+            pad_h = padding if isinstance(padding, int) else padding[0]
+            split = current()
+            seen.append((x.shape[2] + 2 * pad_h - 2) * (1 if split is None else split.size))
+        return orig(x, weight, bias, stride, padding, *args, **kwargs)
+
+    F.conv2d = watched
+    try:
+        yield seen
+    finally:
+        F.conv2d = orig
+
+
+def variant_pieces(w, family: str, dev, path) -> dict:
+    """[spatial]'s pieces and the guided steps SPATIAL_VARIANT_STEPS, each
+    from the whole run's latent path[i], on the host in f32."""
+    return {"pieces": spatial_pieces(w, family, dev),
+            "guided_steps": [guided_step(w, path[i].to(dev), i).float().cpu()
+                             for i in SPATIAL_VARIANT_STEPS]}
+
+
+def int8_conv_exact(dev) -> dict:
+    """One int8 conv at the decode's stage at the gate, 128 rows of 512
+    channels (INT8_CONV_CASES[-1]), split over every rank of the group
+    against the same conv whole on the same input, forward and int8_bwd dx:
+    the s32 sums are exact and the scales the max over the ranks, so both
+    must be the whole conv's bits."""
+    import torch.distributed as dist
+
+    from diffusion_image_editing_tpu_torch.ops.conv import conv3x3, conv_mode
+    from diffusion_image_editing_tpu_torch.ops.split import (SpatialSplit, gather_rows,
+                                                             scatter_rows, spatial_split)
+
+    _, n, c, h, wd = INT8_CONV_CASES[-1]
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn((n, c, h, wd), generator=g, device=dev).to(torch.bfloat16)
+    wt = (torch.randn((c, c, 3, 3), generator=g, device=dev) * 0.03).to(torch.bfloat16)
+    cot = torch.randn((n, c, h, wd), generator=g, device=dev).to(torch.bfloat16)
+    outs = []
+    for split in (None, SpatialSplit(dist.group.WORLD)):
+        xx = x.clone().requires_grad_(True)
+        with conv_mode("int8", int8_bwd=True):
+            rows = scatter_rows(xx, split)
+            with spatial_split(split):
+                y = conv3x3(rows, wt)
+            y = gather_rows(y, split)
+            (dx,) = torch.autograd.grad(y, xx, cot)
+        outs.append((y.detach(), dx))
+    (y0, dx0), (y1, dx1) = outs
+    return {"shape": (n, c, h, wd), "fwd_equal": bool(torch.equal(y0, y1)),
+            "dx_equal": bool(torch.equal(dx0, dx1))}
+
+
+def variant_rank_run(variant: str, w, unet, vae, family: str, dev, path) -> dict:
+    """A rank's run of one variant: its pieces and steps with launch counts,
+    plain K7 / GroupNorm / attention calls on the card, the int8 conv calls
+    and the rows of the cuDNN 3x3 convs, then the control under
+    `zero_halo` (the pieces and the first step)."""
+    from diffusion_image_editing_tpu_torch import ops
+    from diffusion_image_editing_tpu_torch.ops import conv as C
+    from diffusion_image_editing_tpu_torch.ops import fused_conv as FC
+
+    with spatial_variant(variant, unet, vae):
+        before = C.CALL_COUNTS["int8"]
+        with (plain_watch([(FC, "affine_silu_conv3x3_reference")]) as plain_k7,
+              plain_groupnorm_watch() as plain_gn, plain_attention_watch() as plain_attn,
+              cudnn_conv3x3_rows() as rows):
+            ops.reset_launch_counts()
+            run = variant_pieces(w, family, dev, path)
+            counts = ops.launch_counts()
+        int8_calls = C.CALL_COUNTS["int8"] - before
+        with zero_halo():
+            control = dict(spatial_pieces(w, family, dev),
+                           guided_step=guided_step(w, path[0].to(dev), 0).float().cpu())
+    return dict(run, counts=counts, plain=dict(plain_k7, **plain_gn, **plain_attn),
+                int8_calls=int8_calls, cudnn_rows=max(rows, default=0), control=control)
 
 
 def spatial_models(family: str, dev, cfgs: dict):
@@ -2963,10 +3135,15 @@ def spatial_rank(rank: int, world: int, store_path: str, payload: dict, queue) -
                                guided_steps=probe.outs,
                                control=control, counts=counts, plain=dict(plain_gn, **plain_attn),
                                eps_fn=type(wm.eps_fn(wm.prep_text(None))).__name__)
+            for v in SPATIAL_VARIANTS:
+                t0 = time.perf_counter()
+                out[family][v] = variant_rank_run(v, wm, unet, vae, family, dev, path)
+                out[family][v]["seconds"] = time.perf_counter() - t0
             del unet, vae, w, wm
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        out["int8_conv"] = int8_conv_exact(dev)
         # numpy through the queue: a tensor would be shared by a file
         # descriptor that dies with this process
         queue.put((rank, _tree_map(lambda v: v.numpy() if torch.is_tensor(v) else v, out)))
@@ -2984,10 +3161,8 @@ def step_err(got, path, i: int) -> float:
     return ((got.float() - want).abs().max() / move.abs().max()).item()
 
 
-def spatial_checks(family: str, ref: dict, r0: dict) -> list:
-    """[spatial]'s checks of rank 0's results against the whole run's: each
-    as (name, reading, its control's reading, the shape compared, the
-    steps' readings or None)."""
+def _piece_checks(ref: dict, r0: dict) -> list:
+    """The pieces' checks of `spatial_checks` and `variant_checks`."""
     checks = []
     for name, want in ref["pieces"].items():
         wants = want if isinstance(want, tuple) else (want,)
@@ -2995,6 +3170,31 @@ def spatial_checks(family: str, ref: dict, r0: dict) -> list:
         ctrls = r0["control"][name] if isinstance(want, tuple) else (r0["control"][name],)
         for part, g, c, wv in zip(("", "_vjp"), gots, ctrls, wants):
             checks.append((name + part, rel_err(g, wv), rel_err(c, wv), tuple(wv.shape), None))
+    return checks
+
+
+def variant_checks(ref: dict, r0: dict, path) -> list:
+    """A variant's checks of rank 0's results against the whole run's with
+    the same variant, as `spatial_checks`' entries: the pieces, and the
+    guided steps from path[i], each read against the whole step's move."""
+    checks = _piece_checks(ref, r0)
+
+    def err(got, i, j):
+        want = ref["guided_steps"][j].float()
+        return ((got.float() - want).abs().max() / (want - path[i]).abs().max()).item()
+
+    errs = [err(g, i, j) for j, (i, g) in enumerate(zip(SPATIAL_VARIANT_STEPS,
+                                                        r0["guided_steps"]))]
+    checks.append(("guided_step", max(errs), err(r0["control"]["guided_step"], 0, 0),
+                   tuple(path[0].shape), errs))
+    return checks
+
+
+def spatial_checks(family: str, ref: dict, r0: dict) -> list:
+    """[spatial]'s checks of rank 0's results against the whole run's: each
+    as (name, reading, its control's reading, the shape compared, the
+    steps' readings or None)."""
+    checks = _piece_checks(ref, r0)
     for kind, path in (("inversion_step", ref["inv"]), ("guided_step", ref["path"])):
         errs = [step_err(g, path, i) for i, g in enumerate(r0[kind + "s"])]
         checks.append((kind, max(errs), step_err(r0["control"][kind], path, 0),
@@ -3005,6 +3205,51 @@ def spatial_checks(family: str, ref: dict, r0: dict) -> list:
                    checks[[c[0] for c in checks].index("decode")][2] if family == "sd" else None,
                    tuple(ref["imgs"].shape), None))
     return checks
+
+
+def spatial_variant_report(family: str, spec: str, ref: dict, got: dict) -> list:
+    """Logs each variant's checks, ranks and launches; returns the failures."""
+    failures = []
+    for v in SPATIAL_VARIANTS:
+        r0 = got[0][family][v]
+        for name, reading, control, shape, steps in variant_checks(ref[v], r0, ref["path"]):
+            tol = SPATIAL_TOL[family][f"{v} {name}"]
+            ok = reading <= tol < control
+            what = ("max over the steps, each from the whole run's latent, / the step's move"
+                    if steps else "max |split - whole| / max |whole|")
+            log(f"[spatial] {family} {spec} {v} {name} {shape}: {what} {reading:.4e} (tol {tol}); "
+                f"control with zero halo rows {control:.4e}"
+                + (f"; by step {[float(f'{e:.3g}') for e in steps]}" if steps else "")
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{family} {v} {name}")
+        same = all(torch.equal(a, b) for r in got for k in ("pieces", "guided_steps")
+                   for a, b in zip(_tree_leaves(got[r][family][v][k]), _tree_leaves(r0[k])))
+        log(f"[spatial] {family} {spec} {v}: the {SPATIAL_WORLD} ranks' pieces and steps "
+            f"bit-equal: {same}")
+        if not same:
+            failures.append(f"{family} {v} ranks part")
+        for r in sorted(got):
+            g = got[r][family][v]
+            counts = {k: n for k, n in g["counts"].items() if n}
+            log(f"[spatial] {family} {spec} {v} rank {r}: launches {counts}; int8 convs "
+                f"{g['int8_calls']}; cuDNN 3x3 convs up to {g['cudnn_rows']} rows of the whole "
+                f"map; plain on the card {g['plain']}; {g['seconds']:.1f} s")
+            bad = any(g["plain"].values()) or (
+                g["counts"]["affine_silu_conv3x3"] == 0 if v == "fused"
+                else g["int8_calls"] == 0 or g["cudnn_rows"] >= INT8_MIN_H)
+            if bad:
+                failures.append(f"{family} {v} rank {r} launches, int8 or plain calls")
+    return failures
+
+
+def _tree_leaves(obj) -> list:
+    """The leaves of nested dicts, lists and tuples, in order."""
+    if isinstance(obj, dict):
+        return [x for k in obj for x in _tree_leaves(obj[k])]
+    if isinstance(obj, (tuple, list)):
+        return [x for v in obj for x in _tree_leaves(v)]
+    return [obj]
 
 
 def phase_spatial(smi: str, unet, vae, dev=torch.device("cuda"), ddpm_cfg=None) -> dict:
@@ -3042,6 +3287,9 @@ def phase_spatial(smi: str, unet, vae, dev=torch.device("cuda"), ddpm_cfg=None) 
         probe = StepProbe()
         whole[family] = dict(spatial_edit(w, img, inv[-1], probe), pieces=pieces, inv=inv,
                              path=[inv[-1]] + probe.outs)
+        for v in SPATIAL_VARIANTS:
+            with spatial_variant(v, *models):
+                whole[family][v] = variant_pieces(w, family, dev, whole[family]["path"])
         del w, models
     gc.collect()
     if dev.type == "cuda":
@@ -3090,6 +3338,13 @@ def phase_spatial(smi: str, unet, vae, dev=torch.device("cuda"), ddpm_cfg=None) 
         f"on {smi}")
 
     failures, total = [], None
+    for r in sorted(got):
+        e = got[r]["int8_conv"]
+        log(f"[spatial] rank {r}: an int8 conv {tuple(e['shape'])} split over the "
+            f"{SPATIAL_WORLD} ranks against the same conv whole, forward bit-equal "
+            f"{e['fwd_equal']}, int8_bwd dx bit-equal {e['dx_equal']}")
+        if not (e["fwd_equal"] and e["dx_equal"]):
+            failures.append(f"rank {r} int8 conv split is not the whole conv's bits")
     for family, (spec, must) in SPATIAL_RUNS.items():
         ref, r0 = whole[family], got[0][family]
         for name, reading, control, shape, steps in spatial_checks(family, ref, r0):
@@ -3125,6 +3380,7 @@ def phase_spatial(smi: str, unet, vae, dev=torch.device("cuda"), ddpm_cfg=None) 
         log(f"[spatial] {family} whole on one process: inversion "
             f"{ref['inv_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step, guided edit "
             f"{ref['edit_s'] / SPATIAL_STEPS * 1e3:.1f} ms/step")
+        failures += spatial_variant_report(family, spec, ref, got)
         total = ({k: v for k, v in r0["counts"].items()} if total is None
                  else {k: total[k] + r0["counts"][k] for k in total})
     if failures:

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.conv import Conv3x3
-from ..ops.fused_conv import affine_silu_conv3x3, fused_conv_wanted, gn_affine_coeffs
+from ..ops.fused_conv import fused_conv_wanted, gn_silu_conv3x3
 from ..ops.groupnorm import group_norm
 from ..ops import split as spatial
 
@@ -76,7 +76,8 @@ class ResnetBlock2D(nn.Module):
     of norm1, conv2 (A2, B2) of norm2 with the temb projection folded in as
     the shift, so no h + temb tensor is made. Other shapes, and the block
     without `fused_conv`, run the unfused branch. The parameters are the
-    same either way."""
+    same either way. Under a spatial split the gate reads the whole map's
+    rows, so the same convs fuse split and whole."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
                  norm_num_groups: int = 32, norm_eps: float = 1e-6,
@@ -96,12 +97,11 @@ class ResnetBlock2D(nn.Module):
     @staticmethod
     def _norm_conv(norm: GroupNormLayer, conv: Conv3x3, x: torch.Tensor, fused: bool,
                    shift: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if fused and spatial.current() is not None:
-            raise NotImplementedError("fused_conv under a spatial split: K7 takes whole maps "
-                                      "(ROADMAP Queue A)")
-        if fused and fused_conv_wanted(x.shape):
-            a, b = gn_affine_coeffs(x, norm.weight, norm.bias, norm.num_groups, norm.eps, shift)
-            return affine_silu_conv3x3(x, a, b, conv.weight, conv.bias)
+        split = spatial.current()
+        n, c, h, w = x.shape
+        if fused and fused_conv_wanted((n, c, h * (1 if split is None else split.size), w)):
+            return gn_silu_conv3x3(x, norm.weight, norm.bias, norm.num_groups, norm.eps,
+                                   conv.weight, conv.bias, shift)
         if shift is not None:
             x = x + shift[:, :, None, None].to(x.dtype)
         return conv(norm(x))

@@ -49,6 +49,14 @@
 //     The halo (rows and columns outside an image, between folded images
 //     too) is zeroed once and never written: the conv pads AFTER the
 //     activation, and silu(0 * A + B) != 0.
+//   * Under a spatial split (the rows of every map over ranks) x holds a
+//     rank's H rows with a neighbour's row above and below, H + 2 rows an
+//     image, and `halo` says which of the two are image rows (kTopReal,
+//     kBottomReal) and which the image's edge. A real halo row is loaded
+//     and activated like any other patch row; an edge stays zero. The
+//     flags hold for every image of a launch, so each patch row of a block
+//     is real or halo for all its chunks and "zeroed once" still holds. H
+//     may then be as small as one row.
 //   * One __syncthreads a step, after the step's products are started and so
 //     under them, frees step s - 1's weight slot and, every ninth step, hands
 //     over a patch buffer.
@@ -80,6 +88,9 @@ constexpr int LDA = KC + 8;        // patch pitch, bf16: 144 bytes, ldmatrix wit
 constexpr int LDO = BM + 4;        // epilogue tile pitch, f32
 constexpr int kThreads = 256;      // two warpgroups, 64 pixels each
 constexpr int kMinHW = 4, kMaxHW = 64;
+// Bits of `halo`: x holds H + 2 rows an image; the row above / below the
+// image's H rows is an image row (else the image's edge, zero padding).
+constexpr int kHaloRows = 1, kTopReal = 2, kBottomReal = 4;
 constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
 
 __host__ __device__ constexpr int slot_elems(int BN) { return BN * KC; }
@@ -111,14 +122,18 @@ struct Unit {
 };
 
 __device__ __forceinline__ Unit make_unit(int u, int units, const bf16* x, int Cin, int H, int W,
-                                          int row_lo) {
+                                          int row_lo, int halo) {
   const int XO = (W + 7) / 8, PW = W + 2;
   const int cg = u % 8, xo = (u / 8) % XO, pr = u / (8 * XO);
   const int rg = row_lo + pr, n = rg / (H + 2), yy = rg % (H + 2) - 1;
+  const bool rows = halo & kHaloRows;  // x holds the halo rows: row yy of x is yy + 1
+  const bool real = (yy >= 0 && yy < H) || (yy < 0 && (halo & kTopReal)) ||
+                    (yy >= H && (halo & kBottomReal));
+  const int XH = rows ? H + 2 : H, xr = rows ? yy + 1 : max(yy, 0);
   Unit t;
   t.c = cg * 8;
-  t.cols = (u < units && yy >= 0 && yy < H) ? min(8, W - xo * 8) : 0;
-  t.src = x + (static_cast<size_t>(n * Cin + t.c) * H + max(yy, 0)) * W + xo * 8;
+  t.cols = (u < units && real) ? min(8, W - xo * 8) : 0;
+  t.src = x + (static_cast<size_t>(n * Cin + t.c) * XH + xr) * W + xo * 8;
   t.coef = n * Cin + t.c;
   t.dst = (pr * PW + 1 + xo * 8) * LDA + t.c;
   return t;
@@ -129,10 +144,11 @@ struct UnitRegs {
   float a[8], b[8];
 };
 
-// Chunk c0's values of a unit, and its coefficients. Channels past Cin give
-// zeros with a = b = 0 (silu(0) = 0: what the zero-padded weights expect).
+// Chunk c0's values of a unit, and its coefficients; XHW is x's channel
+// stride. Channels past Cin give zeros with a = b = 0 (silu(0) = 0: what
+// the zero-padded weights expect).
 __device__ __forceinline__ void unit_load(UnitRegs& r, const Unit& t, const float* A,
-                                          const float* B, int c0, int Cin, int HW, bool vec) {
+                                          const float* B, int c0, int Cin, int XHW, bool vec) {
   if (t.cols == 0) return;
   if (c0 + t.c >= Cin) {
 #pragma unroll
@@ -142,11 +158,11 @@ __device__ __forceinline__ void unit_load(UnitRegs& r, const Unit& t, const floa
     }
     return;
   }
-  const bf16* src = t.src + static_cast<size_t>(c0) * HW;
+  const bf16* src = t.src + static_cast<size_t>(c0) * XHW;
   if (vec) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const uint4 q = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(k) * HW);
+      const uint4 q = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(k) * XHW);
       r.raw[k][0] = q.x, r.raw[k][1] = q.y, r.raw[k][2] = q.z, r.raw[k][3] = q.w;
     }
   } else {
@@ -155,8 +171,8 @@ __device__ __forceinline__ void unit_load(UnitRegs& r, const Unit& t, const floa
     for (int k = 0; k < 8; ++k) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t lo = 2 * j < t.cols ? s[static_cast<size_t>(k) * HW + 2 * j] : 0u;
-        const uint32_t hi = 2 * j + 1 < t.cols ? s[static_cast<size_t>(k) * HW + 2 * j + 1] : 0u;
+        const uint32_t lo = 2 * j < t.cols ? s[static_cast<size_t>(k) * XHW + 2 * j] : 0u;
+        const uint32_t hi = 2 * j + 1 < t.cols ? s[static_cast<size_t>(k) * XHW + 2 * j + 1] : 0u;
         r.raw[k][j] = lo | (hi << 16);
       }
     }
@@ -291,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const float* __restrict__ B, const bf16* __restrict__ wp,
                       const void* __restrict__ bias, int bias_f32, bf16* __restrict__ y,
                       float* __restrict__ partial, int N, int Cin, int CinPad, int Cout, int H,
-                      int W, int splits, int patch_elems) {
+                      int W, int halo, int splits, int patch_elems) {
   constexpr int NT = BN / 8;    // n8 column groups of a thread's accumulator
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);        // [NS][BN][KC], swizzled
@@ -300,6 +316,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                                            // weights have landed
 
   const int HW = H * W, PW = W + 2, M = N * HW;
+  const int XHW = ((halo & kHaloRows) ? H + 2 : H) * W;  // x's channel stride
   const int gp0 = blockIdx.x * BM, co0 = blockIdx.y * BN, split = blockIdx.z;
   const int chunks = CinPad / KC;
   const int per_split = (chunks + splits - 1) / splits;
@@ -335,12 +352,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // The first chunk's patch, every unit loaded and stored at once.
-  const Unit mine = make_unit(threadIdx.x, units, x, Cin, H, W, row_lo);
+  const Unit mine = make_unit(threadIdx.x, units, x, Cin, H, W, row_lo, halo);
   UnitRegs regs;
   if (nsteps > 0) {
     for (int u = threadIdx.x; u < units; u += kThreads) {
-      const Unit t = make_unit(u, units, x, Cin, H, W, row_lo);
-      unit_load(regs, t, A, B, c_begin * KC, Cin, HW, vec);
+      const Unit t = make_unit(u, units, x, Cin, H, W, row_lo, halo);
+      unit_load(regs, t, A, B, c_begin * KC, Cin, XHW, vec);
       unit_store_all(regs, t, patch0);
     }
   }
@@ -384,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // Under the products: the next chunk's patch, and the hand-over of
       // step s + 1's weights.
-      if (tap == 0 && more) unit_load(regs, mine, A, B, (ci + 1) * KC, Cin, HW, vec);
+      if (tap == 0 && more) unit_load(regs, mine, A, B, (ci + 1) * KC, Cin, XHW, vec);
       if (more) {
         if (tap == 1) unit_store<0>(regs, mine, pnext);
         if (tap == 2) unit_store<1>(regs, mine, pnext);
@@ -398,9 +415,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           // Patches of more than kThreads units (narrow maps folded over many
           // images): the rest, not prefetched.
           for (int u = threadIdx.x + kThreads; u < units; u += kThreads) {
-            const Unit t = make_unit(u, units, x, Cin, H, W, row_lo);
+            const Unit t = make_unit(u, units, x, Cin, H, W, row_lo, halo);
             UnitRegs extra;
-            unit_load(extra, t, A, B, (ci + 1) * KC, Cin, HW, vec);
+            unit_load(extra, t, A, B, (ci + 1) * KC, Cin, XHW, vec);
             unit_store_all(extra, t, pnext);
           }
         }
@@ -505,7 +522,7 @@ __global__ void __launch_bounds__(256)
 template <int BN>
 cudaError_t launch(const bf16* x, const float* a, const float* b, const bf16* wp, const void* bias,
                    int bias_f32, bf16* y, float* part, int splits, int N, int Cin, int CinPad,
-                   int Cout, int H, int W, cudaStream_t st) {
+                   int Cout, int H, int W, int halo, cudaStream_t st) {
   const int HW = H * W, M = N * HW, tiles = (M + BM - 1) / BM;
   int rows = 0;  // the tallest patch of any block
   for (int t = 0; t < tiles; ++t)
@@ -522,28 +539,36 @@ cudaError_t launch(const bf16* x, const float* a, const float* b, const bf16* wp
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles, (Cout + BN - 1) / BN, splits);
   fused_conv_kernel<BN><<<grid, kThreads, smem, st>>>(x, a, b, wp, bias, bias_f32, y, part, N, Cin,
-                                                      CinPad, Cout, H, W, splits, patch_elems);
+                                                      CinPad, Cout, H, W, halo, splits,
+                                                      patch_elems);
   return cudaGetLastError();
 }
 
 }  // namespace fc
 
-// Takes 4 <= H, W <= 64, Cin % 8 == 0, CinPad a multiple of 64 that holds Cin,
-// BN of 128 or 160 and 1 <= splits <= the chunks of Cin; anything else returns
-// cudaErrorInvalidValue. With splits > 1, `partial` is scratch of at least
-// splits * N * Cout * H * W floats (`scratch_floats`). Returns a cudaError_t.
+// Takes 4 <= H, W <= 64 (1 <= H with halo rows), Cin % 8 == 0, CinPad a
+// multiple of 64 that holds Cin, BN of 128 or 160, 1 <= splits <= the chunks
+// of Cin and `halo` 0 or kHaloRows with any of kTopReal and kBottomReal;
+// anything else returns cudaErrorInvalidValue. x holds H + 2 rows an image
+// with kHaloRows, H without; y has H. With splits > 1, `partial` is scratch
+// of at least splits * N * Cout * H * W floats (`scratch_floats`). Returns a
+// cudaError_t.
 extern "C" int affine_silu_conv3x3(int device, const void* x, const void* a, const void* b,
                                    const void* wp, const void* bias, int bias_f32, void* y,
                                    void* partial, long long scratch_floats, int splits, int BN,
-                                   int N, int Cin, int CinPad, int Cout, int H, int W,
+                                   int N, int Cin, int CinPad, int Cout, int H, int W, int halo,
                                    void* stream) {
   using namespace fc;
   const long long out_elems = static_cast<long long>(N) * Cout * H * W;
+  const bool rows = halo & kHaloRows;
   if (N < 1 || Cin < 8 || Cin % 8 != 0 || CinPad != (Cin + KC - 1) / KC * KC || Cout < 1 ||
-      H < kMinHW || H > kMaxHW || W < kMinHW || W > kMaxHW || (BN != 128 && BN != 160) ||
+      (halo & ~(kHaloRows | kTopReal | kBottomReal)) != 0 || (halo != 0 && !rows) ||
+      H < (rows ? 1 : kMinHW) || H > kMaxHW || W < kMinHW || W > kMaxHW ||
+      (BN != 128 && BN != 160) ||
       splits < 1 || splits > (Cin + KC - 1) / KC || empty_split(Cin, splits) ||
       (Cout + BN - 1) / BN > 65535 ||
-      static_cast<long long>(N) * Cin * H * W >= (1LL << 31) || out_elems >= (1LL << 31) ||
+      static_cast<long long>(N) * Cin * (H + 2) * W >= (1LL << 31) ||
+      out_elems >= (1LL << 31) ||
       static_cast<long long>(Cout) * CinPad * 9 >= (1LL << 31) ||
       (splits > 1 && (partial == nullptr || scratch_floats < out_elems * splits)))
     return cudaErrorInvalidValue;
@@ -554,7 +579,7 @@ extern "C" int affine_silu_conv3x3(int device, const void* x, const void* a, con
   const auto run = BN == 160 ? launch<160> : launch<128>;
   err = run(static_cast<const bf16*>(x), static_cast<const float*>(a),
             static_cast<const float*>(b), static_cast<const bf16*>(wp), bias, bias_f32,
-            static_cast<bf16*>(y), part, splits, N, Cin, CinPad, Cout, H, W, st);
+            static_cast<bf16*>(y), part, splits, N, Cin, CinPad, Cout, H, W, halo, st);
   if (err != cudaSuccess || part == nullptr) return err;
   const int HW = H * W;
   if (HW % 4 == 0)

@@ -27,7 +27,22 @@ Kernel (`csrc/affine_silu_conv3x3.cu`, built by `ops._build`):
 `fused_conv_wanted(shape)` is the port's rule for where a ResnetBlock fuses:
 4 <= H, W <= 64 (the shape part of the JAX `_plan`) and Cin % 8 == 0 (the
 kernel's 16-byte rows of weights). The JAX plan's VMEM budget is the TPU's
-and is dropped, so the UNet's 64 x 64 x 320 stage fuses here.
+and is dropped, so the UNet's 64 x 64 x 320 stage fuses here. Under a
+spatial split it reads the whole map's shape, as GSPMD's `_plan` does, so
+the same convs fuse split and whole.
+
+Under a spatial split (`ops.split`; `gn_silu_conv3x3`): `gn_affine_coeffs`
+folds the ranks' per-(n, c) (mean, M2) by Chan's formula
+(`combine_moments`), so every rank gets the same (A, B) bits, and its
+backward sums the ranks' gradients of the folded moments before they flow
+into each rank's rows (without that sum the latent's gradient would carry
+one rank's share of the moment path). K7 takes the rank's rows with one
+raw row of each neighbour (`halo_rows`), (N, Cin, h + 2, W), and a flag
+for each edge: a halo row is activated with the same (A, B) like any
+other row when its flag is set, and stays zero at the image's true edges
+(the conv pads after the activation). Its backward takes the transposed
+conv of the cotangent with no row padding (h + 2 rows), zeroes the rows
+that are not real, and `halo_rows` returns the halo's part to its owner.
 
 The plain version is `affine_silu_conv3x3_reference` (JAX `_jnp_fwd`).
 `affine_silu_conv3x3()` launches K7 for a CUDA tensor or raises; it takes the
@@ -50,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .split import all_reduce_sum, combine_moments, current, halo_rows
 
 MIN_HW, MAX_HW = 4, 64  # kMinHW, kMaxHW of csrc/affine_silu_conv3x3.cu
 TILE_PIXELS, CHUNK_CIN = 128, 64  # BM, KC of the kernel
@@ -60,6 +76,32 @@ H100_SMS = 132  # one block of K7 an SM
 # pass that adds them about 12 (chosen against a sweep of forced splits over
 # the SD-1.5 shapes with scripts/torch_bench_fused_conv.py on an H100).
 BLOCK_OVERHEAD_STEPS, SPLIT_OVERHEAD_STEPS = 4, 12
+# Bits of K7's `halo` argument: x holds a halo row above and below each
+# image's rows; the row above / below is an image row (else the image's edge).
+HALO_ROWS, TOP_REAL, BOTTOM_REAL = 1, 2, 4
+
+
+class _FoldMoments(torch.autograd.Function):
+    """The whole map's per-(n, c) (mean, M2) from each rank's over `count`
+    values (`combine_moments`). Backward: the ranks' gradients of the
+    folded moments summed (f32), then each rank's share by the chain rule:
+    mean = sum_r mean_r / R, M2 = sum_r (M2_r + count (mean_r - mean)^2)."""
+
+    @staticmethod
+    def forward(ctx, mean, m2, count, split):
+        mean_t, m2_t = combine_moments(mean, m2, count, split)
+        ctx.save_for_backward(mean, mean_t)
+        ctx.count, ctx.split = count, split
+        return mean_t, m2_t
+
+    @staticmethod
+    def backward(ctx, dmean_t, dm2_t):
+        mean, mean_t = ctx.saved_tensors
+        split = ctx.split
+        d = all_reduce_sum(torch.stack([dmean_t.float(), dm2_t.float()]), split.group)
+        dmean = d[0] / split.size + d[1] * (2.0 * ctx.count) * (mean - mean_t)
+        return dmean, d[1], None, None
+
 
 def gn_affine_coeffs(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int, eps: float = 1e-6,
@@ -69,10 +111,17 @@ def gn_affine_coeffs(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     group moments by the law of total variance, so x + shift is never made:
     var_g = mean_c(var_c + (mean_c + t_c - mu_g)^2). The per-(n, c) moments
     come from `torch.var_mean` (Welford's form, which, like the JAX
-    function's two-pass form, does not cancel for large-mean activations)."""
+    function's two-pass form, does not cancel for large-mean activations).
+    Under a spatial split x is the rank's rows and the moments are folded
+    over the ranks (`_FoldMoments`)."""
     n, c = x.shape[:2]
     cg = c // num_groups
     var_bc, mean_bc = torch.var_mean(x.float(), dim=(2, 3), correction=0)  # (N, C)
+    split = current()
+    if split is not None:
+        count = x.shape[2] * x.shape[3]
+        mean_bc, m2 = _FoldMoments.apply(mean_bc, var_bc * count, count, split)
+        var_bc = m2 / (count * split.size)
     if shift is not None:
         mean_bc = mean_bc + shift.float()
     mean_grouped = mean_bc.reshape(n, num_groups, cg)
@@ -97,12 +146,33 @@ def _prologue(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.addcmul(b[:, :, None, None], x.float(), a[:, :, None, None])
 
 
+def edges_zeroed(t: torch.Tensor, halo: Optional[Tuple[bool, bool]]) -> torch.Tensor:
+    """t (N, C, h + 2, W) with its first / last row zeroed where `halo` says
+    it is not an image row; t as it is for a whole map (`halo` None)."""
+    if halo is None or all(halo):
+        return t
+    t = t.clone()
+    if not halo[0]:
+        t[:, :, 0] = 0
+    if not halo[1]:
+        t[:, :, -1] = 0
+    return t
+
+
+def conv_padding(halo) -> Tuple[int, int]:
+    """The conv's (rows, columns) padding: none on the rows of a halo form."""
+    return (1, 1) if halo is None else (0, 1)
+
+
 def affine_silu_conv3x3_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                                  w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                                  w: torch.Tensor, bias: torch.Tensor,
+                                  halo: Optional[Tuple[bool, bool]] = None) -> torch.Tensor:
     """JAX `_jnp_fwd`: f32 prologue and SiLU, cast to x's dtype, conv in x's
-    dtype (`F.conv2d`), then + bias. The plain version of K7."""
-    act = F.silu(_prologue(x, a, b)).to(x.dtype)
-    y = F.conv2d(act, w.to(x.dtype), padding=1)
+    dtype (`F.conv2d`), then + bias. The plain version of K7. With `halo`
+    (top_real, bottom_real), x holds h + 2 rows: the activation of every
+    row, the edge rows zeroed where not real, then a conv padded on W only."""
+    act = edges_zeroed(F.silu(_prologue(x, a, b)).to(x.dtype), halo)
+    y = F.conv2d(act, w.to(x.dtype), padding=conv_padding(halo))
     return y + bias.to(y.dtype)[None, :, None, None]
 
 
@@ -170,8 +240,8 @@ def packed_weight_bytes() -> int:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L = ctypes.c_longlong
 # device, x, a, b, packed w, bias, bias_f32, y, partial, scratch_floats, splits, BN, N, Cin,
-# CinPad, Cout, H, W, stream
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# CinPad, Cout, H, W, halo, stream
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def tile_cout(cout: int) -> int:
@@ -201,30 +271,41 @@ def cin_splits(n: int, cin: int, cout: int, h: int, w: int, sms: int = H100_SMS)
     return best
 
 
-def shape_refused(x_shape: Sequence[int], w_shape: Sequence[int]) -> Optional[str]:
-    """Why K7 does not take an input and a weight of these shapes, or None."""
+def shape_refused(x_shape: Sequence[int], w_shape: Sequence[int],
+                  halo: bool = False) -> Optional[str]:
+    """Why K7 does not take an input and a weight of these shapes, or None.
+    With `halo`, x holds a rank's h rows and their halo, h + 2, and h may
+    be as small as 1."""
     if len(x_shape) != 4 or len(w_shape) != 4 or tuple(w_shape[1:]) != (x_shape[1], 3, 3):
         return (f"x {tuple(x_shape)} and w {tuple(w_shape)} are not (N, Cin, H, W) and "
                 f"(Cout, Cin, 3, 3)")
     n, cin, h, wd = x_shape
-    if not fused_conv_wanted(x_shape):
-        return f"takes {MIN_HW} <= H, W <= {MAX_HW} and Cin % 8 == 0, got H={h}, W={wd}, Cin={cin}"
-    if not 0 < n <= 65535 or n * max(cin, w_shape[0]) * h * wd >= 2 ** 31:
+    h -= 2 if halo else 0
+    if not ((1 if halo else MIN_HW) <= h <= MAX_HW and MIN_HW <= wd <= MAX_HW and cin % 8 == 0):
+        return (f"takes {'1' if halo else MIN_HW} <= H <= {MAX_HW}, {MIN_HW} <= W <= {MAX_HW} "
+                f"and Cin % 8 == 0, got H={h}{' (and 2 halo rows)' if halo else ''}, W={wd}, "
+                f"Cin={cin}")
+    if not 0 < n <= 65535 or n * max(cin, w_shape[0]) * (h + 2) * wd >= 2 ** 31:
         return f"x {tuple(x_shape)} and w {tuple(w_shape)} are out of range"
     return None
 
 
-def affine_silu_conv3x3_kernel(x, a, b, w, bias) -> torch.Tensor:
-    """K7. y (N, Cout, H, W) bf16."""
+def affine_silu_conv3x3_kernel(x, a, b, w, bias, halo=None) -> torch.Tensor:
+    """K7. y (N, Cout, H, W) bf16; with `halo` (top_real, bottom_real) x
+    holds H + 2 rows (`affine_silu_conv3x3_reference`'s halo form)."""
     name = "affine_silu_conv3x3"
     if not x.is_cuda:
         raise ValueError(f"{name}: x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"{name}: takes bfloat16 x and w, got {x.dtype} and {w.dtype}")
-    reason = shape_refused(x.shape, w.shape)
+    reason = shape_refused(x.shape, w.shape, halo is not None)
     if reason:
         raise ValueError(f"{name}: {reason}")
     n, cin, h, wd = x.shape
+    flags = 0
+    if halo is not None:
+        h -= 2
+        flags = HALO_ROWS | (TOP_REAL if halo[0] else 0) | (BOTTOM_REAL if halo[1] else 0)
     cout = w.shape[0]
     for arg, t, shape, dtypes in (("x", x, x.shape, (torch.bfloat16,)),
                                   ("w", w, w.shape, (torch.bfloat16,)),
@@ -245,7 +326,7 @@ def affine_silu_conv3x3_kernel(x, a, b, w, bias) -> torch.Tensor:
                   packed.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
                   y.data_ptr(), None if partial is None else partial.data_ptr(),
                   0 if partial is None else partial.numel(), splits, tile_cout(cout), n, cin,
-                  packed.shape[1] * CHUNK_CIN, cout, h, wd)
+                  packed.shape[1] * CHUNK_CIN, cout, h, wd, flags)
     affine_silu_conv3x3_kernel.launches += 1
     return y
 
@@ -255,9 +336,9 @@ affine_silu_conv3x3_kernel.kernel_name = "affine_silu_conv3x3"
 KERNEL_WRAPPERS = (affine_silu_conv3x3_kernel,)
 
 
-def _weight_grad(act: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dw of conv3x3(act, w), padding 1, for the cotangent g."""
-    return torch.nn.grad.conv2d_weight(act, w.shape, g, padding=1).to(w.dtype)
+def _weight_grad(act: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding) -> torch.Tensor:
+    """dw of conv3x3(act, w) with this padding, for the cotangent g."""
+    return torch.nn.grad.conv2d_weight(act, w.shape, g, padding=padding).to(w.dtype)
 
 
 class _AffineSiluConv3x3(torch.autograd.Function):
@@ -265,27 +346,30 @@ class _AffineSiluConv3x3(torch.autograd.Function):
     backward in torch ops. Saves x, A, B and w."""
 
     @staticmethod
-    def forward(ctx, x, a, b, w, bias):
+    def forward(ctx, x, a, b, w, bias, halo):
         if x.is_cuda:
-            y = affine_silu_conv3x3_kernel(x, a, b, w, bias)
+            y = affine_silu_conv3x3_kernel(x, a, b, w, bias, halo)
         elif x.device.type == "cpu":
-            y = affine_silu_conv3x3_reference(x, a, b, w, bias)
+            y = affine_silu_conv3x3_reference(x, a, b, w, bias, halo)
         else:
             raise ValueError(f"affine_silu_conv3x3: no kernel for device {x.device}")
         ctx.save_for_backward(x, a, b, w)
-        ctx.bias_dtype = bias.dtype
+        ctx.bias_dtype, ctx.halo = bias.dtype, halo
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, a, b, w = ctx.saved_tensors
-        need_x, need_a, need_b, need_w, need_bias = ctx.needs_input_grad
+        halo = ctx.halo
+        need_x, need_a, need_b, need_w, need_bias = ctx.needs_input_grad[:5]
         g = g.contiguous()
         pre = _prologue(x, a, b)
         dx = da = db = dw = dbias = None
         if need_x or need_a or need_b:
-            # The transposed conv of the cotangent: stride 1, padding 1.
-            dact = F.conv_transpose2d(g, w.to(g.dtype), padding=1)
+            # The transposed conv of the cotangent, stride 1: x's rows (with
+            # a halo form's edge rows, zero where they are not image rows).
+            dact = F.conv_transpose2d(g, w.to(g.dtype), padding=conv_padding(halo))
+            dact = edges_zeroed(dact, halo)
             dpre = torch.ops.aten.silu_backward(dact.float(), pre)
             if need_x:
                 dx = (dpre * a[:, :, None, None]).to(x.dtype)
@@ -294,16 +378,38 @@ class _AffineSiluConv3x3(torch.autograd.Function):
             if need_b:
                 db = dpre.sum((2, 3))
         if need_w:
-            dw = _weight_grad(F.silu(pre).to(x.dtype), w, g)
+            act = edges_zeroed(F.silu(pre).to(x.dtype), halo)
+            dw = _weight_grad(act, w, g, conv_padding(halo))
         if need_bias:
             dbias = g.float().sum((0, 2, 3)).to(ctx.bias_dtype)
-        return dx, da, db, dw, dbias
+        return dx, da, db, dw, dbias, None
 
 
 def affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
-                        bias: torch.Tensor) -> torch.Tensor:
+                        bias: torch.Tensor,
+                        halo: Optional[Tuple[bool, bool]] = None) -> torch.Tensor:
     """conv3x3(silu(x * A + B), w) + bias, NCHW; A and B (N, Cin) f32, w
-    (Cout, Cin, 3, 3). CUDA tensors run K7 (or raise), CPU tensors the plain
-    version; differentiable in all five."""
+    (Cout, Cin, 3, 3). With `halo` (top_real, bottom_real), x is a rank's
+    h rows with a neighbour's row above and below, (N, Cin, h + 2, W), and y
+    (N, Cout, h, W); an edge row that is not real stands for the image's
+    zero padding. CUDA tensors run K7 (or raise), CPU tensors the plain
+    version; differentiable in all five tensors."""
+    halo = None if halo is None else (bool(halo[0]), bool(halo[1]))
     return _AffineSiluConv3x3.apply(x.contiguous(), a.contiguous(), b.contiguous(),
-                                    w.contiguous(), bias.contiguous())
+                                    w.contiguous(), bias.contiguous(), halo)
+
+
+def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                    eps: float, w: torch.Tensor, conv_bias: torch.Tensor,
+                    shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv3x3(silu(GroupNorm(x + shift) * scale + bias), w) + conv_bias
+    through K7: (A, B) by `gn_affine_coeffs`, then `affine_silu_conv3x3`.
+    Under a spatial split x is the rank's rows: the moments fold over the
+    ranks and K7 takes the neighbours' rows, real but at the image's
+    edges."""
+    a, b = gn_affine_coeffs(x, scale, bias, num_groups, eps, shift)
+    split = current()
+    if split is None:
+        return affine_silu_conv3x3(x, a, b, w, conv_bias)
+    return affine_silu_conv3x3(halo_rows(x, split), a, b, w, conv_bias,
+                               (split.index > 0, split.index < split.size - 1))

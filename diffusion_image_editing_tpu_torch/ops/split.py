@@ -10,8 +10,16 @@ holds rows [i * H / n, (i + 1) * H / n) of every activation. A closure
 enters `with spatial_split(split):` for its call, and the layers below read
 `current()`:
 
-* a 3x3 conv (`ops.conv`) and a stride-2 conv (`models.layers.Downsample2D`)
-  take their neighbours' edge rows (`halo_rows`, zeros at the global edges);
+* a 3x3 conv (`ops.conv`, every conv mode) and a stride-2 conv
+  (`models.layers.Downsample2D`) take their neighbours' edge rows
+  (`halo_rows`, zeros at the global edges); an int8 conv's per-tensor
+  scale is the max over the ranks (`all_reduce_max`): over `tensor_ranks()`,
+  the split's ranks, or every rank of the mesh where the CFG pair too is
+  split over ranks (`spread_over`), since a tensor of the call is then
+  spread over both;
+* the fused GroupNorm+SiLU -> conv (`ops.fused_conv`, K7) folds the
+  ranks' per-channel moments (`combine_moments`) into its (A, B) and takes
+  its neighbours' raw edge rows, which it activates itself;
 * GroupNorm (`ops.groupnorm`) folds the ranks' moments (`combine_moments`)
   between K5 and K6 and sums its backward's per-group terms over them;
 * self-attention gathers K and V along the tokens (`gather_sum`: the
@@ -58,15 +66,25 @@ def all_gather_into(out: torch.Tensor, x: torch.Tensor, group: dist.ProcessGroup
     gather(out, x, group=group)
 
 
-def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
-    """The sum of `x` over the group's ranks, a new tensor on every rank."""
+def _all_reduce(x: torch.Tensor, group: dist.ProcessGroup, op) -> torch.Tensor:
     if _through_host(x, group):
         host = x.cpu().clone()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return host.to(x.device)
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum of `x` over the group's ranks, a new tensor on every rank."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The elementwise max of `x` over the group's ranks, the same bits on
+    every rank (an int8 conv's per-tensor scale)."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 class SpatialSplit:
@@ -91,11 +109,32 @@ class SpatialSplit:
 
 
 _CURRENT: Optional[SpatialSplit] = None
+_SPREAD: Optional[SpatialSplit] = None
 
 
 def current() -> Optional[SpatialSplit]:
     """The split of the call in progress, or None (a whole call)."""
     return _CURRENT
+
+
+def tensor_ranks() -> Optional[SpatialSplit]:
+    """The ranks that one tensor of the call in progress lies on: those of
+    `spread_over` where the batch too is split, else the split's (None for
+    a whole call). Per-tensor statistics reduce over them."""
+    return _SPREAD if _SPREAD is not None else _CURRENT
+
+
+@contextlib.contextmanager
+def spread_over(ranks: Optional[SpatialSplit]):
+    """Run the body with each tensor spread over `ranks` (the CFG pair's
+    ranks times the split's), beside the rows' split."""
+    global _SPREAD
+    prev = _SPREAD
+    _SPREAD = ranks if ranks is not None and ranks.size > 1 else None
+    try:
+        yield
+    finally:
+        _SPREAD = prev
 
 
 @contextlib.contextmanager

@@ -34,7 +34,8 @@ import torch.nn as nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..engine.denoise import CfgEpsClosure, DecodeClosure
-from ..ops.split import SpatialSplit, gather_rows, scatter_rows, spatial_split, split_of
+from ..ops.split import (SpatialSplit, gather_rows, scatter_rows, spatial_split, split_of,
+                         spread_over)
 from .mesh import all_gather_into, axis_group, make_mesh
 
 Axes = Union[None, str, Sequence[str]]
@@ -118,7 +119,9 @@ class ShardedCfgEpsClosure(CfgEpsClosure):
     """`CfgEpsClosure` split over the mesh: the pair over `cfg` (each rank
     runs one branch) and the rows over `sp`; the same [uncond; cond] order
     and mix. The eps rows are gathered within `sp`, then the pair over
-    `cfg`."""
+    `cfg`. With the pair split, a tensor of the call lies on every rank of
+    the mesh (`ops.split.spread_over`: an int8 conv's scale is the max over
+    them all, as over the whole batch)."""
 
     def __init__(self, unet: nn.Module, text_emb: torch.Tensor, cfg_scale: float = 3.5,
                  mesh: DeviceMesh = None):
@@ -126,6 +129,7 @@ class ShardedCfgEpsClosure(CfgEpsClosure):
         self.mesh = mesh
         self.cfg = check_cfg_mesh(mesh)
         self.split = spatial_shard(mesh, "sp") if "sp" in mesh_axes(mesh) else None
+        self.spread = spatial_shard(mesh, None) if self.cfg == 2 else None
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
         if self.cfg == 1 and self.split is None:
@@ -139,7 +143,7 @@ class ShardedCfgEpsClosure(CfgEpsClosure):
             x_in, t_in, ctx = self._pair(x, t)
         with torch.no_grad():
             rows = scatter_rows(x_in, self.split)
-            with spatial_split(self.split):
+            with spatial_split(self.split), spread_over(self.spread):
                 eps_r = self.unet(rows, t_in, ctx)
             eps_r = gather_rows(eps_r, self.split).contiguous()
         if self.cfg == 1:

@@ -8,8 +8,11 @@ against the whole script's four.
 `[spatial]` spawns four processes on the one GPU (gloo over a FileStore,
 host copies for the collectives) that run the SD-1.5 512 px edit on
 cfg2xsp2 with `chip_smoke.build_models`' weights and the DDPM 256 px edit
-on sp4, each held against the same run whole in this process;
-`[extra]` holds item 19's blocks through K8. `--no-kernels` skips
+on sp4, each held against the same run whole in this process, then the
+same pieces and two guided steps under `fused_conv` (K7's halo form on
+every rank) and under `conv_mode("int8_large", int8_bwd=True)`;
+`[kernels]` holds K7's halo form at a rank's rows; `[extra]` holds item
+19's blocks through K8. `--no-kernels` skips
 `[kernels]`; `--log PATH` also writes everything printed to PATH. Exits
 non-zero when a phase fails.
 """

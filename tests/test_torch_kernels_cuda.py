@@ -63,7 +63,12 @@ the output where the plain version rounds the conv and the bias add
 apart). Two calls on the same inputs are bit-equal, and a weight changed
 in place is packed anew. Gradients through the autograd function 2e-2 (the
 same backward ops on both sides, fed by outputs that differ by the
-forward's rounding).
+forward's rounding). K7's halo form (a rank's rows of the spatial split
+with a neighbour's row above and below, real or the image's edge): 1, 2,
+3, 4 and 32 rows, each edge flag, the same tolerances; a slice of a map
+with its real neighbours within 2e-2 of the whole map's rows (its tiles
+and splits differ), and both edges off on a zero-padded map bit-equal to
+the whole map's output.
 
 ABN (K8): the trainer's shapes (the stem's 224 x 224 x 64 at batch 16,
 layer4's 14 x 14 x 512, the 1 x 1 norms), H * W not a multiple of the
@@ -481,6 +486,57 @@ def test_fused_conv_refuses_shapes(gen, shape, match):
     args = _conv_inputs(gen, n, cin, 16, h, w, torch.bfloat16)
     with pytest.raises(ValueError, match=match):
         FC.affine_silu_conv3x3(*args)
+
+
+@pytest.mark.parametrize(
+    "n,cin,cout,h,w,halo",
+    [
+        (2, 16, 24, 4, 4, (True, True)),
+        (2, 24, 320, 1, 8, (True, False)),       # one row a rank: 16 images a tile
+        (3, 72, 24, 2, 8, (False, True)),        # two rows: images straddle the tiles
+        (1, 24, 16, 3, 20, (False, False)),      # a whole image in the halo form
+        (2, 1280, 1280, 1, 8, (True, True)),     # the UNet's 8 x 8 on sp8: splits
+        (2, 320, 320, 32, 64, (True, False)),    # the UNet's 64 x 64 on sp2, last rank
+    ],
+)
+def test_fused_conv_halo_form_matches_plain(gen, n, cin, cout, h, w, halo):
+    """K7 on a rank's h rows with a neighbour's row above and below: a real
+    row is activated, an edge row stands for the zero padding."""
+    args = _conv_inputs(gen, n, cin, cout, h + 2, w, torch.bfloat16) + (halo,)
+    y, launched = _launched(lambda: FC.affine_silu_conv3x3(*args))
+    assert launched == {"affine_silu_conv3x3": 1}
+    assert y.shape == (n, cout, h, w)
+    assert _rel(y, FC.affine_silu_conv3x3_reference(*args)) <= CONV_TOL
+    assert torch.equal(FC.affine_silu_conv3x3(*args), y)  # deterministic
+
+
+def test_fused_conv_halo_form_is_the_whole_map_sliced(gen):
+    """Rows [8, 16) of a 24-row map with their real neighbours give the
+    whole map's rows; edges not real on a zero-padded map give the whole
+    map's output bit for bit (the same patches, tiles and sums)."""
+    x, a, b, wt, bias = _conv_inputs(gen, 2, 64, 96, 24, 16, torch.bfloat16)
+    whole = FC.affine_silu_conv3x3(x, a, b, wt, bias)
+    part = FC.affine_silu_conv3x3(x[:, :, 7:17], a, b, wt, bias, (True, True))
+    assert _rel(part, whole[:, :, 8:16]) <= CONV_TOL
+    padded = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    assert torch.equal(FC.affine_silu_conv3x3(padded, a, b, wt, bias, (False, False)), whole)
+
+
+@pytest.mark.parametrize("halo", [(True, False), (False, True)])
+def test_fused_conv_halo_form_gradients_match_plain(gen, halo):
+    leaves = [t.requires_grad_() for t in _conv_inputs(gen, 2, 16, 24, 3 + 2, 20,
+                                                       torch.bfloat16)]
+    cot = torch.randn((2, 24, 3, 20), generator=gen, device="cuda").to(torch.bfloat16)
+    grads = torch.autograd.grad(FC.affine_silu_conv3x3(*leaves, halo), leaves, cot)
+    ref = torch.autograd.grad(FC.affine_silu_conv3x3_reference(*leaves, halo), leaves, cot)
+    for got, want in zip(grads, ref):
+        assert got.dtype == want.dtype and _rel(got, want) <= GRAD_TOL
+
+
+def test_fused_conv_halo_form_refuses_no_rows(gen):
+    args = _conv_inputs(gen, 1, 16, 16, 2, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="H=0"):
+        FC.affine_silu_conv3x3(*args, (True, True))
 
 
 def test_fused_conv_refuses_dtypes(gen):

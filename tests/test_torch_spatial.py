@@ -54,14 +54,15 @@ ATTR = dict(target=0.9, color_idx=0, loss_scale=5.0, t1=0, t2=STEPS)
 
 
 class Ranks:
-    """`world` spawned ranks; `results()` waits for them (once)."""
+    """`world` spawned ranks running `target`; `results()` waits for them
+    (once)."""
 
-    def __init__(self, world, payload, root):
+    def __init__(self, world, payload, root, target=W.run_rank):
         ctx = mp.get_context("spawn")
         self.world = world
         self.queue = ctx.Queue()
         store = os.path.join(root, f"store{world}")
-        self.procs = [ctx.Process(target=W.run_rank, args=(r, world, store, payload, self.queue))
+        self.procs = [ctx.Process(target=target, args=(r, world, store, payload, self.queue))
                       for r in range(world)]
         for p in self.procs:
             p.start()
