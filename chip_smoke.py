@@ -339,6 +339,11 @@ FWD_CASES = [  # (label, q shape, kv shape)
     ("unet self 8x8", (2, 64, 8, 160), (2, 64, 8, 160)),
     ("unet cross 64x64", (2, 4096, 8, 40), (2, 77, 8, 40)),
     ("unet self 64x64 b20", (20, 4096, 8, 40), (20, 4096, 8, 40)),  # the batched inversion
+    # The 160-wide 77-key cross-attention (K1's warpgroup design): the edit's
+    # batch 2, [sweep]'s 16 and the batched inversion's 20.
+    ("unet cross 16x16", (2, 256, 8, 160), (2, 77, 8, 160)),
+    ("unet cross 16x16 b16", (16, 256, 8, 160), (16, 77, 8, 160)),
+    ("unet cross 16x16 b20", (20, 256, 8, 160), (20, 77, 8, 160)),
     # [sweep]'s CFG UNet at batch 16 (a grid of 8): every level's self-attention
     # (SWEEP_ATTN, read from the model there) and the 64 x 64 cross-attention.
     ("unet self 64x64 b16", (16, 4096, 8, 40), (16, 4096, 8, 40)),

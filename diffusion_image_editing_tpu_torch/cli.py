@@ -272,8 +272,9 @@ def _common(sp) -> None:
                          "2312.09608): the UNet's down path runs every k-th step only; "
                          "1 = exact")
     sp.add_argument("--shard", default=None, metavar="SPEC",
-                    help="split each CFG UNet call over the ranks of torchrun: cfg2 "
-                         "(the spatial sp/dp split is item 18b)")
+                    help="split one edit over the ranks of torchrun, axes joined by x: "
+                         "cfg2 (the CFG pair over two ranks), sp8 (the rows over eight), "
+                         "cfg2xsp4; a CFG call (--family sd) needs a cfg axis")
     sp.add_argument("--prompt", default="")
     sp.add_argument("--cfg-scale", type=float, default=3.5)
     sp.add_argument("--eta", type=float, default=0.0)

@@ -16,10 +16,15 @@ Kernels (`csrc/`, built by `ops._build`, bf16 in, f32 accumulation):
   f32 softmax; the products run on the tensor cores and S, P and O stay in
   registers. Up to a padded head dim of 160 a warp owns 16 whole rows
   (mma.sync m16n8k16, cp.async); the padded widths of
-  `FWD_ROWS128_HEAD_DIMS` (the UNet's 40 -> 48 and 80) take a design cut
-  for short heads: 128-row blocks over a 3-slot K/V ring, Q held in
-  registers, one FFMA and one `ex2` a logit, and the row sum taken by the
-  PV product through a ones column of V. The wide slices of
+  `FWD_ROWS128_HEAD_DIMS` (the SD UNet's 40 -> 48 and 80, the LDM UNet's
+  32) take a design cut for short heads: 128-row blocks over a 3-slot K/V
+  ring, Q held in registers, one FFMA and one `ex2` a logit, the row sum
+  taken by the PV product through a ones column of V, and the keys split
+  over a cluster of two blocks where the grid is short and the keys many.
+  The padded widths of `FWD_WG_HEAD_DIMS` (the SD UNet's 160) take a
+  warpgroup a block: 64 query rows, S and P V by wgmma from shared memory,
+  Q, K, V and O through TMA, the keys split over a cluster of two where
+  the grid is short. The wide slices of
   `FWD_WIDE_SLICE_DIMS` (the VAE's 512) take warpgroups: two of them split
   the 512 columns of a 64-row block, sum their halves of Q K^T (wgmma)
   through shared memory and each run P V (wgmma) on its half of V; K/V
@@ -133,7 +138,13 @@ WIDE_SLICE_DIMS = (128,)
 # The padded narrow widths whose forward takes the 128-row design
 # (FA_FWD_ROWS128_DIMS in csrc/flash_attn_fwd.cu), where the bench script
 # read it faster.
-FWD_ROWS128_HEAD_DIMS = (48, 80)
+FWD_ROWS128_HEAD_DIMS = (32, 48, 80)
+# The padded narrow widths whose forward takes the warpgroup design
+# (FA_FWD_WG_DIMS in csrc/flash_attn_fwd.cu): the SD UNet's 160, where the
+# bench script read it faster at every shape of the path. Both tables key on
+# the width alone: within a design, the launcher picks the key split and the
+# key tile from the grid and the key count.
+FWD_WG_HEAD_DIMS = (160,)
 # The wide slices (a quarter of the padded head dim) whose forward takes the
 # warpgroup design (FA_FWD_WIDE_SLICES in csrc/flash_attn_fwd.cu): every
 # wide slice built, since the design replaced the four-warp slices there.

@@ -5,8 +5,8 @@
 // Row statistics (lse, delta) are (B*H, S) f32.
 //
 // The narrow designs of all three kernels share one shape of work (the
-// 512-wide designs use warpgroups, wgmma and TMA instead, from the helpers
-// at the end of this file). A block owns 16 * RG rows (of queries, or of
+// 512-wide designs, and K1's at 160, use warpgroups, wgmma and TMA instead,
+// from the helpers at the end of this file). A block owns 16 * RG rows (of queries, or of
 // keys for dK/dV) of one (batch, head) and walks the other sequence in
 // tiles held in shared memory, double-buffered by cp.async. Each warp owns
 // 16 whole rows of the padded head dim (up to 160: the UNet's 40/80/160)
@@ -192,7 +192,7 @@ __device__ inline void store_acc(bf16* dst, const float (&c)[NT][4], const float
 }
 
 // --- wgmma and mbarrier (sm_90a), for the kernels that use them (the
-// wide designs of K1-K3).
+// wide designs of K1-K3, K1's at 160).
 
 __device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ inline void wgmma_commit() {
@@ -236,8 +236,8 @@ __device__ inline float ex2(float x) {
 }
 
 // --- For the 512-wide designs of K1 (flash_attn_fwd.cu), K2
-// (flash_attn_bwd_dq.cu) and K3 (flash_attn_bwd_dkv.cu): tensor maps, TMA
-// boxes, wgmma from shared memory and from registers.
+// (flash_attn_bwd_dq.cu) and K3 (flash_attn_bwd_dkv.cu), and K1's at 160:
+// tensor maps, TMA boxes, wgmma from shared memory and from registers.
 
 // One box of a (B, S, H, D) tensor's map, columns [c, c + 64) of rows
 // [row, row + rows) of head (b, h), into shared memory at dst in the
@@ -249,6 +249,17 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, in
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(h), "r"(row), "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+// The reverse of tma_box: one box of the map's tensor from shared memory at
+// src, written by the tensor memory accelerator (a bulk group of this
+// thread's); rows and columns outside the tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int c, int h,
+                                          int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::
+          "l"(reinterpret_cast<uint64_t>(&map)),
+      "r"(c), "r"(h), "r"(row), "r"(b), "r"(src)
       : "memory");
 }
 // `box` floats of a 1-D f32 map from element x (x * 4 a multiple of 16: the
@@ -271,9 +282,12 @@ __device__ __forceinline__ void warpgroups_sync() {  // both warpgroups, not the
 // `lbo` and `sbo` in bytes. K-major (Q, K): sbo = 1024 between 8-row groups,
 // lbo unused; the k16 step kk starts 32 kk bytes into the atom's rows.
 // MN-major (V): lbo between 64-column atoms, sbo = 1024 between 8-key groups.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// `layout` 2 is the 64-byte swizzle (512-byte atoms of 32 columns): sbo =
+// 512 between 8-row groups, lbo between 32-column atoms of an MN-major V.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint32_t layout = 1) {
   return ((addr >> 4) & 0x3fff) | (uint64_t((lbo >> 4) & 0x3fff) << 16) |
-         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(1) << 62);
+         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(layout) << 62);
 }
 
 #define FA_D8(i)                                                                          \
@@ -291,6 +305,22 @@ __device__ __forceinline__ void wgmma_s(float (&d)[16], uint64_t da, uint64_t db
       " %8, %9, %10, %11, %12, %13, %14, %15}, "
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, both K-major in shared memory
+// (K1's 160-wide design: S = Q K^T).
+__device__ __forceinline__ void wgmma_s64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -359,6 +389,30 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// C[64 x 160] += A[64 x 16] B[16 x 160]: A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B MN-major in shared memory (trans-b)
+// (K1's 160-wide design: O += P V).
+__device__ __forceinline__ void wgmma_pv160(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56),
+        FA_D8(64), FA_D8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime's entry points, so the
 // library links no libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -380,21 +434,24 @@ inline cudaError_t encoder(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// The map of a (B, S, H, D) bf16 tensor in boxes of 64 columns x `rows` rows
-// of one head, 128-byte swizzled; outside the tensor a box reads zeros.
+// The map of a (B, S, H, D) bf16 tensor in boxes of `cols` columns x `rows`
+// rows of one head, in `swizzle` (a row of the box is its width: 64 columns
+// in the 128-byte swizzle, 32 in the 64-byte one); outside the tensor a box
+// reads zeros.
 inline cudaError_t encode_map(CUtensorMap* map, const bf16* x, int B, int S, int H, int D,
-                              int rows) {
+                              int rows, int cols = 64,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled encode;
   cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};  // bytes, dims 1-3
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
                               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

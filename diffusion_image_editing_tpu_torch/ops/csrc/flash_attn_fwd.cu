@@ -8,27 +8,28 @@
 //
 // Bound on the H100: tensor-core operations at the 4096-token shapes
 // (4 * Sq * Sk * D per head), bytes at the short ones; at the UNet's head
-// dim 40 the Sq * Sk exponentials (16 a clock an SM on the special-function
-// unit) take longer than the products. Three designs, by width (the
-// dispatch at the end):
+// dim 40 and the LDM UNet's 32 the Sq * Sk exponentials (16 a clock an SM on
+// the special-function unit) take longer than the products. Four designs, by
+// width (the dispatch at the end):
 //
-// * `flash_fwd_kernel` (the narrow widths but those of FA_FWD_ROWS128_DIMS): a
-//   block owns 16 * RG query rows, a warp 16 of them, and walks the keys in
-//   BK-row tiles, double-buffered by cp.async so the next tile's load
-//   overlaps this tile's products: S = Q K^T, an online softmax per row in
-//   f32 and base 2, then O = alpha * O + P V with P rounded to bf16 and fed
-//   from registers. O stays in registers until the end.
-// * `flash_fwd_rows128_kernel` (FA_FWD_ROWS128_DIMS: the UNet's head dims
-//   40 and 80 at 4096 and 1024 tokens): the same arithmetic, cut down to
+// * `flash_fwd_kernel` (the narrow widths no other design takes: the tiny
+//   test configs' 16 and 64, and every narrow width at a scale <= 0): a block owns
+//   16 * RG query rows, a warp 16 of them, and walks the keys in BK-row
+//   tiles, double-buffered by cp.async so the next tile's load overlaps
+//   this tile's products: S = Q K^T, an online softmax per row in f32 and
+//   base 2, then O = alpha * O + P V with P rounded to bf16 and fed from
+//   registers. O stays in registers until the end.
+// * `flash_fwd_rows128_kernel` (FA_FWD_ROWS128_DIMS: the SD UNet's head dims
+//   40 and 80 and the LDM UNet's 32): the same arithmetic, cut down to
 //   what the short head leaves room for. Its parent above spent a third of
 //   its time streaming K/V (a knock-out that loaded them once ran 0.235 ms
 //   of 0.350), so a block owns 128 rows, which halves the K/V traffic from
 //   L2, and K/V tiles arrive through a 3-slot cp.async ring with one
 //   barrier a tile. Q's A fragments are loaded once into registers. A warp
-//   owns MF fragments of 16 rows (1 at head dim 40; 2 at 80, where each K
-//   and V fragment then feeds two products). A logit costs one FFMA and
-//   one `ex2.approx` (max taken on the raw products, scale folded into the
-//   FFMA); the key mask runs on the ragged last tile only. Where the head
+//   owns MF fragments of 16 rows (1 at head dims 32 and 40; 2 at 80, where
+//   each K and V fragment then feeds two products). A logit costs one FFMA
+//   and one `ex2.approx` (max taken on the raw products, scale folded into
+//   the FFMA); the key mask runs on the ragged last tile only. Where the head
 //   dim is 8 short of its padded width (40 in 48, 72 in 80) the row sum
 //   comes from the PV product: V's first padding column holds 1.0, so that
 //   accumulator column carries sum(bf16(P)), rescaled by alpha with the
@@ -39,7 +40,30 @@
 //   same to the bit with or without it. What bounds it is the per-tile
 //   chain of each warp (products, max and shuffles, exponentials, pack,
 //   rescale, barrier), not one unit: knocking out the exponentials saves
-//   nothing, and wgmma in place of mma.sync read no faster (PERF.md).
+//   nothing, and wgmma in place of mma.sync read no faster (PERF.md). So
+//   where the row blocks leave SMs idle (fewer than 132) and there are 8
+//   key tiles or more, the keys are split over a cluster of two blocks,
+//   which doubles the warps in flight; rank 1 hands its sums to rank 0
+//   through distributed shared memory. At padded 32, where there are more
+//   than 64 keys, the tiles hold 128 keys: a 64-key tile there left each
+//   warp too little work between two barriers.
+// * `wg::flash_fwd_wg_kernel` (FA_FWD_WG_DIMS: the SD UNet's 160 at 256 and
+//   64 tokens). There a logit costs 320 multiply-adds against one
+//   exponential, so products and bytes bind, and a 16-row warp's O (80
+//   registers) left the parent design four warps a block and 107 KB of
+//   shared memory. A block is one warpgroup of 64 query rows: S = Q K^T by
+//   wgmma m64n64k16 (ten k16 steps, Q and K from shared memory, Q loaded
+//   once), P from registers into wgmma m64n160k16 with V read transposed
+//   from shared memory, O in 80 registers a thread. Q, K and V arrive by
+//   TMA in boxes of 32 columns in the 64-byte swizzle, so 160 columns are
+//   five whole swizzle atoms, into a two-slot K/V ring that one thread
+//   refills as soon as the products are done with a slot: no barrier of the
+//   block's threads in the loop, and two blocks an SM, so one block's
+//   softmax runs under the other's products. O leaves through shared memory
+//   and TMA (four-byte stores straight from the accumulators took 37 % of
+//   the time at batch 16). Where the row blocks leave SMs idle and there
+//   are two key tiles, the keys are split over a cluster of two blocks, each
+//   finishing half of the columns with the other's partial sums.
 // * `wide::flash_fwd_wide_kernel` (FA_FWD_WIDE_SLICES: the VAE's single
 //   512-wide head at 4096 and 256 tokens). There a logit costs 1024
 //   multiply-adds against one exponential, so the tensor products bind
@@ -68,6 +92,8 @@
 #include "flash_attn_common.cuh"
 
 namespace fa {
+
+namespace cg = cooperative_groups;
 
 template <int DP, int RG, int BK>
 constexpr size_t fwd_smem() {
@@ -203,8 +229,10 @@ __device__ inline void load_kv_async(bf16* dst, const bf16* src, int b, int h, i
 }
 
 // MF: 16-row fragments a warp (8 / MF warps). Each K and V fragment read
-// from shared memory then feeds MF products.
-template <int DP, int BK, int MF, bool PV_SUM, bool WITH_LSE>
+// from shared memory then feeds MF products. With CS > 1, a cluster of CS
+// blocks shares the rows, rank r taking the r-th of CS runs of key tiles;
+// the other ranks hand their sums to rank 0 at the end.
+template <int DP, int BK, int MF, bool PV_SUM, bool WITH_LSE, int CS>
 __global__ void __launch_bounds__(32 * 8 / MF)
     flash_fwd_rows128_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -216,12 +244,20 @@ __global__ void __launch_bounds__(32 * 8 / MF)
   bf16* sK = sQ + BQ * LD;                 // [kRows128Stages][BK][LD]
   bf16* sV = sK + kRows128Stages * SLOT;   // [kRows128Stages][BK][LD]
 
+  const int rank = CS > 1 ? static_cast<int>(sm90::cluster_rank()) : 0;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x / CS * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
   const int row_w = 16 * MF * warp;  // this warp's first row in the block
+  // At padded 32 a warp whose rows all lie past Sq (the LDM UNet's 64
+  // tokens fill half a block) computes nothing; it still loads its share of
+  // each tile and meets each barrier. At the other widths no sequence of the
+  // path is that short, and the check cost about 1 % (PERF.md).
+  const bool idle = DP == 32 && q0 + row_w >= Sq;
   const float c = scale * kLog2e;
-  const int n_tiles = (Sk + BK - 1) / BK;
+  const int n_all = (Sk + BK - 1) / BK;  // at least CS when CS > 1
+  const int tile0 = rank * n_all / CS;
+  const int n_tiles = (rank + 1) * n_all / CS - tile0;
 
   // Padding columns of every K and V slot: zero, but V's column D is 1.0
   // when PV_SUM (D == DP - 8), the column that sums P.
@@ -231,12 +267,12 @@ __global__ void __launch_bounds__(32 * 8 / MF)
       row[col] = __float2bfloat16(PV_SUM && col == D && i >= kRows128Stages * BK ? 1.0f : 0.0f);
   }
   load_rows_async<BQ, DP, LD>(sQ, q, b, h, H, Sq, D, q0);
-  load_kv_async<BK, DP, LD>(sK, k, b, h, H, Sk, D, 0);
-  load_kv_async<BK, DP, LD>(sV, v, b, h, H, Sk, D, 0);
+  load_kv_async<BK, DP, LD>(sK, k, b, h, H, Sk, D, tile0 * BK);
+  load_kv_async<BK, DP, LD>(sV, v, b, h, H, Sk, D, tile0 * BK);
   cp_async_commit();
   if (n_tiles > 1) {
-    load_kv_async<BK, DP, LD>(sK + SLOT, k, b, h, H, Sk, D, BK);
-    load_kv_async<BK, DP, LD>(sV + SLOT, v, b, h, H, Sk, D, BK);
+    load_kv_async<BK, DP, LD>(sK + SLOT, k, b, h, H, Sk, D, (tile0 + 1) * BK);
+    load_kv_async<BK, DP, LD>(sV + SLOT, v, b, h, H, Sk, D, (tile0 + 1) * BK);
   }
   cp_async_commit();
   cp_async_wait<1>();
@@ -264,10 +300,15 @@ __global__ void __launch_bounds__(32 * 8 / MF)
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 2 < n_tiles) {  // the slot of tile j - 1, which every warp has finished
       const int slot = (j + 2) % kRows128Stages;
-      load_kv_async<BK, DP, LD>(sK + slot * SLOT, k, b, h, H, Sk, D, (j + 2) * BK);
-      load_kv_async<BK, DP, LD>(sV + slot * SLOT, v, b, h, H, Sk, D, (j + 2) * BK);
+      load_kv_async<BK, DP, LD>(sK + slot * SLOT, k, b, h, H, Sk, D, (tile0 + j + 2) * BK);
+      load_kv_async<BK, DP, LD>(sV + slot * SLOT, v, b, h, H, Sk, D, (tile0 + j + 2) * BK);
     }
     cp_async_commit();
+    if (idle) {
+      cp_async_wait<1>();
+      __syncthreads();
+      continue;
+    }
     const bf16* cK = sK + (j % kRows128Stages) * SLOT;
     const bf16* cV = sV + (j % kRows128Stages) * SLOT;
 
@@ -287,8 +328,8 @@ __global__ void __launch_bounds__(32 * 8 / MF)
         }
       }
     }
-    if (j == n_tiles - 1 && Sk % BK != 0) {  // the ragged tile: keys >= Sk count nothing
-      const int key0 = j * BK + 2 * t4;
+    if ((tile0 + j + 1) * BK > Sk) {  // the ragged tile: keys >= Sk count nothing
+      const int key0 = (tile0 + j) * BK + 2 * t4;
 #pragma unroll
       for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
@@ -360,15 +401,80 @@ __global__ void __launch_bounds__(32 * 8 / MF)
   }
 
 #pragma unroll
+  for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[mf][r] += __shfl_xor_sync(0xffffffffu, l_run[mf][r], 1);
+      l_run[mf][r] += __shfl_xor_sync(0xffffffffu, l_run[mf][r], 2);
+    }
+  if constexpr (CS > 1) {
+    // The runs of keys meet in rank 0. The other ranks leave their sums,
+    // row maxima and row sums in their shared memory (over Q and K, which
+    // no product reads any more: every warp has passed the loop's last
+    // barrier), and rank 0 rescales all to the joint maximum, adding them
+    // in rank order. Each run holds a key, so the joint maximum of a real
+    // row is finite.
+    float4* dump = reinterpret_cast<float4*>(smem);
+    float4* stats = dump + MF * NT_O * blockDim.x;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (rank != 0) {
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+#pragma unroll
+        for (int n = 0; n < NT_O; ++n)
+          dump[(mf * NT_O + n) * blockDim.x + threadIdx.x] =
+              make_float4(acc[mf][n][0], acc[mf][n][1], acc[mf][n][2], acc[mf][n][3]);
+        stats[mf * blockDim.x + threadIdx.x] =
+            make_float4(m_run[mf][0], m_run[mf][1], l_run[mf][0], l_run[mf][1]);
+      }
+      cluster.sync();
+      cluster.sync();  // rank 0 has read them
+      return;
+    }
+    cluster.sync();
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf) {
+      float4 ps[CS - 1];
+      float m[2] = {m_run[mf][0], m_run[mf][1]};
+#pragma unroll
+      for (int p = 1; p < CS; ++p) {
+        ps[p - 1] = cluster.map_shared_rank(stats, p)[mf * blockDim.x + threadIdx.x];
+        m[0] = fmaxf(m[0], ps[p - 1].x);
+        m[1] = fmaxf(m[1], ps[p - 1].y);
+      }
+      const float a_own[2] = {ex2(m_run[mf][0] - m[0]), ex2(m_run[mf][1] - m[1])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_run[mf][r] = m[r];
+        l_run[mf][r] *= a_own[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][n][e] *= a_own[e / 2];
+#pragma unroll
+      for (int p = 1; p < CS; ++p) {
+        const float a_peer[2] = {ex2(ps[p - 1].x - m[0]), ex2(ps[p - 1].y - m[1])};
+        l_run[mf][0] += ps[p - 1].z * a_peer[0];
+        l_run[mf][1] += ps[p - 1].w * a_peer[1];
+        const float4* peer = cluster.map_shared_rank(dump, p);
+#pragma unroll
+        for (int n = 0; n < NT_O; ++n) {
+          const float4 x = peer[(mf * NT_O + n) * blockDim.x + threadIdx.x];
+          const float px[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mf][n][e] += px[e] * a_peer[e / 2];
+        }
+      }
+    }
+    cluster.sync();  // the other ranks' shared memory is read
+  }
+#pragma unroll
   for (int mf = 0; mf < MF; ++mf) {
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float l = 0.0f;
-      if constexpr (!PV_SUM || WITH_LSE) {
-        l = l_run[mf][r] + __shfl_xor_sync(0xffffffffu, l_run[mf][r], 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-      }
+      float l = l_run[mf][r];
       const int row = q0 + row_w + 16 * mf + lane / 4 + 8 * r;
       if (WITH_LSE && t4 == 0 && row < Sq)
         lse[static_cast<size_t>(bh) * Sq + row] = (m_run[mf][r] + log2f(l)) * kLn2;
@@ -380,21 +486,54 @@ __global__ void __launch_bounds__(32 * 8 / MF)
   }
 }
 
+// Fewer blocks than this (one an SM of the H100 SXM) split the keys over a
+// cluster of kSplitCluster blocks, where there are kSplitMinTiles key tiles
+// or more: with fewer, the combine costs more than the split saves (the
+// 77-key cross-attention, PERF.md).
+constexpr int kSplitBelow = 132, kSplitMinTiles = 8, kSplitCluster = 2;
+
+template <int DP, int MF, int BK, int CS>
+cudaError_t launch_fwd_rows128_as(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                                  float* lse, int B, int H, int Sq, int Sk, int D, float scale,
+                                  cudaStream_t stream) {
+  constexpr size_t smem = fwd_rows128_smem<DP, BK>();
+  static_assert(CS == 1 || (MF * (DP / 8) + MF) * (256 / MF) * 16 <= smem,
+                "a rank's sums fit the shared memory they are left in");
+  auto kernel =
+      D == DP - 8 ? (lse ? flash_fwd_rows128_kernel<DP, BK, MF, true, true, CS>
+                         : flash_fwd_rows128_kernel<DP, BK, MF, true, false, CS>)
+                  : (lse ? flash_fwd_rows128_kernel<DP, BK, MF, false, true, CS>
+                         : flash_fwd_rows128_kernel<DP, BK, MF, false, false, CS>);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (Sq + kRows128Rows - 1) / kRows128Rows;
+  return sm90::launch_grid(kernel, CS, CS * row_blocks, B * H, 32 * 8 / MF, smem, stream, q, k,
+                           v, o, lse, H, Sq, Sk, D, scale);
+}
+
+template <int DP, int MF, int BK>
+cudaError_t launch_fwd_rows128_bk(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                                  int B, int H, int Sq, int Sk, int D, float scale,
+                                  cudaStream_t stream) {
+  const int row_blocks = (Sq + kRows128Rows - 1) / kRows128Rows;
+  if (row_blocks * B * H < kSplitBelow && Sk > (kSplitMinTiles - 1) * BK)
+    return launch_fwd_rows128_as<DP, MF, BK, kSplitCluster>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                                            scale, stream);
+  return launch_fwd_rows128_as<DP, MF, BK, 1>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, stream);
+}
+
+// Key tiles of 64, or at padded 32 of 128 where there are more than 64 keys:
+// there a 64-key tile leaves each warp too little work between barriers
+// (the LDM UNet's 1024 tokens read 0.0177 ms against 0.0199, PERF.md).
 template <int DP, int MF>
 cudaError_t launch_fwd_rows128(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                                int B, int H, int Sq, int Sk, int D, float scale,
                                cudaStream_t stream) {
-  constexpr int BK = 64;
-  constexpr size_t smem = fwd_rows128_smem<DP, BK>();
-  auto kernel = D == DP - 8 ? (lse ? flash_fwd_rows128_kernel<DP, BK, MF, true, true>
-                                   : flash_fwd_rows128_kernel<DP, BK, MF, true, false>)
-                            : (lse ? flash_fwd_rows128_kernel<DP, BK, MF, false, true>
-                                   : flash_fwd_rows128_kernel<DP, BK, MF, false, false>);
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kRows128Rows - 1) / kRows128Rows, B * H);
-  kernel<<<grid, 32 * 8 / MF, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, D, scale);
-  return cudaGetLastError();
+  if constexpr (DP == 32) {
+    if (Sk > 64)
+      return launch_fwd_rows128_bk<DP, MF, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, stream);
+  }
+  return launch_fwd_rows128_bk<DP, MF, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -681,6 +820,315 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* 
 
 }  // namespace wide
 
+// ---------------------------------------------------------------------------
+// The warpgroup design at padded 160 (FA_FWD_WG_DIMS: the SD UNet's 16 x 16
+// and 8 x 8 levels): wgmma from shared memory, TMA, and the keys split over a
+// cluster of two where the grid is short.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BM = 64;                    // query rows a block: one wgmma M
+constexpr int BK = 64;                    // keys a tile (32 read slower, PERF.md)
+constexpr int DP = 160;                   // padded head dim
+constexpr int kBoxCols = 32;              // a 64-byte row: the 64-byte swizzle's width
+constexpr int kBoxes = DP / kBoxCols;     // five boxes a row block
+constexpr int kQBox = BM * kBoxCols * 2;  // bytes of one box of Q (or O)
+constexpr int kKVBox = BK * kBoxCols * 2;  // ... of K or V
+constexpr int kQBytes = kBoxes * kQBox, kKVBytes = kBoxes * kKVBox;
+constexpr int kThreads = 128;             // one warpgroup
+// Q, K and V two slots each, the split's row statistics (a float4 a
+// thread), the mbarriers: two blocks fit an SM.
+constexpr size_t kSmem = kQBytes + 4 * kKVBytes + kThreads * 16 + 5 * 8;
+constexpr int kSms = 132;                 // H100 SXM: fewer blocks than this split the keys
+
+// Q, K and V lie in shared memory as five boxes of 32 columns (a 64-byte row
+// each, the 64-byte swizzle), so 160 columns are whole swizzle atoms: a
+// k16 step of Q K^T is 32 bytes into a box (boxes `box` bytes apart), and
+// V's 160 columns are five MN-major atoms `kKVBox` apart.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int box, int kk) {
+  return desc(tile + (kk / 2) * box + (kk % 2) * 32, 16, 512, 2);
+}
+
+template <int J0>  // the peer finishes accumulator columns [8 J0, 8 J0 + 80)
+__device__ __forceinline__ void dump_half(float4* dump, const float (&acc)[80], int tid) {
+#pragma unroll
+  for (int j = 0; j < 10; ++j)
+    dump[j * kThreads + tid] = make_float4(acc[4 * (J0 + j)], acc[4 * (J0 + j) + 1],
+                                           acc[4 * (J0 + j) + 2], acc[4 * (J0 + j) + 3]);
+}
+
+// This block's half of the columns, [8 J0, 8 J0 + 80): its own sums and the
+// peer's, each rescaled to the joint row maximum, then normalised and stored.
+template <int J0>
+__device__ __forceinline__ void finish_half(const float (&acc)[80], const float4* peer,
+                                            const float (&a_own)[2], const float (&a_peer)[2],
+                                            const float (&inv)[2], int tid, bf16* o, int b, int h,
+                                            int H, int Sq, int D, int row0) {
+  float half[10][4];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) {
+    const float4 x = peer[j * kThreads + tid];
+    const float px[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      half[j][e] = acc[4 * (J0 + j) + e] * a_own[e / 2] + px[e] * a_peer[e / 2];
+  }
+  store_acc(o, half, inv, b, h, H, Sq, D, row0, 8 * J0);
+}
+
+// One block: BM query rows of head (b, h) and all the keys, or with SPLIT
+// half of the key tiles (cluster rank 0 the first half, 1 the rest). One
+// warpgroup computes and loads: thread 0 asks for each K and V tile by TMA
+// into a two-slot ring as soon as the products are done with the slot, so
+// no barrier of the block's threads runs in the loop. Two blocks share an
+// SM, so one block's softmax runs under the other's products.
+template <bool SPLIT, bool WITH_LSE>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_o, bf16* __restrict__ o,
+                        float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sK = sQ + kQBytes, sV = sK + 2 * kKVBytes;
+  float4* stats = reinterpret_cast<float4*>(smem + kQBytes + 4 * kKVBytes);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(stats + kThreads);  // [2 slots]
+  uint64_t* full_v = full_k + 2;                                   // [2 slots]
+  uint64_t* full_q = full_k + 4;
+
+  const int rank = SPLIT ? static_cast<int>(sm90::cluster_rank()) : 0;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = (SPLIT ? blockIdx.x / 2 : blockIdx.x) * BM;
+  const int n_all = (Sk + BK - 1) / BK, n_first = SPLIT ? (n_all + 1) / 2 : n_all;
+  const int tile0 = rank == 0 ? 0 : n_first;
+  const int n_tiles = rank == 0 ? n_first : n_all - n_first;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const float c = scale * kLog2e;
+
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(&full_k[i], 1);
+    sm90::fence_mbar_init();
+    expect_bytes(full_q, kQBytes);
+    for (int j = 0; j < kBoxes; ++j) tma_box(sQ + j * kQBox, tm_q, kBoxCols * j, h, q0, b, full_q);
+  }
+  __syncthreads();
+  auto load = [&](uint32_t slot_base, const CUtensorMap& map, uint64_t* bar, int t) {
+    expect_bytes(bar, kKVBytes);
+#pragma unroll
+    for (int j = 0; j < kBoxes; ++j)
+      tma_box(slot_base + j * kKVBox, map, kBoxCols * j, h, (tile0 + t) * BK, b, bar);
+  };
+  auto load_k = [&](int t) { load(sK + (t & 1) * kKVBytes, tm_k, &full_k[t & 1], t); };
+  auto load_v = [&](int t) { load(sV + (t & 1) * kKVBytes, tm_v, &full_v[t & 1], t); };
+  if (tid == 0) {
+    for (int t = 0; t < 2 && t < n_tiles; ++t) {
+      load_k(t);
+      load_v(t);
+    }
+  }
+
+  float acc[80];
+#pragma unroll
+  for (int i = 0; i < 80; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of this warp, base 2
+  float l_run[2] = {0.0f, 0.0f};            // this thread's share of the row sums
+  // Addresses made anew each tile, so the descriptors are not held in
+  // registers across the loop.
+  auto slot_addr = [&](uint32_t base, int i) {
+    uint32_t a = base + (i & 1) * kKVBytes;
+    asm volatile("" : "+r"(a));
+    return a;
+  };
+  mbar_wait(full_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int slot = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    float s[BK / 2];
+    mbar_wait(&full_k[slot], parity);
+    wgmma_fence();
+    const uint32_t ka = slot_addr(sK, i);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_s64(s, kmajor(sQ, kQBox, kk), kmajor(ka, kKVBox, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();  // S, and the last tile's P V, are done
+    fence_operands(s);
+    fence_operands(acc);
+    // This K slot takes tile i + 2, tile i - 1's V slot tile i + 1.
+    if (tid == 0) {
+      if (i + 2 < n_tiles) load_k(i + 2);
+      if (i >= 1 && i + 1 < n_tiles) load_v(i + 1);
+    }
+
+    if ((tile0 + i + 1) * BK > Sk) {  // the ragged tile: keys >= Sk count nothing
+      const int key0 = (tile0 + i) * BK + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + (e & 1) >= Sk) s[4 * j + e] = -INFINITY;
+    }
+    // Online softmax in base 2, the maximum taken on the raw products (scale
+    // > 0) and scaled once; every tile holds a real key, so it is finite.
+    float m_new[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      m_new[0] = fmaxf(m_new[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      m_new[1] = fmaxf(m_new[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float alpha[2], neg_m[2], row_sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+      m_new[r] = fmaxf(m_run[r], m_new[r] * c);
+      alpha[r] = ex2(m_run[r] - m_new[r]);
+      m_run[r] = m_new[r];
+      neg_m[r] = -m_new[r];
+    }
+    uint32_t pa[BK / 16][4];  // P as the A fragments of the k16 steps of P V
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, neg_m[e / 2]));
+        row_sum[e / 2] += s[4 * j + e];
+      }
+      pa[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + row_sum[r];
+#pragma unroll
+    for (int j = 0; j < 20; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    // O += P V, left in flight under the next tile's Q K^T.
+    mbar_wait(&full_v[slot], parity);
+    wgmma_fence();
+    const uint32_t va = slot_addr(sV, i);
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      wgmma_pv160(acc, pa[t], desc(va + t * 16 * 64, kKVBox, 512, 2));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int row0 = q0 + 16 * warp;
+  if constexpr (!SPLIT) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      inv[r] = 1.0f / l_run[r];
+      const int row = row0 + lane / 4 + 8 * r;
+      if (WITH_LSE && t4 == 0 && row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
+    }
+    // O goes over Q (no product reads it any more) in Q's layout, then out
+    // by TMA, box by box: rows past Sq and columns past D are dropped. Four-
+    // byte stores straight from the accumulators took 37 % of the time at
+    // (16, 256, 8, 160) (PERF.md). Within a box, 16-byte chunk k of row r
+    // lies at r * 64 + (k ^ (r / 2 % 4)) * 16: the 64-byte swizzle.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + lane / 4 + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 20; ++j) {
+        const uint32_t at = (j / 4) * kQBox + row * 64 +
+                            (((j % 4) ^ ((row >> 1) & 3)) << 4) + 4 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(smem + at) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      for (int j = 0; j < kBoxes; ++j)
+        tma_store(tm_o, sQ + j * kQBox, kBoxCols * j, h, q0, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  } else {
+    // The two halves of the keys meet. Each block finishes half of the
+    // columns (rank 0 the first 80) with the other block's sums for them;
+    // it leaves the other half over Q, which no product reads any more, and
+    // its row maxima and row sums beside.
+    float4* dump = reinterpret_cast<float4*>(smem);
+    if (rank == 0)
+      dump_half<10>(dump, acc, tid);
+    else
+      dump_half<0>(dump, acc, tid);
+    stats[tid] = make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const float4* peer = cluster.map_shared_rank(dump, rank ^ 1);
+    const float4 ps = cluster.map_shared_rank(stats, rank ^ 1)[tid];
+    const float pm[2] = {ps.x, ps.y}, pl[2] = {ps.z, ps.w};
+    float a_own[2], a_peer[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // Each half holds at least one key, so m is finite.
+      const float m = fmaxf(m_run[r], pm[r]);
+      a_own[r] = ex2(m_run[r] - m);
+      a_peer[r] = ex2(pm[r] - m);
+      const float l = l_run[r] * a_own[r] + pl[r] * a_peer[r];
+      inv[r] = 1.0f / l;
+      const int row = row0 + lane / 4 + 8 * r;
+      if (WITH_LSE && rank == 0 && t4 == 0 && row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = (m + log2f(l)) * kLn2;
+    }
+    if (rank == 0)
+      finish_half<0>(acc, peer, a_own, a_peer, inv, tid, o, b, h, H, Sq, D, row0);
+    else
+      finish_half<10>(acc, peer, a_own, a_peer, inv, tid, o, b, h, H, Sq, D, row0);
+    cluster.sync();  // the other block has read this one's shared memory
+  }
+}
+
+template <bool SPLIT, bool WITH_LSE>
+cudaError_t launch_as(const CUtensorMap (&maps)[4], bf16* o, float* lse, int B, int H, int Sq,
+                      int Sk, int D, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_wg_kernel<SPLIT, WITH_LSE>;
+  cudaError_t err = set_smem(kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (Sq + BM - 1) / BM;
+  return sm90::launch_grid(kernel, SPLIT ? 2 : 1, (SPLIT ? 2 : 1) * row_blocks, B * H, kThreads,
+                           kSmem, stream, maps[0], maps[1], maps[2], maps[3], o, lse, H, Sq, Sk,
+                           D, scale);
+}
+
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
+                   int Sq, int Sk, int D, float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];  // Q, K, V, O
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_64B;
+  cudaError_t err = encode_map(&maps[0], q, B, Sq, H, D, BM, kBoxCols, sw);
+  if (err == cudaSuccess) err = encode_map(&maps[1], k, B, Sk, H, D, BK, kBoxCols, sw);
+  if (err == cudaSuccess) err = encode_map(&maps[2], v, B, Sk, H, D, BK, kBoxCols, sw);
+  if (err == cudaSuccess) err = encode_map(&maps[3], o, B, Sq, H, D, BM, kBoxCols, sw);
+  if (err != cudaSuccess) return err;
+  // The keys are split over a cluster of two where the blocks leave SMs
+  // idle and there are two key tiles to split.
+  if ((Sq + BM - 1) / BM * B * H < kSms && Sk > BK)
+    return lse ? launch_as<true, true>(maps, o, lse, B, H, Sq, Sk, D, scale, stream)
+               : launch_as<true, false>(maps, o, lse, B, H, Sq, Sk, D, scale, stream);
+  return lse ? launch_as<false, true>(maps, o, lse, B, H, Sq, Sk, D, scale, stream)
+             : launch_as<false, false>(maps, o, lse, B, H, Sq, Sk, D, scale, stream);
+}
+
+}  // namespace wg
+
 template <int DP, int RG, int BK>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
                        int H, int Sq, int Sk, int D, float scale, cudaStream_t stream) {
@@ -697,9 +1145,14 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, flo
 
 // The padded head dims that take flash_fwd_rows128_kernel, each with its
 // 16-row fragments a warp, where scripts/torch_bench_attention.py reads it
-// faster than flash_fwd_kernel (PERF.md); ops/attention.py lists the same
-// widths.
-#define FA_FWD_ROWS128_DIMS(X) X(48, 1) X(80, 2)
+// faster than flash_fwd_kernel at every shape of the path (PERF.md);
+// ops/attention.py lists the same widths.
+#define FA_FWD_ROWS128_DIMS(X) X(32, 1) X(48, 1) X(80, 2)
+
+// The padded head dims that take wg::flash_fwd_wg_kernel (built for 160
+// only), where the bench script reads it faster than flash_fwd_kernel at
+// every shape of the path; ops/attention.py lists the same widths.
+#define FA_FWD_WG_DIMS(X) X(160)
 
 // The wide slices (a quarter of the padded head dim) that take
 // wide::flash_fwd_wide_kernel, built for four slices of 128 (512) only; it
@@ -722,15 +1175,20 @@ extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const vo
   auto* op = static_cast<bf16*>(o);
   auto* lp = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
-  // FA_FWD_ROWS128_DIMS: 128-row blocks (their row maximum is taken on the
-  // unscaled products, so a scale <= 0 goes to flash_fwd_kernel). Other
-  // widths up to 160: one warp per 16 rows, 4 warps, 64-key tiles. Wider:
-  // FA_FWD_WIDE_SLICES, the warpgroup design.
+  // FA_FWD_ROWS128_DIMS: 128-row blocks; FA_FWD_WG_DIMS: the warpgroup
+  // design at 160 (both take their row maximum on the unscaled products,
+  // so a scale <= 0 goes to flash_fwd_kernel). Other widths up to 160: one
+  // warp per 16 rows, 4 warps, 64-key tiles. Wider: FA_FWD_WIDE_SLICES, the
+  // warpgroup design at 512.
   if (scale > 0.0f) {
     switch (round_up(D, 16)) {
 #define FA_CASE(DP, MF) \
   case DP: return launch_fwd_rows128<DP, MF>(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
       FA_FWD_ROWS128_DIMS(FA_CASE)
+#undef FA_CASE
+#define FA_CASE(DP) \
+  case DP: return wg::launch(qp, kp, vp, op, lp, B, H, Sq, Sk, D, scale, st);
+      FA_FWD_WG_DIMS(FA_CASE)
 #undef FA_CASE
       default: break;
     }

@@ -88,25 +88,34 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
                : "memory");
 }
 
+// Launches `kernel` on a grid of (gx, gy) blocks of `threads`, as clusters of
+// (cluster, 1, 1) blocks when cluster > 1 (block x of a cluster has rank
+// x % cluster); returns cudaLaunchKernelEx's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_grid(void (*kernel)(Params...), int cluster, int gx, int gy, int threads,
+                        size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, gy, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Launches `kernel` on a grid of (k, rows) blocks of `threads`; with
 // `clustered`, as clusters of (k, 1, 1), so that row r's k blocks are one
 // cluster and block i of it has rank i.
 template <typename... Params, typename... Args>
 cudaError_t launch_clustered(void (*kernel)(Params...), bool clustered, int k, int rows,
                              int threads, size_t smem, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(k, rows, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = clustered ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return launch_grid(kernel, clustered ? k : 1, k, rows, threads, smem, stream, args...);
 }
 
 }  // namespace sm90

@@ -1,6 +1,6 @@
 """Model factory: the port of `pipeline/factory.py`'s
-`create_diffusion_model`, `create_segmentation_model` and
-`get_pretrained_anygan`.
+`create_diffusion_model`, `create_segmentation_model`,
+`get_pretrained_anygan`, `save_wrapper_params` and `load_wrapper_params`.
 
 Builds the wrapper from an HF-layout checkpoint directory through
 `models/port.py::load_checkpoint_dir` (DDPM: `unet/`; LDM: `unet/` and
@@ -10,7 +10,9 @@ given. Nothing is downloaded. The segmentation model is a face-parsing
 BiSeNet from its checkpoint file (`models/port.py::load_bisenet_checkpoint`)
 or from seeded random weights; the anyGAN attribute predictor a ResNet-50
 from its `.pth` (`models/port.py::load_anygan_checkpoint`) or from seeded
-random weights.
+random weights. A wrapper's weights are written as such a directory and read
+back into a wrapper of the same architectures by `save_wrapper_params` /
+`load_wrapper_params` (the JAX package's go through Orbax).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..models import (
     load_checkpoint_dir,
 )
 from ..models.bisenet import SegmentationModel
+from ..models.port import load_weights, save_checkpoint_dir
 from .wrappers import DDPM, LDM, SD, DiffusionWrapper
 
 
@@ -154,3 +157,34 @@ def get_pretrained_anygan(checkpoint_path: Optional[str] = None, width: int = 64
 
 def _warn_random_init():
     print("WARNING: random-init weights (no checkpoint given)", file=sys.stderr)
+
+
+# A wrapper's modules and the HF subdirectories they are written under.
+_WRAPPER_PARTS = (("unet", "unet"), ("vae", "vae"), ("vqvae", "vqvae"),
+                  ("text_encoder", "text_encoder"))
+
+
+def save_wrapper_params(wrapper: DiffusionWrapper, ckpt_dir: str) -> None:
+    """Write a wrapper's modules as an HF-layout checkpoint directory:
+    `unet/`, `vae/` (SD) or `vqvae/` (LDM), and `text_encoder/` when it has
+    one, each through `models/port.py::save_checkpoint_dir` (dtype kept).
+    `load_wrapper_params` reads it back; `create_diffusion_model` also
+    builds a wrapper from it (SD then without a tokenizer)."""
+    for attr, sub in _WRAPPER_PARTS:
+        module = getattr(wrapper, attr, None)
+        if module is not None:
+            save_checkpoint_dir(module, os.path.join(ckpt_dir, sub))
+
+
+def load_wrapper_params(wrapper: DiffusionWrapper, ckpt_dir: str) -> DiffusionWrapper:
+    """Read the weights `save_wrapper_params` wrote into `wrapper`, which is
+    built with the same architectures: each part strictly (a missing or
+    unexpected key raises), cast to the module's dtype on its device. The
+    codec closures are made anew. Returns the wrapper."""
+    for attr, sub in _WRAPPER_PARTS:
+        module = getattr(wrapper, attr, None)
+        if module is not None:
+            module.load_state_dict(load_weights(os.path.join(ckpt_dir, sub)), strict=True)
+    if wrapper._codec()[0] is not None:
+        wrapper._set_codec()
+    return wrapper

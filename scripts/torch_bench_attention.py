@@ -15,9 +15,13 @@ against its plain version (`chip_smoke.FWD_TOL`, and the log-sum-exp within
 `chip_smoke.LSE_TOL` of `torch.logsumexp`) and prints its milliseconds
 beside `scaled_dot_product_attention`'s and three bounds: tensor-core
 operations, bytes, and exponentials at 16 a clock an SM at the card's
-highest SM clock. Times are `chip_smoke.time_ms`'s (CUDA events over 10
-calls queued behind a sleep kernel). The `[path]` line weighs each shape by
-its launches in one run of `chip_smoke.py`'s `[main]`.
+highest SM clock. The same at the LDM UNet's heads of 32 (1024, 256 and
+64 tokens), at every self- and cross-attention of `[sweep]`'s batch-16 CFG
+UNet, and at the split shapes of `chip_smoke.FWD_CASES`. Times are
+`chip_smoke.time_ms`'s (CUDA events over 10 calls queued behind a sleep
+kernel). The `[path]` lines weigh each shape by its launches in one run of
+`chip_smoke.py`'s `[main]`, one of its `[ldm_clf]` and one pass of its
+`[sweep]`.
 
 `--parent REV` also builds `flash_attn_fwd.cu` and the headers of git
 revision REV into the ignored build directory and times that kernel in the
@@ -31,8 +35,9 @@ clock around work that ends in a synchronise.
 
 `--variant DIR[:DEFINES]` (repeatable) builds `DIR/flash_attn_fwd.cu` with
 the `+`-separated `-D` defines and times it beside the kernel at each
-shape, unchecked: for knock-out copies of the source (an exponential made
-an FMA, a product dropped), which compute something else by design.
+shape, printing its errors but failing nothing: for copies of the source
+that try another design, and knock-out copies (an exponential made an
+FMA, a product dropped), which compute something else by design.
 
 `--bwd` builds `flash_attn_bwd_dkv.cu` (K3) and `flash_attn_bwd_dq.cu`
 (K2) instead, and takes K1 from its own build for the forward's lse. At
@@ -80,17 +85,32 @@ from torch_bench_build import build_library, parent_sources, print_ptxas  # noqa
 
 KERNEL = "flash_attn_fwd"  # the kernel under test: K3 with --bwd, K2 with --dq
 SMS, EXP_PER_CLOCK = 132, 16  # H100 SXM: SMs, and the special-function unit's ex2 an SM a clock
-# (label, q shape, kv shape, launches in one run of chip_smoke's [main]): a
-# UNet call runs 5 transformers at 64, 32 and 16 px and 1 at 8 px, each one
-# self- and one cross-attention; the run makes 4 inversion calls at batch 20
-# and 40 guided-step calls at batch 2; the VAE's attention runs 42 times.
+# The workloads whose K1 launches the [path] lines weigh: chip_smoke's [main]
+# run, its [ldm_clf] run and one pass of its [sweep].
+PATHS = ("main", "ldm_clf", "sweep")
+# (label, q shape, kv shape, {workload: launches in one run}). An SD UNet
+# call runs 5 transformers at 64, 32 and 16 px and 1 at 8 px, each one self-
+# and one cross-attention: [main] makes 4 inversion calls at batch 20 and 40
+# guided-step calls at batch 2, a [sweep] pass 50 calls at batch 16. An LDM
+# UNet call runs 5 attentions at 32 px, 5 at 16 px and 6 at 8 px (heads of
+# 32), [ldm_clf] 100 calls. The VAE's (or the VQ's) mid-block attention runs
+# 42 / 52 / 400 times. The split shapes of chip_smoke.FWD_CASES ([spatial]'s
+# ranks) are timed too, weighed by none of these.
 SHAPES = []
-for _b, _calls in ((2, 40), (20, 4)):
+for _b, _calls, _path in ((2, 40, "main"), (20, 4, "main"), (16, 50, "sweep")):
     for _px, _d, _n in ((64, 40, 5), (32, 80, 5), (16, 160, 5), (8, 160, 1)):
         _s = _px * _px
-        SHAPES.append((f"self {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, _s, 8, _d), _calls * _n))
-        SHAPES.append((f"cross {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, 77, 8, _d), _calls * _n))
-SHAPES.append(("vae mid 64x64 b1", (1, 4096, 1, 512), (1, 4096, 1, 512), 42))
+        SHAPES.append((f"self {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, _s, 8, _d),
+                       {_path: _calls * _n}))
+        SHAPES.append((f"cross {_px}x{_px} b{_b}", (_b, _s, 8, _d), (_b, 77, 8, _d),
+                       {_path: _calls * _n}))
+for _px, _h, _n in ((32, 14, 5), (16, 21, 5), (8, 28, 6)):
+    SHAPES.append((f"ldm self {_px}x{_px} b1", (1, _px * _px, _h, 32), (1, _px * _px, _h, 32),
+                   {"ldm_clf": 100 * _n}))
+SHAPES.append(("vae mid 64x64 b1", (1, 4096, 1, 512), (1, 4096, 1, 512),
+               {"main": 42, "ldm_clf": 52, "sweep": 400}))
+SHAPES += [(_label, _qs, _ks, {}) for _label, _qs, _ks in chip_smoke.FWD_CASES
+           if _label.startswith("split")]
 # K2's and K3's shapes: (label, q shape, kv shape, launches in one run of [main]).
 BWD_SHAPES = [
     ("vae mid 64x64", (1, 4096, 1, 512), (1, 4096, 1, 512), 40),
@@ -337,7 +357,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    failed, total = [], {"kernel": 0.0, "parent": 0.0, "sdpa": 0.0}
+    failed = []
+    total = {path: {"kernel": 0.0, "parent": 0.0, "sdpa": 0.0} for path in PATHS}
     for label, qs, ks, launches in SHAPES:
         if opts.only not in label:
             continue
@@ -355,6 +376,8 @@ def main() -> int:
                                                ref, ref_lse)
                 line += f" (parent {p_err:.3e} / {p_lse_err:.3e})"
                 ok = ok and p_ok
+            v_err = {spec: check(*call_library(fn, q, k, v, scale, True), ref, ref_lse)[:2]
+                     for spec, fn in variants.items()}
             del ref, ref_lse
             kernel = lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=False)  # noqa: E731
             if parent is not None:
@@ -375,20 +398,25 @@ def main() -> int:
         line += (f" | kernel {ms:.4f} ms (with lse {lse_ms:.4f})"
                  + (f", parent {p_ms:.4f} ms (x{p_ms / ms:.2f})" if p_ms else "")
                  + f", sdpa {sdpa_ms:.4f} ms; bound ops {b_ops:.4f}, bytes {b_bytes:.4f}, "
-                 f"exp {b_exp:.4f} ms; {launches} launches a run")
+                 f"exp {b_exp:.4f} ms; launches a run "
+                 + (", ".join(f"{p} {n}" for p, n in launches.items()) or "none"))
         print(line, flush=True)
         for spec, t in v_ms.items():
-            print(f"[variant] {label} {spec}: {t:.4f} ms (kernel {ms:.4f})", flush=True)
-        total["kernel"] += launches * ms
-        total["sdpa"] += launches * sdpa_ms
-        total["parent"] += launches * (p_ms or 0.0)
+            print(f"[variant] {label} {spec}: {t:.4f} ms (kernel {ms:.4f}); rel err "
+                  f"{v_err[spec][0]:.3e} lse err {v_err[spec][1]:.3e}", flush=True)
+        for path, n in launches.items():
+            total[path]["kernel"] += n * ms
+            total[path]["sdpa"] += n * sdpa_ms
+            total[path]["parent"] += n * (p_ms or 0.0)
         if not ok:
             failed.append(label)
         del q, k, v, out, lse
         torch.cuda.empty_cache()
-    print(f"[path] launch-weighted K1 device time of one [main] run: kernel "
-          f"{total['kernel']:.2f} ms" + (f", parent {total['parent']:.2f} ms" if parent else "")
-          + f", sdpa {total['sdpa']:.2f} ms; on {smi}")
+    for path, t in total.items():
+        print(f"[path] launch-weighted K1 device time of one [{path}] "
+              f"{'pass' if path == 'sweep' else 'run'} (the shapes timed): kernel "
+              f"{t['kernel']:.2f} ms" + (f", parent {t['parent']:.2f} ms" if parent else "")
+              + f", sdpa {t['sdpa']:.2f} ms; on {smi}")
     if opts.e2e:
         e2e(parent, smi)
     if failed:

@@ -208,8 +208,9 @@ def test_built_head_dims_match_the_cuda_sources():
 
 
 def test_forward_dispatch_matches_the_cuda_source():
-    """The narrow widths that take the forward's 128-row design are those
-    the .cu dispatches to it, and each is a built narrow width."""
+    """The narrow widths that take the forward's 128-row design, and those
+    that take its warpgroup design, are those the .cu dispatches to each,
+    and each is a built narrow width."""
     import re
     from pathlib import Path
 
@@ -220,6 +221,11 @@ def test_forward_dispatch_matches_the_cuda_source():
     assert all(8 % int(mf) == 0 for _, mf in cases)
     assert set(T.FWD_ROWS128_HEAD_DIMS) <= set(T.NARROW_HEAD_DIMS)
     assert "FA_FWD_ROWS128_DIMS(FA_CASE)" in src
+    line = re.search(r"#define FA_FWD_WG_DIMS\(X\)(.*)", src).group(1)
+    assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) == T.FWD_WG_HEAD_DIMS
+    assert set(T.FWD_WG_HEAD_DIMS) <= set(T.NARROW_HEAD_DIMS)
+    assert not set(T.FWD_WG_HEAD_DIMS) & set(T.FWD_ROWS128_HEAD_DIMS)
+    assert "FA_FWD_WG_DIMS(FA_CASE)" in src
 
 
 def test_forward_wide_dispatch_matches_the_cuda_source():

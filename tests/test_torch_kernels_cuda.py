@@ -166,9 +166,51 @@ def test_forward_and_lse_match_plain(gen, b, s_q, s_k, h, d):
         (1, 100, 130, 2, 72, 0.12),     # 72 in 80: the ones column
         (1, 200, 300, 2, 80, 0.11),
         (16, 1000, 77, 8, 40, 0.16),    # batch 16 (a sweep's CFG UNet): 128 heads on grid y
+        (1, 1024, 1024, 14, 32, 32 ** -0.5),  # the LDM UNet's heads of 32 at 32 x 32
+        (1, 256, 256, 21, 32, 32 ** -0.5),    # ... at 16 x 16
+        (1, 64, 64, 28, 32, 32 ** -0.5),      # ... at 8 x 8: half a block of rows
+        (2, 130, 77, 3, 32, 0.18),      # padded 32: ragged rows, 77 keys
+        (1, 100, 130, 2, 24, 0.2),      # 24 in 32: the ones column
+        (2, 300, 77, 2, 32, -0.18),     # a negative scale takes the 4-warp design
+        (1, 1000, 1000, 3, 32, 0.18),   # 128-key tiles split over a cluster, the last ragged
+        (1, 200, 1000, 2, 80, 0.11),    # 64-key tiles split, the last of 40 keys
+        (1, 130, 520, 2, 40, 0.16),     # split with the ones column: 5 tiles and 4
     ],
 )
 def test_forward_rows128_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
+    q = _rand((b, s_q, h, d), gen)
+    k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
+    (out, lse), launched = _launched(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))
+    ref = A.attention_reference(q, k, v, scale)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    ref_lse = torch.logsumexp(logits, dim=-1).reshape(b * h, s_q)
+    assert launched == {"flash_attn_fwd": 1}
+    assert _rel(out, ref) <= FWD_TOL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    primal, launched = _launched(lambda: A.attention(q, k, v, scale))
+    assert launched == {"flash_attn_fwd": 1} and torch.equal(primal, out)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,d,scale",
+    [
+        (2, 256, 256, 8, 160, 160 ** -0.5),   # the SD UNet's 16 x 16: keys split over a cluster
+        (2, 256, 77, 8, 160, 160 ** -0.5),    # its cross-attention: one ragged tile a rank
+        (16, 256, 256, 8, 160, 160 ** -0.5),  # [sweep]'s batch 16: 512 row blocks, no split
+        (16, 256, 77, 8, 160, 160 ** -0.5),
+        (20, 256, 77, 8, 160, 160 ** -0.5),   # the batched inversion's
+        (2, 64, 64, 8, 160, 160 ** -0.5),     # 8 x 8: one key tile, no split
+        (2, 64, 77, 8, 160, 160 ** -0.5),     # two tiles, the second of 13 keys
+        (1, 128, 256, 8, 160, 0.08),          # [spatial]'s rank: rows against all keys
+        (1, 130, 65, 2, 160, 0.08),           # ragged rows; the second rank one key
+        (3, 200, 300, 5, 152, 0.08),          # 152 in 160; ragged rows and keys, a split
+        (8, 200, 300, 20, 152, 0.08),         # the same unsplit: the TMA store drops columns
+        (1, 10, 1, 1, 160, 0.08),             # one key: one tile, no split
+        (4, 500, 700, 40, 160, 0.08),         # 1280 row blocks, 11 tiles through the ring
+        (2, 256, 77, 8, 160, -0.08),          # a negative scale takes the 4-warp design
+    ],
+)
+def test_forward_wg_design_matches_plain(gen, b, s_q, s_k, h, d, scale):
     q = _rand((b, s_q, h, d), gen)
     k, v = _rand((b, s_k, h, d), gen), _rand((b, s_k, h, d), gen)
     (out, lse), launched = _launched(lambda: A.flash_attn_fwd(q, k, v, scale, with_lse=True))

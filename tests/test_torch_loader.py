@@ -12,6 +12,7 @@ import dataclasses
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,9 +24,12 @@ from diffusion_image_editing_tpu.models import UNet2DCondition as JUNet
 from diffusion_image_editing_tpu.models.port import load_checkpoint_dir as j_load
 from diffusion_image_editing_tpu_torch import models as TM
 from diffusion_image_editing_tpu_torch.models import port as P
-from diffusion_image_editing_tpu_torch.pipeline import SD, create_diffusion_model
+from diffusion_image_editing_tpu_torch.pipeline import (
+    DDPM, SD, create_diffusion_model, load_wrapper_params, save_wrapper_params)
 from diffusion_image_editing_tpu_torch.pipeline import factory
-from tests.torch_port_helpers import nchw, to_safetensors, write_tiny_sd_dir
+from tests.torch_port_helpers import (
+    nchw, tiny_unet2d_params, to_safetensors, write_tiny_ddpm_dir, write_tiny_ldm_dir,
+    write_tiny_sd_dir)
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 KINDS = {"unet": "unet2d_cond", "vae": "vae", "text_encoder": "clip_text"}
@@ -192,3 +196,66 @@ def test_factory_needs_cuda_unless_asked(monkeypatch, sd_dirs):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_diffusion_model("sd", checkpoint_dir=sd_dirs["bin"])
+
+
+# ---------------------------------------------------------------------------
+# save_wrapper_params / load_wrapper_params
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("family", ["ddpm", "ldm", "sd"])
+def test_wrapper_params_round_trip_bit_equal(sd_dirs, tmp_path, family):
+    """A TINY wrapper's weights, saved and loaded into a wrapper of the same
+    architectures whose weights were scrambled: every part bit-equal, each
+    under its HF subdirectory, and the codec's closures made anew."""
+    src = sd_dirs["bin"]
+    if family != "sd":
+        src = str(tmp_path / "src")
+        (write_tiny_ddpm_dir if family == "ddpm" else write_tiny_ldm_dir)(src)
+    a, b = (create_diffusion_model(family, checkpoint_dir=src, num_inference_steps=4,
+                                   dtype=torch.float32, device="cpu") for _ in range(2))
+    parts = [n for n in ("unet", "vae", "vqvae", "text_encoder") if getattr(a, n, None) is not None]
+    assert len(parts) == {"ddpm": 1, "ldm": 2, "sd": 3}[family]
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name in parts:
+            for w in getattr(b, name).parameters():
+                w.add_(torch.randn(w.shape, generator=gen))
+    saved = str(tmp_path / "saved")
+    save_wrapper_params(a, saved)
+    assert sorted(os.listdir(saved)) == sorted(parts)
+    decode = b._decode
+    assert not torch.equal(a.unet.conv_in.weight, b.unet.conv_in.weight)
+    assert load_wrapper_params(b, saved) is b
+    for name in parts:
+        want = getattr(a, name).state_dict()
+        got = getattr(b, name).state_dict()
+        assert set(got) == set(want)
+        for key, w in got.items():
+            assert torch.equal(w, want[key]), (name, key)
+    assert (b._decode is not decode) == (family != "ddpm")
+
+
+def test_wrapper_params_from_jax_keep_the_jax_eps(tmp_path):
+    """A TINY DDPM wrapper whose UNet took Flax weights (`state_dict_from_jax`),
+    saved and loaded into a wrapper of seeded random weights, gives the JAX
+    wrapper's eps on the same latent: FWD_TOL (f32 sums in another order)."""
+    from diffusion_image_editing_tpu.core import schedule_for_model as j_schedule
+    from diffusion_image_editing_tpu.pipeline import DDPM as JDDPM
+    from diffusion_image_editing_tpu_torch.core import schedule_for_model
+
+    module, params = tiny_unet2d_params(seed=7)
+    unet = TM.UNet2D(TM.TINY_UNET2D, device="cpu")
+    unet.load_state_dict(TM.state_dict_from_jax(params, "unet2d"))
+    sched = schedule_for_model("ddpm", 4, False)
+    save_wrapper_params(DDPM(unet, sched, device="cpu"), str(tmp_path))
+    torch.manual_seed(1)
+    tw = load_wrapper_params(DDPM(TM.UNet2D(TM.TINY_UNET2D, device="cpu"), sched, device="cpu"),
+                             str(tmp_path))
+    jw = JDDPM(module, jax.tree.map(jnp.asarray, params), j_schedule("ddpm", 4, False))
+    d, c = TM.TINY_UNET2D.sample_size, TM.TINY_UNET2D.in_channels
+    x = np.random.default_rng(0).standard_normal((2, d, d, c)).astype(np.float32)
+    eps = jw.eps_fn()
+    want = np.asarray(jax.jit(lambda x, t: eps(x, t))(jnp.asarray(x), jnp.int32(500)))
+    got = tw.eps_fn()(torch.from_numpy(nchw(x)), torch.tensor(500))
+    np.testing.assert_allclose(got.numpy(), nchw(want), **FWD_TOL)
