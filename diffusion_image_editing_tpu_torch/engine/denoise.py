@@ -2,7 +2,8 @@
 `engine/denoise.py`.
 
 UNet calls run under `torch.no_grad()`: the guidance gradient flows through
-the decoder only, never through the UNet."""
+the decoder only, never through the UNet. Each denoiser call runs in the
+tracer's span `models.unet`."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..core import schedule as S
+from ..utils.logging import span
 
 EpsFn = Callable[[torch.Tensor, object], torch.Tensor]  # (x_t, t) -> eps
 
@@ -24,7 +26,7 @@ class EpsClosure:
         self.unet = unet
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             return self.unet(x, t)
 
 
@@ -32,11 +34,11 @@ class EpsFeatClosure(EpsClosure):
     """`EpsClosure` with encoder propagation (see `CfgEpsFeatClosure`)."""
 
     def full(self, x: torch.Tensor, t):
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             return self.unet(x, t, return_encoder_features=True)
 
     def reuse(self, x: torch.Tensor, t, feats) -> torch.Tensor:
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             return self.unet(x, t, encoder_features=feats)
 
 
@@ -64,7 +66,7 @@ class CfgEpsClosure:
         return eps_uncond + self.cfg_scale * (eps_text - eps_uncond)
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             return self._mix(self.unet(*self._pair(x, t)))
 
 
@@ -77,12 +79,12 @@ class CfgEpsFeatClosure(CfgEpsClosure):
     `full`'s eps exactly."""
 
     def full(self, x: torch.Tensor, t):
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             eps, feats = self.unet(*self._pair(x, t), return_encoder_features=True)
-        return self._mix(eps), feats
+            return self._mix(eps), feats
 
     def reuse(self, x: torch.Tensor, t, feats) -> torch.Tensor:
-        with torch.no_grad():
+        with span("models.unet"), torch.no_grad():
             return self._mix(self.unet(*self._pair(x, t), encoder_features=feats))
 
 

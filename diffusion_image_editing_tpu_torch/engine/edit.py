@@ -17,6 +17,7 @@ import torch
 
 from ..core import schedule as S
 from ..guidance.attr_functions import AttrFunc, DecodeFn
+from ..utils.logging import COUNTERS, span
 from .denoise import DecodeClosure, EpsFn
 
 
@@ -53,7 +54,10 @@ def edit_split(
     `full` when i % k == 0 and keeps its down-path features; the other
     steps run `reuse` on them (mid + up only). Approximate, opt-in; needs an
     eps_fn with `full` / `reuse` (`CfgEpsFeatClosure`, `EpsFeatClosure`).
-    Neither eps nor the features carry a gradient."""
+    Neither eps nor the features carry a gradient.
+
+    Each step runs in the tracer's span `engine.step` (its index), its
+    update in `engine.update`, and counts in `engine.steps`."""
     if eta > 0 and zs is None:
         raise ValueError("eta > 0 requires zs")
     if encoder_reuse > 1 and not hasattr(eps_fn, "reuse"):
@@ -72,22 +76,25 @@ def edit_split(
     feats = None
     for i, t in enumerate(sched.timesteps[-n:]):
         t = int(t)
-        z = zs[i] if zs is not None else torch.zeros_like(x)
-        if encoder_reuse > 1 and i % encoder_reuse:
-            eps = eps_fn.reuse(x, t, feats).detach()
-        elif encoder_reuse > 1:
-            eps, feats = eps_fn.full(x, t)
-            eps = eps.detach()
-        else:
-            eps = eps_fn(x, t).detach()
-        x, px0 = step(sched, x, eps, t, eta=eta, noise=z if eta > 0 else None)
-        if attr_func is not None:
-            x, z = attr_func.apply_batched(x, z, eps, t, i, sched, decode_fn,
-                                           mask=mask, x0=x0_ref)
-        if collect:
-            xts_out.append(x)
-            eps_out.append(eps)
-            px0_out.append(px0)
+        COUNTERS["engine.steps"] += 1
+        with span("engine.step", i):
+            z = zs[i] if zs is not None else torch.zeros_like(x)
+            if encoder_reuse > 1 and i % encoder_reuse:
+                eps = eps_fn.reuse(x, t, feats).detach()
+            elif encoder_reuse > 1:
+                eps, feats = eps_fn.full(x, t)
+                eps = eps.detach()
+            else:
+                eps = eps_fn(x, t).detach()
+            with span("engine.update"):
+                x, px0 = step(sched, x, eps, t, eta=eta, noise=z if eta > 0 else None)
+            if attr_func is not None:
+                x, z = attr_func.apply_batched(x, z, eps, t, i, sched, decode_fn,
+                                               mask=mask, x0=x0_ref)
+            if collect:
+                xts_out.append(x)
+                eps_out.append(eps)
+                px0_out.append(px0)
     if collect:
         return EditResult(x, torch.stack(xts_out), torch.stack(eps_out), torch.stack(px0_out))
     return EditResult(x)

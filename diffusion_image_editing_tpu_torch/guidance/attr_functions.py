@@ -13,6 +13,12 @@ array) with one value per sample of the batch, as `parallel.sweep_attr_func`
 makes them. `apply_batched` then gives each sample its own value, in its
 loss and in its `t1 <= step_idx < t2` window; `apply` takes scalars only.
 Swept values are read on the host, so keep them on the CPU.
+
+Tracing: a nudge (`apply`, or `apply_batched` over its chunks) runs in the
+span `guidance.nudge`; inside it, the decode in `guidance.decode`, each
+loss in `guidance.loss` (once a sample in per-sample mode) and the gradient in
+`guidance.vjp`, whose backward, on autograd's thread, holds the decoder's
+backward kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import schedule as S
+from ..utils.logging import span
 
 DecodeFn = Callable[[torch.Tensor], torch.Tensor]  # latent -> image, differentiable
 SWEEPABLE = ("loss_scale", "t1", "t2", "lambda_")  # leaves that may hold one value a sample
@@ -120,8 +127,9 @@ class AttrFunc:
         if swept:
             raise ValueError(f"apply takes scalar {swept}; an AttrFunc with one value a "
                              "sample runs through apply_batched")
-        return self._nudge(xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
-                           per_sample=False)
+        with span("guidance.nudge"):
+            return self._nudge(xt, zt, eps, t, step_idx, sched, decode_fn, mask, x0,
+                               per_sample=False)
 
     def swept_fields(self, batch: Optional[int] = None) -> Tuple[str, ...]:
         """The leaves of `SWEEPABLE` that hold one value a sample (any 1-D
@@ -164,19 +172,21 @@ class AttrFunc:
         with torch.enable_grad():
             x = xt.detach().requires_grad_(True)
             px0 = (x - torch.sqrt(1.0 - a_t) * eps_sg) / torch.sqrt(a_t)
-            if self.remat_decode:
-                decoded = checkpoint(decode_fn, px0, use_reentrant=False)
-            else:
-                decoded = decode_fn(px0)
+            with span("guidance.decode"):
+                if self.remat_decode:
+                    decoded = checkpoint(decode_fn, px0, use_reentrant=False)
+                else:
+                    decoded = decode_fn(px0)
             if per_sample:
                 # Each sample's loss times its scale: the gradient reaching
                 # each loss is its scale, as for (sum of losses) * scale.
-                loss = sum(f.calculate_loss(decoded[i:i + 1], _rows(m, slice(i, i + 1), n),
-                                            _rows(x0, slice(i, i + 1), n)) * f.loss_scale
+                loss = sum(_traced_loss(f, decoded[i:i + 1], _rows(m, slice(i, i + 1), n),
+                                        _rows(x0, slice(i, i + 1), n)) * f.loss_scale
                            for i, f in enumerate(funcs) if inside[i])
             else:
-                loss = self.calculate_loss(decoded, m, x0) * self.loss_scale
-            (grad,) = torch.autograd.grad(loss, x)
+                loss = _traced_loss(self, decoded, m, x0) * self.loss_scale
+            with span("guidance.vjp"):
+                (grad,) = torch.autograd.grad(loss, x)
         attr_grad = -grad
         if self.mask_attr_grad:
             attr_grad = mask * attr_grad
@@ -217,15 +227,23 @@ class AttrFunc:
             return self.apply(xt, zt, eps, t, step_idx, sched, decode_fn, mask=mask, x0=x0)
         chunk = max(1, min(int(self.vjp_chunk), b))
         xs, zs = [], []
-        for s in range(0, b, chunk):
-            rows = slice(s, s + chunk)
-            af = dataclasses.replace(self, **{f: getattr(self, f)[rows] for f in swept})
-            xn, zn = af._nudge(xt[rows], None if zt is None else zt[rows], eps[rows], t,
-                               step_idx, sched, decode_fn, _rows(mask, rows, b),
-                               _rows(x0, rows, b), per_sample=True)
-            xs.append(xn)
-            zs.append(zn)
-        return torch.cat(xs), (None if zt is None else torch.cat(zs))
+        with span("guidance.nudge"):
+            for s in range(0, b, chunk):
+                rows = slice(s, s + chunk)
+                af = dataclasses.replace(self, **{f: getattr(self, f)[rows] for f in swept})
+                xn, zn = af._nudge(xt[rows], None if zt is None else zt[rows], eps[rows], t,
+                                   step_idx, sched, decode_fn, _rows(mask, rows, b),
+                                   _rows(x0, rows, b), per_sample=True)
+                xs.append(xn)
+                zs.append(zn)
+            return torch.cat(xs), (None if zt is None else torch.cat(zs))
+
+
+def _traced_loss(f: AttrFunc, decoded: torch.Tensor, mask: Optional[torch.Tensor],
+                 x0: Optional[torch.Tensor]) -> torch.Tensor:
+    """`f.calculate_loss` in the tracer's span `guidance.loss`."""
+    with span("guidance.loss"):
+        return f.calculate_loss(decoded, mask, x0)
 
 
 def _host_values(leaf) -> list:

@@ -3,19 +3,20 @@ activated batch norm, each with hand-written CUDA kernels and a plain torch
 version; plain convs go to cuDNN; `resize` and `morphology` (segmentation
 masks) are torch ops.
 
-`launch_counts()` / `reset_launch_counts()` read and zero every kernel
-wrapper's launch count, by kernel name."""
+Each kernel wrapper counts its launches in the tracer's counter
+`ops.launches.<kernel>`; `launch_counts()` / `reset_launch_counts()` read
+and zero them, by kernel name."""
 
-from . import abn, attention, fused_conv, groupnorm
+from ..utils.logging import CounterView
+from . import abn, attention, fused_conv, groupnorm  # noqa: F401
+from ._build import KERNELS
 
-KERNEL_WRAPPERS = (attention.KERNEL_WRAPPERS + groupnorm.KERNEL_WRAPPERS
-                   + fused_conv.KERNEL_WRAPPERS + abn.KERNEL_WRAPPERS)
+LAUNCHES = CounterView("ops.launches.", KERNELS)
 
 
 def launch_counts() -> dict:
-    return {w.kernel_name: w.launches for w in KERNEL_WRAPPERS}
+    return dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    LAUNCHES.reset()

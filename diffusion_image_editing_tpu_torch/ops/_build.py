@@ -18,9 +18,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import torch
+
+from ..utils.logging import COUNTERS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
@@ -67,13 +69,28 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every named kernel whose library is missing, one nvcc each,
     in parallel. Returns the wall seconds per compiled kernel (0.0 for one
-    already built). Raises RuntimeError with nvcc's output on failure."""
+    already built). Raises RuntimeError with nvcc's output on failure. The
+    call's nanoseconds add to the tracer's counters: those spent compiling to
+    `ops.compile_ns` (none where every library is built), the rest, hashing
+    the sources to find the missing ones, to `ops.build_ns`."""
+    t0 = time.perf_counter_ns()
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
+    COUNTERS["ops.build_ns"] += time.perf_counter_ns() - t0
     times = {n: 0.0 for n in names}
-    if not todo:
-        return times
+    if todo:
+        t0 = time.perf_counter_ns()
+        try:
+            times.update(_compile(todo))
+        finally:
+            COUNTERS["ops.compile_ns"] += time.perf_counter_ns() - t0
+    return times
+
+
+def _compile(todo: List[str]) -> Dict[str, float]:
+    """`build`'s nvcc runs: the wall seconds per kernel of `todo`."""
+    times = {}
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()

@@ -23,7 +23,8 @@ are torch ops, as they are jnp ops in the JAX package.
 
 `abn_apply()` launches K8 on a CUDA tensor, or raises; `abn_apply_reference`
 is its plain version, which the autograd functions take for a CPU tensor
-only. The wrapper counts its launches in `.launches`.
+only. The wrapper counts its launches in the tracer's
+counter `ops.launches.abn_apply`.
 
 Synced statistics (the reference's InPlaceABNSync): `axis_name` is a
 process group, or a 1-D device mesh (a mesh dimension, `mesh["dp"]`) whose
@@ -45,6 +46,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils.logging import COUNTERS
 from . import _build
 
 ACTS = ("identity", "leaky_relu", "elu")  # codes 0-2 of csrc/abn_apply.cu
@@ -186,13 +188,8 @@ def abn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, weight: t
                   int(x.dtype == torch.bfloat16), mean.data_ptr(), rstd.data_ptr(),
                   weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, hw,
                   ACTS.index(activation), float(slope))
-    abn_apply.launches += 1
+    COUNTERS["ops.launches.abn_apply"] += 1
     return out
-
-
-KERNEL_WRAPPERS = (abn_apply,)
-abn_apply.launches = 0
-abn_apply.kernel_name = "abn_apply"
 
 
 def _apply(x, mean, rstd, weight, bias, activation, slope):

@@ -53,7 +53,8 @@ whole backward) and `attention_bwd_dq_reference` / `attention_bwd_dkv_reference`
 (K2 / K3, from the same lse and delta the kernels take). `attention()`
 launches the kernels for CUDA tensors and raises when it cannot; it takes
 `attention_reference` for CPU tensors only. Each kernel wrapper counts its
-launches in `.launches` (read by `ops.launch_counts()`).
+launches in the tracer's counter `ops.launches.<kernel>` (read by
+`ops.launch_counts()`).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.logging import COUNTERS, span
 from . import _build
 
 _NEG_INF = -1e30
@@ -225,7 +227,7 @@ def flash_attn_fwd(
     _launch("flash_attn_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr() if with_lse else None,
             b, h, s_q, s_k, d, float(scale))
-    flash_attn_fwd.launches += 1
+    COUNTERS["ops.launches.flash_attn_fwd"] += 1
     return out, lse
 
 
@@ -237,7 +239,7 @@ def flash_attn_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
     _launch("flash_attn_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, s_q, s_k, d, float(scale))
-    flash_attn_bwd_dq.launches += 1
+    COUNTERS["ops.launches.flash_attn_bwd_dq"] += 1
     return dq
 
 
@@ -250,14 +252,8 @@ def flash_attn_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     _launch("flash_attn_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, s_q, s_k, d, float(scale))
-    flash_attn_bwd_dkv.launches += 1
+    COUNTERS["ops.launches.flash_attn_bwd_dkv"] += 1
     return dk, dv
-
-
-KERNEL_WRAPPERS = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
-    _w.kernel_name = _w.__name__
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -282,10 +278,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = attention_delta(dout, out)
-        dq = flash_attn_bwd_dq(q, k, v, dout, lse, delta, ctx.scale)
-        dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta, ctx.scale)
+        with span("ops.attention.bwd", q, k):
+            dout = dout.contiguous()
+            delta = attention_delta(dout, out)
+            dq = flash_attn_bwd_dq(q, k, v, dout, lse, delta, ctx.scale)
+            dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
@@ -301,9 +298,10 @@ def attention(
     run `attention_reference`, as do causal masks (only CLIP uses them)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if causal or q.device.type == "cpu":
-        return attention_reference(q, k, v, scale, causal=causal)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, float(scale))
-    out, _ = flash_attn_fwd(q, k, v, float(scale), with_lse=False)
-    return out
+    with span("ops.attention", q, k):
+        if causal or q.device.type == "cpu":
+            return attention_reference(q, k, v, scale, causal=causal)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, float(scale))
+        out, _ = flash_attn_fwd(q, k, v, float(scale), with_lse=False)
+        return out

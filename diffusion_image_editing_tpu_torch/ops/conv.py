@@ -21,10 +21,11 @@ The JAX package reads DIE_TPU_CONV, DIE_TPU_INT8_MIN_H and DIE_TPU_INT8_BWD
 at trace time; the port takes the same three settings from `conv_mode(...)`
 (a context manager) or `set_conv_mode(...)`, and reads no environment
 variable. An int8 conv's backward uses the `int8_bwd` of its forward.
-`CALL_COUNTS` counts the dispatches by path (the counterpart of JAX's
-`TRACE_COUNTS`). The fused GroupNorm+SiLU -> conv path (`ops.fused_conv`,
-K7) does not come through here, as JAX's `Conv3x3(prologue=)` bypasses
-`conv3x3`.
+`CALL_COUNTS` reads the dispatches by path, the tracer's counters
+`ops.conv3x3.<path>` (the counterpart of JAX's `TRACE_COUNTS`); each call
+runs in the span `ops.conv3x3`. The fused GroupNorm+SiLU -> conv path
+(`ops.fused_conv`, K7) does not come through here, as JAX's
+`Conv3x3(prologue=)` bypasses `conv3x3`.
 
 Under a spatial split (`ops.split`) every mode takes the rank's rows with
 one row of each neighbour (`halo_rows`: zeros at the image's edges, and
@@ -45,12 +46,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.logging import COUNTERS, CounterView, span
 from .split import all_reduce_max, current, halo_rows, tensor_ranks
 
 MODES = ("xla", "shift9", "int8", "int8_large")
 INT8_MIN_H_DEFAULT = 128
 
-CALL_COUNTS = {"xla": 0, "shift9": 0, "int8": 0}
+CALL_COUNTS = CounterView("ops.conv3x3.", ("xla", "shift9", "int8"))
 _SETTINGS = {"mode": "xla", "min_h": INT8_MIN_H_DEFAULT, "int8_bwd": False}
 
 
@@ -206,16 +208,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
         path = "int8"
     else:
         path = "shift9" if mode == "shift9" else "xla"
-    CALL_COUNTS[path] += 1
-    if split is not None:
-        x = halo_rows(x, split)
-    if path == "xla":
-        return conv3x3_xla(x, w, bias) if split is None else F.conv2d(x, w, bias, padding=(0, 1))
-    if path == "int8":
-        y = _Int8Conv3x3.apply(x, w, _SETTINGS["int8_bwd"], split, tensor_ranks())
-    else:
-        y = conv3x3_shift9(x, w, rows_padded=split is not None)
-    return y if bias is None else y + bias.to(y.dtype)[:, None, None]
+    COUNTERS["ops.conv3x3." + path] += 1
+    with span("ops.conv3x3", x):
+        if split is not None:
+            x = halo_rows(x, split)
+        if path == "xla":
+            return (conv3x3_xla(x, w, bias) if split is None
+                    else F.conv2d(x, w, bias, padding=(0, 1)))
+        if path == "int8":
+            y = _Int8Conv3x3.apply(x, w, _SETTINGS["int8_bwd"], split, tensor_ranks())
+        else:
+            y = conv3x3_shift9(x, w, rows_padded=split is not None)
+        return y if bias is None else y + bias.to(y.dtype)[:, None, None]
 
 
 class Conv3x3(nn.Conv2d):

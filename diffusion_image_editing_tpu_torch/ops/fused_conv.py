@@ -64,6 +64,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import COUNTERS
 from . import _build
 from .split import all_reduce_sum, combine_moments, current, halo_rows
 
@@ -327,13 +328,8 @@ def affine_silu_conv3x3_kernel(x, a, b, w, bias, halo=None) -> torch.Tensor:
                   y.data_ptr(), None if partial is None else partial.data_ptr(),
                   0 if partial is None else partial.numel(), splits, tile_cout(cout), n, cin,
                   packed.shape[1] * CHUNK_CIN, cout, h, wd, flags)
-    affine_silu_conv3x3_kernel.launches += 1
+    COUNTERS["ops.launches.affine_silu_conv3x3"] += 1
     return y
-
-
-affine_silu_conv3x3_kernel.launches = 0
-affine_silu_conv3x3_kernel.kernel_name = "affine_silu_conv3x3"
-KERNEL_WRAPPERS = (affine_silu_conv3x3_kernel,)
 
 
 def _weight_grad(act: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding) -> torch.Tensor:

@@ -45,7 +45,7 @@ package's is XLA ops (`_group_norm_bwd`): from x and the forward's saved f32
 mean and rstd, the pre-activation is rebuilt elementwise for the
 activation's derivative, and the normalisation's backward runs without a
 second statistics pass over x. Each kernel wrapper counts its launches in
-`.launches`.
+the tracer's counter `ops.launches.<kernel>`.
 
 Under a spatial split (`ops.split`: each rank holds some rows of
 every map) K4's one pass cannot span the ranks: K5 takes each rank's
@@ -64,6 +64,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import COUNTERS, span
 from . import _build
 from .split import all_reduce_sum, combine_moments, current
 
@@ -312,7 +313,7 @@ def group_norm_fused(x, scale, bias, num_groups: int, eps: float, act: Optional[
                   scale.data_ptr(), bias.data_ptr(), affine_f32, out.data_ptr(), mean.data_ptr(),
                   rstd.data_ptr(), n, c, hw, num_groups, fused_cluster_blocks(x.shape, num_groups),
                   float(eps), ACTS.index(act))
-    group_norm_fused.launches += 1
+    COUNTERS["ops.launches.group_norm_fused"] += 1
     return out, mean, rstd
 
 
@@ -325,7 +326,7 @@ def group_norm_stats(x, num_groups: int, eps: float = 1e-6, m2: bool = False):
     _build.launch("group_norm_stats", _ARGTYPES["group_norm_stats"], x.device, x.data_ptr(),
                   mean.data_ptr(), second.data_ptr(), n, c, hw, num_groups,
                   stats_cluster_blocks(x.shape, num_groups), float(eps), int(m2))
-    group_norm_stats.launches += 1
+    COUNTERS["ops.launches.group_norm_stats"] += 1
     return mean, second
 
 
@@ -340,14 +341,8 @@ def group_norm_apply(x, mean, rstd, scale, bias, act: Optional[str]):
     _build.launch("group_norm_apply", _ARGTYPES["group_norm_apply"], x.device, x.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                   affine_f32, out.data_ptr(), n, c, hw, num_groups, ACTS.index(act))
-    group_norm_apply.launches += 1
+    COUNTERS["ops.launches.group_norm_apply"] += 1
     return out
-
-
-KERNEL_WRAPPERS = (group_norm_fused, group_norm_stats, group_norm_apply)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
-    _w.kernel_name = _w.__name__
 
 
 def group_norm_kernels(x, scale, bias, num_groups: int, eps: float, act: Optional[str]):
@@ -446,4 +441,5 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     None), `group_norm_reference` semantics. CUDA tensors run K4 or K5 + K6
     (bf16 only; anything else raises), CPU tensors the plain version."""
     _check_act(act)
-    return _GroupNorm.apply(x.contiguous(), scale, bias, int(num_groups), float(eps), act)
+    with span("ops.group_norm", x):
+        return _GroupNorm.apply(x.contiguous(), scale, bias, int(num_groups), float(eps), act)

@@ -17,6 +17,7 @@ from ..engine import invert as I
 from ..engine.edit import edit
 from ..guidance.attr_functions import AttrFunc
 from ..utils.constants import ATTRS
+from ..utils.logging import span
 from .masks import MaskCreator, apply_mask
 from .wrappers import DDPM, LDM, SD, DiffusionWrapper
 
@@ -147,7 +148,9 @@ class EditPipeline:
         ignores `t_skip`, as the JAX package's scan does). The DDPM forward
         trajectory's noise is `noise` (S, B, C, H, W) or drawn from
         `generator`. `t_skip`: the edit will skip its first t_skip steps,
-        so "split" and "batched" extract z only for the suffix it reads."""
+        so "split" and "batched" extract z only for the suffix it reads.
+        Segmentation, encode and inversion run in the tracer's span
+        `engine.invert`."""
         if mode is None:
             mode = "batched" if inversion_method == "ddpm" else "split"
         if inversion_method == "ddim" and eta > 0:
@@ -158,23 +161,25 @@ class EditPipeline:
         if mode not in modes:
             raise ValueError(f"Unknown mode {mode!r} for {inversion_method}; choose from {modes}")
         w = self.diffusion_wrapper
-        latent, mask, parsing = self.prepare_for_edit(img, classes, dilate_mask)
-        if isinstance(w, (DDPM, LDM)) and w.schedule.clip_sample:
-            raise ValueError("real-image edit requires clip_sample=False")
-        sched = w.schedule
-        eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
-        if inversion_method == "ddim":
-            xt = I.ddim_invert(sched, eps_fn, latent, refine_iters=refine_iters)
-            zs = xts = None
-        else:
-            start = _clamp_t_skip(t_skip, sched.num_inference_steps)
-            if mode == "batched":
-                res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta, generator=generator,
-                                            noise=noise, chunk=chunk, start=start)
+        with span("engine.invert"):
+            latent, mask, parsing = self.prepare_for_edit(img, classes, dilate_mask)
+            if isinstance(w, (DDPM, LDM)) and w.schedule.clip_sample:
+                raise ValueError("real-image edit requires clip_sample=False")
+            sched = w.schedule
+            eps_fn = w.eps_fn(w.prep_text(prompt_ids), cfg_scale)
+            if inversion_method == "ddim":
+                xt = I.ddim_invert(sched, eps_fn, latent, refine_iters=refine_iters)
+                zs = xts = None
             else:
-                res = I.ddpm_invert(sched, eps_fn, latent, eta=eta, generator=generator,
-                                    noise=noise, start=start if mode == "split" else 0)
-            xt, zs, xts = res.xt, res.zs, res.xts
+                start = _clamp_t_skip(t_skip, sched.num_inference_steps)
+                if mode == "batched":
+                    res = I.ddpm_invert_batched(sched, eps_fn, latent, eta=eta,
+                                                generator=generator, noise=noise, chunk=chunk,
+                                                start=start)
+                else:
+                    res = I.ddpm_invert(sched, eps_fn, latent, eta=eta, generator=generator,
+                                        noise=noise, start=start if mode == "split" else 0)
+                xt, zs, xts = res.xt, res.zs, res.xts
         if isinstance(w, SD) and mask is not None:
             mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
         return xt, zs, xts, mask, parsing

@@ -18,6 +18,7 @@ from ..core.schedule import Schedule
 from ..engine import denoise as D
 from ..engine.denoise import (CfgEpsClosure, CfgEpsFeatClosure, DecodeClosure, EncodeClosure,
                               EpsClosure, EpsFeatClosure)
+from ..utils.logging import span
 
 
 class DiffusionWrapper:
@@ -108,10 +109,11 @@ class DiffusionWrapper:
         return self._decode_proxy
 
     def encode(self, sample: torch.Tensor) -> torch.Tensor:
-        return self._encode(sample.to(self.device))
+        with span("models.encode"):
+            return self._encode(sample.to(self.device))
 
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
+        with span("models.decode"), torch.no_grad():
             return self._decode(latent)
 
     # ---- text ------------------------------------------------------------

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from diffusion_image_editing_tpu.ops import abn as J
+import diffusion_image_editing_tpu_torch.ops as OPS
 from diffusion_image_editing_tpu_torch.ops import abn as T
 
 PALLAS_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -172,9 +173,9 @@ def test_invert_activation(activation):
 
 def test_cpu_uses_the_plain_version_and_counts_no_launch():
     x, w, b, _ = _inputs(8, (1, 2, 2, 8))
-    before = T.abn_apply.launches
+    before = OPS.launch_counts()["abn_apply"]
     T.fused_abn(_nchw(x), torch.tensor(w), torch.tensor(b))
-    assert T.abn_apply.launches == before
+    assert OPS.launch_counts()["abn_apply"] == before
     with pytest.raises(ValueError, match="CUDA"):
         T.abn_apply(_nchw(x), *(torch.zeros(8) for _ in range(4)))
 

@@ -1,9 +1,9 @@
 """The port's `utils/config.py`, `utils/logging.py` and `utils/debug.py`
 against the JAX package's: every config dataclass serialises to the JAX
 package's JSON, text for text, and back; the logger writes its file and
-demotes other ranks; the profiler trace is written; the step timer counts
-and, on a CUDA device, waits for it; the finite checks raise where the
-JAX package's do."""
+demotes other ranks; the profiler trace is written (the tracer's own
+tests are `test_torch_tracing.py`); the finite checks raise where the JAX
+package's do."""
 
 import dataclasses
 import json
@@ -59,22 +59,6 @@ def test_profile_trace(tmp_path):
         torch.ones(8).sum()
     assert prof is not None
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-
-
-def test_step_timer(monkeypatch):
-    syncs = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: syncs.append(device))
-    for device, n_sync in ((None, 0), ("cpu", 0), ("cuda:0", 4)):
-        t, ref = TLog.StepTimer(device), JLog.StepTimer()
-        for timer in (t, ref):
-            for _ in range(2):
-                with timer.phase("a"):
-                    pass
-        s = t.summary()
-        assert s.keys() == ref.summary().keys() and s["a"]["count"] == 2
-        assert s["a"]["mean_s"] == pytest.approx(s["a"]["total_s"] / 2)
-        assert len(syncs) == n_sync
-        syncs.clear()
 
 
 def test_assert_finite_and_checkify_nans():
