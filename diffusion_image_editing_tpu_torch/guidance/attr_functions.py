@@ -14,11 +14,19 @@ makes them. `apply_batched` then gives each sample its own value, in its
 loss and in its `t1 <= step_idx < t2` window; `apply` takes scalars only.
 Swept values are read on the host, so keep them on the CPU.
 
+In `apply_batched` each sample's loss is normalised over its own image, as
+the reference edits images one by one. Where no leaf is swept, a chunk's
+losses take one call on its n images (`sample_losses`: the built-in losses
+have a row form, `loss_rows`, so the classifier runs once at batch n);
+with swept leaves, one call a sample at its own values.
+
 Tracing: a nudge (`apply`, or `apply_batched` over its chunks) runs in the
-span `guidance.nudge`; inside it, the decode in `guidance.decode`, each
-loss in `guidance.loss` (once a sample in per-sample mode) and the gradient in
-`guidance.vjp`, whose backward, on autograd's thread, holds the decoder's
-backward kernels.
+span `guidance.nudge`; inside it, the decode in `guidance.decode`, the loss
+in `guidance.loss` (once a chunk, or with swept leaves once a sample) and
+the gradient in `guidance.vjp`, whose backward, on autograd's thread, holds
+the decoder's backward kernels. The counters `guidance.loss_samples.batched`
+and `guidance.loss_samples.looped` count the samples whose loss took one
+call for the chunk and one call of their own.
 """
 
 from __future__ import annotations
@@ -31,26 +39,30 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import schedule as S
-from ..utils.logging import span
+from ..utils.logging import COUNTERS, span
 
 DecodeFn = Callable[[torch.Tensor], torch.Tensor]  # latent -> image, differentiable
 SWEEPABLE = ("loss_scale", "t1", "t2", "lambda_")  # leaves that may hold one value a sample
 
 
-def l2_norm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """sqrt of the summed squared error."""
-    return torch.sqrt(torch.sum((x - y) ** 2))
+def l2_norm(x: torch.Tensor, y: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """sqrt of the summed squared error; with `rows`, each row's, (B,)."""
+    err = (x - y) ** 2
+    return torch.sqrt(err.flatten(1).sum(1) if rows else torch.sum(err))
 
 
-def single_color_loss(images: torch.Tensor, idx: int, target) -> torch.Tensor:
-    """Mean absolute error of channel `idx` against `target`, in f32."""
-    return torch.mean(torch.abs(images[:, idx].float() - target))
+def single_color_loss(images: torch.Tensor, idx: int, target,
+                      rows: bool = False) -> torch.Tensor:
+    """Mean absolute error of channel `idx` against `target`, in f32; with
+    `rows`, each image's over its own pixels, (B,)."""
+    err = torch.abs(images[:, idx].float() - target)
+    return err.mean(dim=(1, 2)) if rows else torch.mean(err)
 
 
-def color_loss(images: torch.Tensor, r, g, b) -> torch.Tensor:
-    """Target-weighted per-channel MAE."""
-    return (single_color_loss(images, 0, r) * r + single_color_loss(images, 1, g) * g
-            + single_color_loss(images, 2, b) * b)
+def color_loss(images: torch.Tensor, r, g, b, rows: bool = False) -> torch.Tensor:
+    """Target-weighted per-channel MAE; with `rows`, each image's, (B,)."""
+    return (single_color_loss(images, 0, r, rows) * r + single_color_loss(images, 1, g, rows) * g
+            + single_color_loss(images, 2, b, rows) * b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,12 +97,22 @@ class AttrFunc:
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _metric(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def loss_rows(self, decoded: torch.Tensor) -> torch.Tensor:
+        """Each image's own `loss`, (B,), for a loss with a row form (each
+        row a function of its own image alone). The base class has none:
+        `sample_losses` then calls `calculate_loss` once a sample."""
+        raise NotImplementedError
+
+    def _metric(self, a: torch.Tensor, b: torch.Tensor, rows: bool = False) -> torch.Tensor:
+        """The background distance of `a` from `b`; with `rows`, each row's
+        from its row (or the shared one) of `b`, (B,)."""
         if self.metric == "l2":
-            return l2_norm(a, b)
+            return l2_norm(a, b, rows)
         if self.metric == "lpips" and self.metric_fn is None:
             raise ValueError("lpips metric requires metric_fn")
         if self.metric_fn is not None:
+            if rows:
+                return self.metric_fn(a, b.expand_as(a)).reshape(a.shape[0], -1).sum(1)
             return torch.sum(self.metric_fn(a, b))
         raise ValueError("No metric specified")
 
@@ -103,6 +125,26 @@ class AttrFunc:
             bg = 1.0 - mask
             return self.loss(mask * decoded) + self.lambda_ * self._metric(bg * decoded, bg * x0)
         return self.loss(decoded)
+
+    def sample_losses(self, decoded: torch.Tensor, mask: Optional[torch.Tensor],
+                      x0: Optional[torch.Tensor]) -> torch.Tensor:
+        """Each of the n images' own `calculate_loss` (with its own rows of
+        `mask` and `x0` where they have one a sample), (n,): in one call of
+        `loss_rows` where the loss has a row form, else one
+        `calculate_loss` a sample."""
+        n = decoded.shape[0]
+        if type(self).loss_rows is AttrFunc.loss_rows:
+            return torch.stack([self.calculate_loss(decoded[i:i + 1],
+                                                    _rows(mask, slice(i, i + 1), n),
+                                                    _rows(x0, slice(i, i + 1), n))
+                                for i in range(n)])
+        if not self.mask_pred_original_sample:
+            return self.loss_rows(decoded)
+        if mask is None or x0 is None:
+            raise ValueError("mask_pred_original_sample requires mask and x0")
+        bg = 1.0 - mask
+        return (self.loss_rows(mask * decoded)
+                + self.lambda_ * self._metric(bg * decoded, bg * x0, rows=True))
 
     def in_window(self, step_idx: int) -> bool:
         inside = self.t1 <= step_idx < self.t2
@@ -177,14 +219,19 @@ class AttrFunc:
                     decoded = checkpoint(decode_fn, px0, use_reentrant=False)
                 else:
                     decoded = decode_fn(px0)
-            if per_sample:
-                # Each sample's loss times its scale: the gradient reaching
-                # each loss is its scale, as for (sum of losses) * scale.
+            if not per_sample:
+                loss = _traced_loss(self, decoded, m, x0) * self.loss_scale
+            elif funcs[0] is self:  # no leaf swept: one scale and window for the chunk
+                with span("guidance.loss"):
+                    loss = self.loss_scale * self.sample_losses(decoded, m, x0).sum()
+                COUNTERS["guidance.loss_samples.batched"] += n
+            else:
+                # Each sample's loss times its own scale, one call a sample: a
+                # vector of the scales would be a host-to-device copy a step.
                 loss = sum(_traced_loss(f, decoded[i:i + 1], _rows(m, slice(i, i + 1), n),
                                         _rows(x0, slice(i, i + 1), n)) * f.loss_scale
                            for i, f in enumerate(funcs) if inside[i])
-            else:
-                loss = _traced_loss(self, decoded, m, x0) * self.loss_scale
+                COUNTERS["guidance.loss_samples.looped"] += sum(inside)
             with span("guidance.vjp"):
                 (grad,) = torch.autograd.grad(loss, x)
         attr_grad = -grad
@@ -269,6 +316,9 @@ class SingleColorAttrFunc(AttrFunc):
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
         return single_color_loss(decoded, self.color_idx, self.target)
 
+    def loss_rows(self, decoded: torch.Tensor) -> torch.Tensor:
+        return single_color_loss(decoded, self.color_idx, self.target, rows=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class MultiColorAttrFunc(AttrFunc):
@@ -280,6 +330,9 @@ class MultiColorAttrFunc(AttrFunc):
 
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
         return color_loss(decoded, self.r_target, self.g_target, self.b_target)
+
+    def loss_rows(self, decoded: torch.Tensor) -> torch.Tensor:
+        return color_loss(decoded, self.r_target, self.g_target, self.b_target, rows=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,12 +352,16 @@ class NetAttrFunc(AttrFunc):
     idx_for_class: Tuple[int, ...] = (17,)
 
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
+        return self.loss_rows(decoded).sum()
+
+    def loss_rows(self, decoded: torch.Tensor) -> torch.Tensor:
+        """Each image's mass of the classes, (B,)."""
         if self.seg_apply_fn is None:
             raise ValueError("NetAttrFunc needs seg_apply_fn, a callable from an NCHW image "
                              "to NCHW segmentation logits")
         probs = torch.softmax(self.seg_apply_fn(decoded).float(), dim=1)
         class_mass = probs.mean(dim=(2, 3))  # (B, n_classes)
-        return class_mass[:, list(self.idx_for_class)].sum()
+        return class_mass[:, list(self.idx_for_class)].sum(1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,15 +387,19 @@ class ClassifierAttrFunc(AttrFunc):
     regularize_score: Optional[Tuple[float, float]] = None
 
     def loss(self, decoded: torch.Tensor) -> torch.Tensor:
+        return self.loss_rows(decoded).sum()
+
+    def loss_rows(self, decoded: torch.Tensor) -> torch.Tensor:
+        """Each image's logit and regulariser term, (B,)."""
         if self.clf_apply_fn is None:
             raise ValueError("ClassifierAttrFunc needs clf_apply_fn, a callable from an NCHW "
                              "image to (B, 80) attribute logits")
         logits = self.clf_apply_fn(decoded).float().reshape(-1, 40, 2)
-        value = logits[:, self.idx_for_class, self.idx_of_interest].sum()
+        value = logits[:, self.idx_for_class, self.idx_of_interest]
         if self.regularize_idx is not None:
             other = logits[:, self.regularize_idx, self.regularize_pred_idx]
             score = self.regularize_score[self.regularize_pred_idx]
-            value = value + ((other + score) ** 2).sum()
+            value = value + (other + score) ** 2
         return value
 
 

@@ -5,9 +5,11 @@ around a region, and spans and counters at the program's layer boundaries.
 
 Counters (`COUNTERS`, one registry by name) are plain integer adds, counted
 always: the kernel wrappers' launches (`ops.launches.<kernel>`), the conv
-dispatches by path (`ops.conv3x3.<path>`), `engine.steps`, and the
-nanoseconds `ops._build.build` spent hashing the kernels' sources
-(`ops.build_ns`) and compiling them (`ops.compile_ns`).
+dispatches by path (`ops.conv3x3.<path>`), `engine.steps`, the samples
+whose guidance loss took one call for their chunk or one of their own
+(`guidance.loss_samples.batched`, `.looped`), and the nanoseconds
+`ops._build.build` spent hashing the kernels' sources (`ops.build_ns`) and
+compiling them (`ops.compile_ns`).
 
 Spans are off by default: `span(...)` then checks one module-level flag and
 returns a shared do-nothing context manager; it reads no clock, opens no

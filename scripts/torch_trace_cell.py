@@ -27,6 +27,9 @@ The last line of standard output is run.py's result object; with `--spans
 - `nudge_ms`, `loss_ms`, `vjp_ms`, `unet_ms`: device ms a profiled engine
   step launched in `die.guidance.nudge`, `die.guidance.loss`,
   `die.guidance.vjp` (any thread) and `die.models.unet`;
+- `loss_batched_share`: of the samples whose guidance loss the profiled
+  calls took per sample, the share that took one call for their chunk
+  (the counters `guidance.loss_samples.batched` and `.looped`);
 - `attn_bwd_roofline`: the flash backward's bound (`flash_bwd_work`) over
   the device time launched in `die.ops.attention.bwd`, in %;
 - `agree`: device ms of each span and of the benchmark's range around
@@ -119,6 +122,9 @@ def read_spans(spans: List[dict], window_calls: int, window_counts: Dict[str, in
            "compile_s": (counts.get("ops.compile_ns", 0) / 1e9 if "ops.build_ns" in counts
                          else None)}
     out["host_syncs_per_step"] = _per_step(traced_counts, "host_syncs")
+    batched, looped = (traced_counts.get("guidance.loss_samples." + k, 0)
+                       for k in ("batched", "looped"))
+    out["loss_batched_share"] = batched / (batched + looped) if batched + looped else None
     out["window_host_syncs_per_step"] = _per_step(window_counts, "host_syncs")
     out["sync_sites"] = {k[len("host_syncs."):]: v / traced_steps
                          for k, v in sorted(traced_counts.items())

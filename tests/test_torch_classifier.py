@@ -106,10 +106,14 @@ def test_classifier_loss_matches_jax(clf_pair, kw):
     assert abs(float(got) - float(want)) <= EVAL_TOL * max(1.0, abs(float(want)))
 
 
-@pytest.mark.parametrize("kw", [GUIDE, REGULARIZED], ids=["plain", "regularized"])
-def test_classifier_nudge_at_batch_2_matches_jax(clf_pair, kw):
+@pytest.mark.parametrize("kw,chunk", [(GUIDE, 1), (REGULARIZED, 1), (GUIDE, 2),
+                                      (REGULARIZED, 2)],
+                         ids=["plain", "regularized", "plain-chunk2", "regularized-chunk2"])
+def test_classifier_nudge_at_batch_2_matches_jax(clf_pair, kw, chunk):
     """`apply_batched` through the identity codec (DDPM's pixel space), one
-    image at a time: each image's logit gets its own gradient."""
+    image at a time or (`vjp_chunk` 2) both in one classifier call, against
+    `jax.lax.map` over the same chunks: each image's logit gets its own
+    gradient."""
     j_fn, t_fn = clf_fns(clf_pair)
     js = j_schedule("ddpm", 4, clip_sample=False)
     ts = schedule_for_model("ddpm", 4, clip_sample=False)
@@ -117,10 +121,11 @@ def test_classifier_nudge_at_batch_2_matches_jax(clf_pair, kw):
     x, eps = (rng.standard_normal((2, SIZE, SIZE, 3)).astype(np.float32) for _ in range(2))
     idx = 1
     t = int(js.timesteps[idx])
-    jx, _ = JClassifierAttrFunc(clf_params=clf_pair[1], clf_apply_fn=j_fn, **kw).apply_batched(
+    jx, _ = JClassifierAttrFunc(clf_params=clf_pair[1], clf_apply_fn=j_fn, vjp_chunk=chunk,
+                                **kw).apply_batched(
         jnp.asarray(x), None, jnp.asarray(eps), jnp.int32(t), jnp.int32(idx), js,
         JDecodeClosure())
-    tx, _ = ClassifierAttrFunc(clf_apply_fn=t_fn, **kw).apply_batched(
+    tx, _ = ClassifierAttrFunc(clf_apply_fn=t_fn, vjp_chunk=chunk, **kw).apply_batched(
         torch.from_numpy(nchw(x)), None, torch.from_numpy(nchw(eps)), t, idx, ts,
         DecodeClosure())
     np.testing.assert_allclose(tx.numpy(), nchw(jx), **NUDGE)

@@ -346,13 +346,17 @@ def test_a_traced_edit_has_a_span_at_every_layer_boundary(monkeypatch):
 
 
 def test_a_batch_s_nudge_is_one_span_with_a_loss_a_sample():
+    """A chunk of 2 takes its losses in one `guidance.loss` span; with a
+    swept `loss_scale`, in one a sample."""
     pipe = _tiny_pipe()
     xt = torch.randn(2, 4, 16, 16, generator=torch.Generator().manual_seed(2))
-    with L.tracing() as spans:
-        pipe.edit_image(xt, attr_func=SingleColorAttrFunc(t2=STEPS, vjp_chunk=2), collect=False)
-    by, by_id = _by_name(spans), {s["id"]: s for s in spans}
-    assert len(by["guidance.nudge"]) == STEPS and len(by["guidance.loss"]) == 2 * STEPS
-    assert {_ancestors(s, by_id)[0] for s in by["guidance.loss"]} == {"guidance.nudge"}
+    for scale, losses in ((1.0, STEPS), (torch.tensor([1.0, 2.0]), 2 * STEPS)):
+        attr = SingleColorAttrFunc(t2=STEPS, vjp_chunk=2, loss_scale=scale)
+        with L.tracing() as spans:
+            pipe.edit_image(xt, attr_func=attr, collect=False)
+        by, by_id = _by_name(spans), {s["id"]: s for s in spans}
+        assert len(by["guidance.nudge"]) == STEPS and len(by["guidance.loss"]) == losses
+        assert {_ancestors(s, by_id)[0] for s in by["guidance.loss"]} == {"guidance.nudge"}
 
 
 def test_a_generation_pass_counts_its_steps():
@@ -444,7 +448,8 @@ def test_span_readings_divide_by_the_steps_and_read_the_device_time():
                     "die.ops.attention.bwd": 0.001},
                    [["die.guidance.loss", 0.003], ["bench.nudge", 0.001]])
     counts = {"engine.steps": 2, "host_syncs": 12, "host_syncs.core/schedule.py:145": 8,
-              "host_syncs.engine/denoise.py:56": 4}
+              "host_syncs.engine/denoise.py:56": 4, "guidance.loss_samples.batched": 12,
+              "guidance.loss_samples.looped": 4}
     out = S.read_spans(window + traced, 2, {"engine.steps": 20, "host_syncs": 100}, counts,
                        {"ops.build_ns": 30_000_000, "ops.compile_ns": 3_000_000_000},
                        trace, _bound_s)
@@ -453,6 +458,7 @@ def test_span_readings_divide_by_the_steps_and_read_the_device_time():
     assert out["spans_per_step"] == 1.0
     assert out["build_s"] == 0.03 and out["compile_s"] == 3.0
     assert out["host_syncs_per_step"] == 6.0 and out["window_host_syncs_per_step"] == 5.0
+    assert out["loss_batched_share"] == 0.75
     assert out["sync_sites"] == {"core/schedule.py:145": 4.0, "engine/denoise.py:56": 2.0}
     assert out["step_host_syncs_per_step"] == 3.5  # the encode's syncs lie outside the steps
     assert out["loss_ms"] == pytest.approx(2.0 / 2) and out["vjp_ms"] == pytest.approx(3.0 / 2)
@@ -471,7 +477,7 @@ def test_span_readings_are_none_without_a_tracer():
     assert all(out[k] is None for k in ("step_p95_ms", "step_mean_ms", "spans_per_step",
                                         "build_s", "compile_s", "host_syncs_per_step",
                                         "window_host_syncs_per_step",
-                                        "step_host_syncs_per_step"))
+                                        "step_host_syncs_per_step", "loss_batched_share"))
     assert S.read_spans([], 3, {}, {}, {"ops.build_ns": 5})["compile_s"] == 0.0
 
 
