@@ -1,10 +1,13 @@
 """Finds a cell's pieces by name: its entry in `BENCHMARK.json`, its
 workload file (`benchmark/workloads/<cell>.json`: the traffic's kind and
 parameters and the limits of its correctness check), its configuration
-(`benchmark/configs/<config>.json`), the traffic's module
+(`benchmark/configs/<config>.json`), the module of the configuration's
+model family (`benchmark/families/<family>.py`: the program's and the
+reference's models, see `models.py`), the traffic's module
 (`benchmark/traffic/<kind>.py`) and a reader for each metric
 (`benchmark/metrics/<name before the first dot>.py`, a `read(ctx)` that
-returns a number, or None where the run has nothing to read)."""
+returns a number, or None where the run has nothing to read). Adding any of
+them adds files and edits none."""
 
 from __future__ import annotations
 
@@ -60,8 +63,22 @@ def load_cell(name: str, spec: dict = None) -> Cell:
     e2e = [m for m in spec["end_to_end"] if reports(m, name, [])]
     names = [m["name"] for m in e2e]
     per_layer = [m for m in spec["per_layer"] if reports(m, name, names)]
-    return Cell(name, entry["chips"], workload, load_json("configs", entry["config"]), e2e,
-                per_layer)
+    config = load_json("configs", entry["config"])
+    family(config["family"])
+    return Cell(name, entry["chips"], workload, config, e2e, per_layer)
+
+
+def family(name: str):
+    """The module of model family `name`; a family with no module fails
+    here, naming the file looked for."""
+    module = f"benchmark.families.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as err:
+        if err.name != module:
+            raise
+        raise ValueError(f"model family {name!r} has no module: "
+                         f"{BENCH / 'families' / (name + '.py')} not found") from None
 
 
 def traffic(kind: str):

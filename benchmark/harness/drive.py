@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import cell as C
 from .flops import count_flops
 from .models import reference_modules
 from .weights import mix_seed
@@ -18,8 +19,10 @@ def latent_shape(cfg: dict, batch: int) -> tuple:
     return (batch, u["in_channels"], u["sample_size"], u["sample_size"])
 
 
-def image_size(cfg: dict) -> int:
-    return cfg["vae" if cfg["family"] == "sd" else "vqvae"]["sample_size"]
+def image_shape(cfg: dict, batch: int) -> tuple:
+    """The shape of `batch` RGB images of the configuration's family."""
+    size = C.family(cfg["family"]).image_size(cfg)
+    return (batch, 3, size, size)
 
 
 def check_sample(seed: int, tag: str, n: int, k: int) -> list:
@@ -140,20 +143,10 @@ def piece_flops(cfg: dict) -> dict:
     `decode`, `decode_vjp` (decode and the gradient to its input) and, with a
     classifier, `clf_vjp` (its forward and the gradient to the image)."""
     ref = reference_modules(cfg, "meta")
-    for m in (ref.unet, ref.codec, ref.classifier):
-        if m is not None:
-            m.eval().requires_grad_(False)
+    for m in ref.modules():
+        m.eval().requires_grad_(False)
     meta = torch.device("meta")
-    if ref.family == "sd":
-        u, v = cfg["unet"], cfg["vae"]
-        lat = (1, u["in_channels"], u["sample_size"], u["sample_size"])
-        ctx = torch.zeros((1,) + tuple(cfg["text_embedding"][1:]), device=meta)
-        unet = lambda: ref.unet(torch.zeros(lat, device=meta), torch.zeros(1, device=meta), ctx)  # noqa: E731
-    else:
-        u, v = cfg["unet"], cfg["vqvae"]
-        lat = (1, u["in_channels"], u["sample_size"], u["sample_size"])
-        unet = lambda: ref.unet(torch.zeros(lat, device=meta), torch.zeros(1, device=meta))  # noqa: E731
-    img = (1, v["in_channels"], v["sample_size"], v["sample_size"])
+    lat, img = latent_shape(cfg, 1), image_shape(cfg, 1)
 
     def vjp(fn, shape):
         def run():
@@ -162,7 +155,8 @@ def piece_flops(cfg: dict) -> dict:
             torch.autograd.grad(fn(x * 1.0).float().sum(), x)
         return run
 
-    out = {"unet": count_flops(unet),
+    out = {"unet": count_flops(lambda: ref.unet_once(torch.zeros(lat, device=meta),
+                                                     torch.zeros(1, device=meta))),
            "encode": count_flops(lambda: ref.encode(torch.zeros(img, device=meta))),
            "decode": count_flops(lambda: ref.decode(torch.zeros(lat, device=meta))),
            "decode_vjp": count_flops(vjp(ref.decode, lat))}

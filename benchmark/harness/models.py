@@ -3,36 +3,38 @@
 the dtype the configuration serves, and the float32 reference modules, each
 filled with the same seeded weights.
 
-Families: "sd" (UNet2DCondition + KL VAE, classifier-free guidance over a
-fixed [uncond; cond] text embedding made from the seed in place of the
-CLIP text encoder) and "ldm" (UNet2D + VQ autoencoder, with an optional
-anyGAN ResNet-50 attribute classifier in float32).
+What differs by model family lives in the family's module,
+`benchmark/families/<family>.py`, found by the configuration's "family"
+(`cell.family`). A family module provides:
+- `ROWS`: the denoiser's rows a sample a step (2 for a classifier-free
+  guidance pair, 1 otherwise);
+- `image_size(cfg)`: the side of the edited images, in pixels;
+- `build_program(cfg, seed, device, steps) -> Program`: the port's wrapper
+  (its schedule preset, its fixed conditioning), the classifier if any,
+  weights drawn from the seed;
+- `reference_modules(cfg, device)`: a `Reference` subclass with its modules
+  not yet filled (the meta device gives shapes only, for counting FLOPs);
+- `tiny() -> dict`: the configuration's sizes at the port's TINY widths,
+  for the CPU tests.
+So a new family is new files only: the family module, its reference
+models, a configuration and a workload.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
-from ..reference import configs as RC
-from ..reference import models as RM
-from ..reference import resnet as RR
-from .weights import fill_seeded, mix_seed, program_module
+from . import cell as C
+from .weights import fill_seeded
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def serve_dtype(cfg: dict) -> torch.dtype:
     return DTYPES[cfg["dtype"]]
-
-
-def text_embedding(cfg: dict, seed: int, device) -> torch.Tensor:
-    """The fixed [uncond; cond] embedding, (2, L, D), in the served dtype."""
-    gen = torch.Generator(device=device).manual_seed(mix_seed(seed, "text_embedding"))
-    return torch.randn(tuple(cfg["text_embedding"]), generator=gen, device=device,
-                       dtype=serve_dtype(cfg))
 
 
 @dataclasses.dataclass
@@ -45,89 +47,56 @@ class Program:
 def build_program(cfg: dict, seed: int, device, steps: int) -> Program:
     """The port's wrapper for `cfg` at `steps` inference steps, weights from
     `seed`."""
-    from diffusion_image_editing_tpu_torch import models as M
-    from diffusion_image_editing_tpu_torch.core import schedule_for_model
-    from diffusion_image_editing_tpu_torch.pipeline import LDM, SD
-
-    dt = serve_dtype(cfg)
-    fam = cfg["family"]
-    sched = schedule_for_model(fam, steps, clip_sample=False)
-    if fam == "sd":
-        ucfg = M.UNet2DConditionConfig(**_tuples(cfg["unet"]))
-        vcfg = M.AutoencoderConfig(**_tuples(cfg["vae"]))
-        unet = program_module(lambda d: M.UNet2DCondition(ucfg, device=d, dtype=dt), device)
-        vae = program_module(lambda d: M.AutoencoderKL(vcfg, device=d, dtype=dt), device)
-        fill_seeded(unet, seed, "unet", dt, device)
-        fill_seeded(vae, seed, "vae", dt, device)
-        fixed = text_embedding(cfg, seed, device)
-
-        class FixedTextSD(SD):
-            """SD whose every prompt is the fixed embedding."""
-
-            def prep_text(self, prompt_ids=None):
-                return fixed
-
-        return Program(FixedTextSD(unet, vae, sched, device=device))
-    if fam == "ldm":
-        ucfg = M.UNet2DConfig(**_tuples(cfg["unet"]))
-        vcfg = M.AutoencoderConfig(**_tuples(cfg["vqvae"]))
-        unet = program_module(lambda d: M.UNet2D(ucfg, device=d, dtype=dt), device)
-        vq = program_module(lambda d: M.VQModel(vcfg, device=d, dtype=dt), device)
-        fill_seeded(unet, seed, "unet", dt, device)
-        fill_seeded(vq, seed, "vqvae", dt, device)
-        prog = Program(LDM(unet, sched, vq, device=device))
-        if "classifier" in cfg:
-            from diffusion_image_editing_tpu_torch.ops.resize import (
-                imagenet_normalize, to_unit_range)
-
-            c = cfg["classifier"]
-            clf = program_module(lambda d: M.ResNet50(num_outputs=c["num_outputs"],
-                                                      width=c["width"], device=d), device)
-            fill_seeded(clf, seed, "classifier", torch.float32, device)
-            clf.eval().requires_grad_(False)
-            prog.classifier = clf
-            prog.clf_apply_fn = lambda img: clf(imagenet_normalize(to_unit_range(img.float())))
-        return prog
-    raise ValueError(f"unknown family {fam!r}")
+    return C.family(cfg["family"]).build_program(cfg, seed, device, steps)
 
 
 @dataclasses.dataclass
 class Reference:
-    family: str
+    """A family's float32 reference: the UNet, the codec (None for the
+    identity), its latent scale and an optional classifier. A family's
+    subclass adds its conditioning, implements `encode`, `eps_fn` and
+    `unet_once`, and names its codec's weight tag."""
+
     unet: torch.nn.Module
-    codec: torch.nn.Module
+    codec: Optional[torch.nn.Module]
     scale: float
     classifier: Optional[torch.nn.Module] = None
-    text: Optional[torch.Tensor] = None
-    cfg_scale: float = 3.5
+    codec_tag: ClassVar[str]  # the tag of the codec's seeded weights, as the program's
 
     def encode(self, img: torch.Tensor) -> torch.Tensor:
-        if self.family == "sd":
-            return self.codec.encode_mode(img) * self.scale
-        return self.codec.encode(img)
+        raise NotImplementedError
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.codec.decode(z / self.scale)
+
+    def eps_fn(self):
+        """The denoiser eps(x, t) with the family's conditioning."""
+        raise NotImplementedError
+
+    def unet_once(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """One UNet call at x (one sample) with its conditioning, no
+        guidance pair: the call whose FLOPs `drive.piece_flops` counts."""
+        raise NotImplementedError
+
+    def fill(self, cfg: dict, seed: int, device) -> None:
+        """Every tensor drawn from the seed under the program's tags: the
+        UNet and the codec in the served dtype's draw, the classifier in
+        float32's. A subclass with conditioning of its own draws it too."""
+        dt = serve_dtype(cfg)
+        fill_seeded(self.unet, seed, "unet", dt, device)
+        if self.codec is not None:
+            fill_seeded(self.codec, seed, self.codec_tag, dt, device)
+        if self.classifier is not None:
+            fill_seeded(self.classifier, seed, "classifier", torch.float32, device)
+
+    def modules(self) -> list:
+        return [m for m in (self.unet, self.codec, self.classifier) if m is not None]
 
 
 def reference_modules(cfg: dict, device) -> Reference:
     """The float32 reference modules of `cfg` on `device`, not yet filled
     (the meta device gives shapes only, for counting FLOPs)."""
-    fam = cfg["family"]
-    with torch.device(device):
-        if fam == "sd":
-            unet = RM.TorchUNet2DCondition(RC.UNet2DConditionConfig.from_dict(cfg["unet"]))
-            vcfg = RC.AutoencoderConfig.from_dict(cfg["vae"])
-            codec = RM.TorchAutoencoderKL(vcfg, attn_naming="modern")
-            return Reference(fam, unet, codec, vcfg.scaling_factor,
-                             cfg_scale=cfg.get("cfg_scale", 3.5))
-        unet = RM.TorchUNet2D(RC.UNet2DConfig.from_dict(cfg["unet"]), attn_naming="modern")
-        vcfg = RC.AutoencoderConfig.from_dict(cfg["vqvae"])
-        codec = RM.TorchVQModel(vcfg, attn_naming="modern")
-        clf = None
-        if "classifier" in cfg:
-            clf = RR.ResNet50(RC.ResNet50Config.from_dict(cfg["classifier"]))
-        return Reference(fam, unet, codec, vcfg.scaling_factor, classifier=clf)
+    return C.family(cfg["family"]).reference_modules(cfg, device)
 
 
 def build_reference(cfg: dict, seed: int, device) -> Reference:
@@ -137,19 +106,18 @@ def build_reference(cfg: dict, seed: int, device) -> Reference:
     for name in ("unet", "codec", "classifier"):
         if getattr(ref, name) is not None:
             setattr(ref, name, getattr(ref, name).to_empty(device=device))
-    dt = serve_dtype(cfg)
-    fill_seeded(ref.unet, seed, "unet", dt, device)
-    fill_seeded(ref.codec, seed, "vae" if ref.family == "sd" else "vqvae", dt, device)
-    mods = [ref.unet, ref.codec]
-    if ref.classifier is not None:
-        fill_seeded(ref.classifier, seed, "classifier", torch.float32, device)
-        mods.append(ref.classifier)
-    for m in mods:
+    ref.fill(cfg, seed, device)
+    for m in ref.modules():
         m.float().eval().requires_grad_(False)
-    if ref.family == "sd":
-        ref.text = text_embedding(cfg, seed, device).float()
     return ref
 
 
-def _tuples(d: dict) -> dict:
+def tuples(d: dict) -> dict:
     return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+
+def config_dict(cfg) -> dict:
+    """A port's configuration dataclass as a configuration file's dict."""
+    out = dataclasses.asdict(cfg)
+    out.pop("fused_conv", None)
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in out.items()}

@@ -5,31 +5,16 @@ its traffic cut to a few steps."""
 from __future__ import annotations
 
 import copy
-import dataclasses
 
 from benchmark.harness import cell as C
 
 TINY_STEPS = 4
 
 
-def _d(cfg) -> dict:
-    out = dataclasses.asdict(cfg)
-    out.pop("fused_conv", None)
-    return {k: list(v) if isinstance(v, tuple) else v for k, v in out.items()}
-
-
 def tiny_config(name: str) -> dict:
-    from diffusion_image_editing_tpu_torch import models as M
-
     cfg = copy.deepcopy(C.load_json("configs", name))
     cfg["dtype"] = "float32"
-    if cfg["family"] == "sd":
-        cfg.update(unet=_d(M.TINY_SD_UNET),
-                   vae=_d(dataclasses.replace(M.TINY_VAE, sample_size=16)),
-                   text_embedding=[2, 7, 32])
-    else:
-        cfg.update(unet=_d(M.TINY_UNET2D), vqvae=_d(M.TINY_VQVAE),
-                   classifier={"num_outputs": 80, "width": 8})
+    cfg.update(C.family(cfg["family"]).tiny())
     return cfg
 
 

@@ -35,6 +35,7 @@ def test_harness_loads_no_jax():
     code = ("import sys; sys.path.insert(0, '.'); import benchmark.run, benchmark.readings; "
             "from benchmark.harness import cell, drive, models, ranges, trace, window; "
             "import pathlib; [cell.traffic(p.stem) for p in pathlib.Path('benchmark/traffic')"
+            ".glob('*.py')]; [cell.family(p.stem) for p in pathlib.Path('benchmark/families')"
             ".glob('*.py')]; "
             "from benchmark.harness.guard import loaded_forbidden; print(loaded_forbidden())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -65,9 +65,10 @@ import time
 
 import torch
 
+from ..harness import cell as C
 from ..harness import compare
 from ..harness.drive import (DecodeRecorder, EpsRecorder, NudgeRecorder, Reservoir,
-                             check_sample, image_size, latent_shape, per_step, piece_flops,
+                             check_sample, image_shape, latent_shape, per_step, piece_flops,
                              request_generator, sync)
 from ..harness.models import build_reference
 from ..harness.ranges import ranged_attr, ranged_eps, wrapped_attr, wrapped_eps
@@ -105,7 +106,7 @@ class Traffic:
         p, cfg = self.p, ctx.cell.config
         self.guided = p["steps"] - (p.get("t_skip") or 0)
         self.latent = latent_shape(cfg, p["batch"])
-        self.size = image_size(cfg)
+        self.image = image_shape(cfg, p["batch"])
         self.reservoir = Reservoir(ctx.seed)
         if ctx.program is not None:
             from diffusion_image_editing_tpu_torch.guidance import (ClassifierAttrFunc,
@@ -129,7 +130,7 @@ class Traffic:
     def inputs(self, call: int):
         p, dev = self.p, self.ctx.device
         gen = request_generator(self.ctx.seed, call, dev)
-        img = torch.rand((p["batch"], 3, self.size, self.size), generator=gen, device=dev) * 2 - 1
+        img = torch.rand(self.image, generator=gen, device=dev) * 2 - 1
         noise = None
         if p["inversion"] == "ddpm":
             noise = torch.randn((p["steps"],) + self.latent, generator=gen, device=dev)
@@ -184,7 +185,7 @@ class Traffic:
     def flops_per_call(self) -> float:
         cfg, p = self.ctx.cell.config, self.p
         f = piece_flops(cfg)
-        pair = 2 if cfg["family"] == "sd" else 1
+        pair = C.family(cfg["family"]).ROWS
         inverted = self.guided if p["inversion"] == "ddpm" else p["steps"]
         per_step = pair * f["unet"] + f["decode_vjp"] + f.get("clf_vjp", 0.0)
         return p["batch"] * (f["encode"] + inverted * pair * f["unet"] + self.guided * per_step
@@ -195,8 +196,7 @@ class Traffic:
     def _reference(self, ref):
         """(schedule, eps_fn, loss, scales, window) of the reference."""
         s = R.make_schedule(self.ctx.cell.config["schedule"], self.p["steps"], self.ctx.device)
-        eps_fn = (R.cfg_eps(ref.unet, ref.text, ref.cfg_scale) if ref.family == "sd"
-                  else R.plain_eps(ref.unet))
+        eps_fn = ref.eps_fn()
         a = self.p["attr"]
         if a["kind"] == "colour":
             def loss(d):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..harness import cell as C
 from ..harness import compare
 from ..harness.drive import Reservoir, latent_shape, piece_flops, sub_seeds, sync
 from ..harness.models import build_reference
@@ -67,8 +68,10 @@ class Traffic:
         pass
 
     def flops_per_call(self) -> float:
-        f = piece_flops(self.ctx.cell.config)
-        return self.p["seeds"] * (self.p["steps"] * 2 * f["unet"] + f["decode"])
+        cfg = self.ctx.cell.config
+        f = piece_flops(cfg)
+        rows = C.family(cfg["family"]).ROWS
+        return self.p["seeds"] * (self.p["steps"] * rows * f["unet"] + f["decode"])
 
     def reference_run(self, ref, call: int):
         """The reference's DDIM from every seed's x_T, and the decode."""
@@ -81,8 +84,7 @@ class Traffic:
         def step(i, x, eps, t):
             return R.ddim_step(s, x, eps, t)
 
-        lat = R.guided_loop(s, R.cfg_eps(ref.unet, ref.text, ref.cfg_scale), xt, s.timesteps,
-                            step, None, None, [0.0], range(0))
+        lat = R.guided_loop(s, ref.eps_fn(), xt, s.timesteps, step, None, None, [0.0], range(0))
         with torch.no_grad():
             return lat, ref.decode(lat)
 
