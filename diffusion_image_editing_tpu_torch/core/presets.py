@@ -16,6 +16,11 @@ SCHEDULE_PRESETS: Dict[str, Dict[str, Any]] = {
     "sd": dict(num_train_timesteps=1000, beta_start=0.00085, beta_end=0.012,
                beta_schedule="scaled_linear", steps_offset=1, set_alpha_to_one=False,
                clip_sample=False),
+    # stabilityai/stable-diffusion-xl-base-1.0 `scheduler/scheduler_config.json`
+    # (EulerDiscrete's betas and offset; the port steps them as DDIM)
+    "sdxl": dict(num_train_timesteps=1000, beta_start=0.00085, beta_end=0.012,
+                 beta_schedule="scaled_linear", steps_offset=1, set_alpha_to_one=False,
+                 clip_sample=False),
 }
 
 

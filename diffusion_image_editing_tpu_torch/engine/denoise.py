@@ -46,12 +46,17 @@ class CfgEpsClosure:
     """Classifier-free guidance as ONE batched-2 UNet call.
 
     `text_emb` is [uncond; cond] stacked on the batch axis, (2, L, D); a
-    per-sample (B,) `t` is tiled for the pair."""
+    per-sample (B,) `t` is tiled for the pair. `added_cond` (SDXL) holds
+    the UNet's added conditioning, each tensor [uncond; cond] on the batch
+    axis ({"text_embeds": (2, P), "time_ids": (2, 6)}), repeated per
+    sample as the context is."""
 
-    def __init__(self, unet: nn.Module, text_emb: torch.Tensor, cfg_scale: float = 3.5):
+    def __init__(self, unet: nn.Module, text_emb: torch.Tensor, cfg_scale: float = 3.5,
+                 added_cond: Optional[dict] = None):
         self.unet = unet
         self.text_emb = text_emb
         self.cfg_scale = cfg_scale
+        self.added_cond = added_cond
 
     def _pair(self, x: torch.Tensor, t):
         b = x.shape[0]
@@ -61,13 +66,21 @@ class CfgEpsClosure:
         ctx = self.text_emb.repeat_interleave(b, dim=0)  # (2B, L, D) uncond first
         return torch.cat([x, x]), t, ctx
 
+    def _added(self, b: int) -> dict:
+        """The UNet's keyword for the added conditioning of a pair of b
+        samples: none without it."""
+        if self.added_cond is None:
+            return {}
+        return {"added_cond": {k: v.repeat_interleave(b, dim=0)
+                               for k, v in self.added_cond.items()}}
+
     def _mix(self, eps: torch.Tensor) -> torch.Tensor:
         eps_uncond, eps_text = eps.chunk(2)
         return eps_uncond + self.cfg_scale * (eps_text - eps_uncond)
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
         with span("models.unet"), torch.no_grad():
-            return self._mix(self.unet(*self._pair(x, t)))
+            return self._mix(self.unet(*self._pair(x, t), **self._added(x.shape[0])))
 
 
 class CfgEpsFeatClosure(CfgEpsClosure):
@@ -80,12 +93,14 @@ class CfgEpsFeatClosure(CfgEpsClosure):
 
     def full(self, x: torch.Tensor, t):
         with span("models.unet"), torch.no_grad():
-            eps, feats = self.unet(*self._pair(x, t), return_encoder_features=True)
+            eps, feats = self.unet(*self._pair(x, t), return_encoder_features=True,
+                                   **self._added(x.shape[0]))
             return self._mix(eps), feats
 
     def reuse(self, x: torch.Tensor, t, feats) -> torch.Tensor:
         with span("models.unet"), torch.no_grad():
-            return self._mix(self.unet(*self._pair(x, t), encoder_features=feats))
+            return self._mix(self.unet(*self._pair(x, t), encoder_features=feats,
+                                       **self._added(x.shape[0])))
 
 
 class DecodeClosure:

@@ -15,10 +15,20 @@ from .unet2d import (  # noqa: F401
     UNet2D,
     UNet2DConfig,
 )
-from .unet2d_cond import SD15_UNET, TINY_SD_UNET, UNet2DCondition, UNet2DConditionConfig  # noqa: F401
+from .unet2d_cond import (  # noqa: F401
+    SD15_UNET,
+    SDXL_UNET,
+    TINY_SD_UNET,
+    TINY_SDXL_UNET,
+    SDXLUNetConfig,
+    Transformer2D,
+    UNet2DCondition,
+    UNet2DConditionConfig,
+)
 from .vae import (  # noqa: F401
     LDM_CELEBAHQ_VQVAE,
     SD_VAE,
+    SDXL_VAE,
     TINY_VAE,
     TINY_VQVAE,
     AutoencoderConfig,

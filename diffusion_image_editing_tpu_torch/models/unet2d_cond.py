@@ -1,14 +1,25 @@
-"""Text-conditional UNet (Stable Diffusion 1.x) in torch, NCHW: the port of
-`models/unet2d_cond.py` with diffusers' `UNet2DConditionModel` key names.
+"""Text-conditional UNet (Stable Diffusion 1.x and SDXL) in torch, NCHW: the
+port of `models/unet2d_cond.py` with diffusers' `UNet2DConditionModel` key
+names.
+
+`UNet2DConditionConfig` holds SD-1.x's keys; `SDXLUNetConfig` adds SDXL's:
+transformer depth and head count per level, linear `proj_in` / `proj_out`,
+and the `text_time` added conditioning (a pooled text embedding and six
+micro-conditioning numbers, embedded and added to the timestep's). One
+module builds both.
 
 Two choices follow the JAX package, not diffusers, so the port reproduces it:
 LayerNorm eps 1e-6 (Flax's default) and the tanh form of GELU in GEGLU
-(Flax's `nn.gelu` default)."""
+(Flax's `nn.gelu` default). SDXL's configuration takes them too.
+
+Tracing: each `Transformer2D` stack runs in the span
+`models.unet.transformer` (its depth as `index`), and the counter
+`models.unet.transformer_blocks` counts the transformer blocks run."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,6 +29,7 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from ..ops.attention import attention
 from ..ops.conv import Conv3x3
+from ..utils.logging import COUNTERS, span
 from .layers import (
     Downsample2D,
     GroupNormLayer,
@@ -29,6 +41,9 @@ from .layers import (
 )
 
 LAYER_NORM_EPS = 1e-6
+
+
+PerLevel = Union[int, Tuple[int, ...]]  # one value for every level, or one a level
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +59,7 @@ class UNet2DConditionConfig:
         "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
     )
     layers_per_block: int = 2
-    attention_head_dim: int = 8  # number of heads (diffusers naming quirk)
+    attention_head_dim: PerLevel = 8  # number of heads (diffusers naming quirk)
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
@@ -54,16 +69,69 @@ class UNet2DConditionConfig:
     # shape allows (`ops.fused_conv`): the JAX package's DIE_TPU_FUSED_CONV=1.
     fused_conv: bool = False
 
+    # SDXL's keys, fields of `SDXLUNetConfig`: here class attributes holding
+    # SD-1.x's values, so that this config's fields (and the dicts made from
+    # them) stay SD-1.x's.
+    transformer_layers_per_block = 1
+    use_linear_projection = False
+    addition_embed_type = None
+    addition_time_embed_dim = None
+    projection_class_embeddings_input_dim = None
+
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
+    def per_level(self, value: PerLevel) -> Tuple[int, ...]:
+        """A per-level key as one value a level, down the UNet."""
+        n = len(self.block_out_channels)
+        out = (value,) * n if isinstance(value, int) else tuple(value)
+        if len(out) != n:
+            raise ValueError(f"{value!r} does not give one value for each of {n} levels")
+        return out
+
+    @property
+    def heads(self) -> Tuple[int, ...]:
+        return self.per_level(self.attention_head_dim)
+
+    @property
+    def depths(self) -> Tuple[int, ...]:
+        return self.per_level(self.transformer_layers_per_block)
+
+    def _stacks(self) -> list:
+        """The depth of each Transformer2D stack of one forward: down, mid, up."""
+        d = self.depths
+        down = [d[i] for i, t in enumerate(self.down_block_types) if t == "CrossAttnDownBlock2D"]
+        up = [d[::-1][i] for i, t in enumerate(self.up_block_types) if t == "CrossAttnUpBlock2D"]
+        return down * self.layers_per_block + [d[-1]] + up * (self.layers_per_block + 1)
+
     @property
     def num_transformers(self) -> int:
-        """Transformer2D blocks in one forward (each runs two attentions)."""
-        down = sum(t == "CrossAttnDownBlock2D" for t in self.down_block_types)
-        up = sum(t == "CrossAttnUpBlock2D" for t in self.up_block_types)
-        return down * self.layers_per_block + 1 + up * (self.layers_per_block + 1)
+        """Transformer2D stacks in one forward."""
+        return len(self._stacks())
+
+    @property
+    def num_transformer_blocks(self) -> int:
+        """Transformer blocks in one forward (each runs two attentions)."""
+        return sum(self._stacks())
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLUNetConfig(UNet2DConditionConfig):
+    """`UNet2DConditionConfig` with SDXL's keys as fields: per-level
+    transformer depth (the mid block takes the last level's, the up blocks
+    the list reversed) and head count, linear projections in and out of
+    each Transformer2D, and `addition_embed_type="text_time"`: the
+    sinusoidal embedding (`addition_time_embed_dim` a number) of the six
+    `time_ids` beside the pooled text embedding,
+    `projection_class_embeddings_input_dim` wide in all, through
+    `add_embedding` into the timestep embedding."""
+
+    transformer_layers_per_block: PerLevel = 1
+    use_linear_projection: bool = False
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: Optional[int] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
 
 
 SD15_UNET = UNet2DConditionConfig()  # CompVis SD-1.4 / runwayml SD-1.5
@@ -77,6 +145,39 @@ TINY_SD_UNET = UNet2DConditionConfig(
     attention_head_dim=2,
     cross_attention_dim=32,
     norm_num_groups=8,
+)
+
+# stabilityai/stable-diffusion-xl-base-1.0 `unet/config.json`: 2.57 B parameters
+SDXL_UNET = SDXLUNetConfig(
+    sample_size=128,
+    block_out_channels=(320, 640, 1280),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    layers_per_block=2,
+    attention_head_dim=(5, 10, 20),
+    cross_attention_dim=2048,
+    transformer_layers_per_block=(1, 2, 10),
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,
+)
+
+# SDXL's mechanisms at TINY widths: two levels, depths (1, 2), per-level heads
+TINY_SDXL_UNET = SDXLUNetConfig(
+    sample_size=8,
+    block_out_channels=(32, 64),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+    layers_per_block=1,
+    attention_head_dim=(2, 4),
+    cross_attention_dim=48,
+    norm_num_groups=8,
+    transformer_layers_per_block=(1, 2),
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=16 + 6 * 8,
 )
 
 
@@ -143,24 +244,37 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm -> 1x1 proj_in -> transformer block(s) -> 1x1 proj_out + residual."""
+    """GroupNorm -> proj_in -> transformer block(s) -> proj_out + residual;
+    the projections are 1x1 convs (SD-1.x) or, with `linear`, linear maps
+    over the tokens (SDXL's `use_linear_projection`)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, norm_num_groups: int = 32,
-                 depth: int = 1, **factory):
+                 depth: int = 1, linear: bool = False, **factory):
         super().__init__()
+        self.linear = linear
+        proj = (lambda: nn.Linear(channels, channels, **factory)) if linear else \
+            (lambda: nn.Conv2d(channels, channels, 1, **factory))
         self.norm = GroupNormLayer(channels, norm_num_groups, 1e-6, None, **factory)
-        self.proj_in = nn.Conv2d(channels, channels, 1, **factory)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, heads, context_dim, **factory) for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1, **factory)
+        self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
-        hid = self.proj_in(self.norm(x)).reshape(n, c, h * w).transpose(1, 2).contiguous()
-        for block in self.transformer_blocks:
-            hid = block(hid, context)
-        hid = hid.transpose(1, 2).reshape(n, c, h, w)
-        return self.proj_out(hid) + x
+        depth = len(self.transformer_blocks)
+        with span("models.unet.transformer", depth):
+            COUNTERS["models.unet.transformer_blocks"] += depth
+            if self.linear:
+                hid = self.proj_in(self.norm(x).reshape(n, c, h * w).transpose(1, 2))
+            else:
+                hid = self.proj_in(self.norm(x)).reshape(n, c, h * w).transpose(1, 2).contiguous()
+            for block in self.transformer_blocks:
+                hid = block(hid, context)
+            if self.linear:
+                return self.proj_out(hid).transpose(1, 2).reshape(n, c, h, w) + x
+            hid = hid.transpose(1, 2).reshape(n, c, h, w)
+            return self.proj_out(hid) + x
 
 
 class _Block(nn.Module):
@@ -179,8 +293,8 @@ class _Block(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    """SD UNet, NCHW. Built on `device` (None = CUDA, raising without it)
-    with parameters in `dtype`; `forward` returns f32 eps."""
+    """SD / SDXL UNet, NCHW. Built on `device` (None = CUDA, raising without
+    it) with parameters in `dtype`; `forward` returns f32 eps."""
 
     def __init__(self, config: UNet2DConditionConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -188,10 +302,20 @@ class UNet2DCondition(nn.Module):
         fk = dict(device=resolve_device(device), dtype=dtype)
         rk = dict(fk, fused_conv=cfg.fused_conv)  # ResnetBlock2D keywords
         g, eps = cfg.norm_num_groups, cfg.norm_eps
-        heads, ctx, temb = cfg.attention_head_dim, cfg.cross_attention_dim, cfg.time_embed_dim
+        ctx, temb = cfg.cross_attention_dim, cfg.time_embed_dim
+        heads, depths = cfg.heads, cfg.depths
         c0 = cfg.block_out_channels[0]
         self.time_embedding = TimeEmbedding(c0, temb, **fk)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimeEmbedding(cfg.projection_class_embeddings_input_dim, temb,
+                                               **fk)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r} is not supported")
         self.conv_in = Conv3x3(cfg.in_channels, c0, **fk)
+
+        def transformer(ch: int, level: int) -> Transformer2D:
+            return Transformer2D(ch, heads[level], ctx, g, depths[level],
+                                 cfg.use_linear_projection, **fk)
 
         skips, ch, downs = [c0], c0, []
         for i, btype in enumerate(cfg.down_block_types):
@@ -201,7 +325,7 @@ class UNet2DCondition(nn.Module):
                 resnets.append(ResnetBlock2D(ch, out_ch, temb, g, eps, **rk))
                 ch = out_ch
                 if btype == "CrossAttnDownBlock2D":
-                    attns.append(Transformer2D(ch, heads, ctx, g, **fk))
+                    attns.append(transformer(ch, i))
                 skips.append(ch)
             down = None
             if i < len(cfg.down_block_types) - 1:
@@ -212,9 +336,9 @@ class UNet2DCondition(nn.Module):
 
         self.mid_block = _Block(
             [ResnetBlock2D(ch, ch, temb, g, eps, **rk), ResnetBlock2D(ch, ch, temb, g, eps, **rk)],
-            [Transformer2D(ch, heads, ctx, g, **fk)])
+            [transformer(ch, -1)])
 
-        ups = []
+        ups, levels = [], len(cfg.block_out_channels)
         for i, btype in enumerate(cfg.up_block_types):
             out_ch = list(reversed(cfg.block_out_channels))[i]
             resnets, attns = [], []
@@ -222,7 +346,7 @@ class UNet2DCondition(nn.Module):
                 resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb, g, eps, **rk))
                 ch = out_ch
                 if btype == "CrossAttnUpBlock2D":
-                    attns.append(Transformer2D(ch, heads, ctx, g, **fk))
+                    attns.append(transformer(ch, levels - 1 - i))
             up = [Upsample2D(ch, ch, **fk)] if i < len(cfg.up_block_types) - 1 else None
             ups.append(_Block(resnets, attns, upsamplers=up))
         self.up_blocks = nn.ModuleList(ups)
@@ -230,9 +354,23 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNormLayer(ch, g, eps, "silu", **fk)
         self.conv_out = Conv3x3(ch, cfg.out_channels, **fk)
 
+    def _added_embedding(self, added_cond: dict, batch: int) -> torch.Tensor:
+        """SDXL's `text_time` embedding: the sinusoidal embedding of each of
+        the six time_ids beside the pooled text embedding, through
+        `add_embedding`."""
+        cfg = self.config
+        text_embeds, time_ids = added_cond["text_embeds"], added_cond["time_ids"]
+        time_embeds = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                         cfg.flip_sin_to_cos, cfg.freq_shift)
+        add = torch.cat([text_embeds.float(), time_embeds.reshape(batch, -1)], dim=-1)
+        return self.add_embedding(add)
+
     def forward(self, sample: torch.Tensor, timesteps, context: torch.Tensor,
-                encoder_features=None, return_encoder_features: bool = False):
-        """sample (B, C, H, W); timesteps a scalar or (B,); context (B, L, D).
+                encoder_features=None, return_encoder_features: bool = False,
+                added_cond: Optional[dict] = None):
+        """sample (B, C, H, W); timesteps a scalar or (B,); context (B, L, D);
+        `added_cond` SDXL's {"text_embeds": (B, P), "time_ids": (B, 6)},
+        required by a `text_time` config and refused by the others.
 
         Encoder propagation (Faster Diffusion, arXiv 2312.09608), opt-in:
         `return_encoder_features=True` also returns the down path's output
@@ -241,6 +379,9 @@ class UNet2DCondition(nn.Module):
         current timestep embedding. Features of the same (sample, t) give
         the full forward's eps exactly."""
         cfg = self.config
+        if (added_cond is None) != (cfg.addition_embed_type is None):
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r} takes "
+                             f"{'no' if cfg.addition_embed_type is None else 'its'} added_cond")
         dtype = self.conv_in.weight.dtype
         t = torch.as_tensor(np.asarray(timesteps) if not torch.is_tensor(timesteps)
                             else timesteps, device=sample.device)
@@ -249,6 +390,8 @@ class UNet2DCondition(nn.Module):
         t_emb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
                                    cfg.freq_shift)
         temb = self.time_embedding(t_emb)
+        if added_cond is not None:
+            temb = temb + self._added_embedding(added_cond, sample.shape[0])
         context = context.to(dtype)
 
         if encoder_features is not None:

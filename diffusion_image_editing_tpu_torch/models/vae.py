@@ -48,6 +48,9 @@ class AutoencoderConfig:
 
 SD_VAE = AutoencoderConfig()  # CompVis/stable-diffusion-v1-4 `vae`
 
+# stabilityai/stable-diffusion-xl-base-1.0 `vae`: SD's architecture at 1024 px
+SDXL_VAE = AutoencoderConfig(sample_size=1024, scaling_factor=0.13025)
+
 LDM_CELEBAHQ_VQVAE = AutoencoderConfig(  # CompVis/ldm-celebahq-256 `vqvae`
     latent_channels=3,
     block_out_channels=(128, 256, 512),

@@ -7,4 +7,4 @@ from .factory import (  # noqa: F401
     save_wrapper_params,
 )
 from .masks import MaskCreator, apply_mask  # noqa: F401
-from .wrappers import DDPM, LDM, SD, DiffusionWrapper  # noqa: F401
+from .wrappers import DDPM, LDM, SD, SDXL, DiffusionWrapper, SDXLText  # noqa: F401

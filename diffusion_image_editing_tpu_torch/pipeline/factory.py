@@ -31,6 +31,8 @@ from ..models import (
     LDM_CELEBAHQ_VQVAE,
     SD15_UNET,
     SD_VAE,
+    SDXL_UNET,
+    SDXL_VAE,
     AutoencoderKL,
     BiSeNet,
     CLIPTextEncoder,
@@ -44,7 +46,7 @@ from ..models import (
 )
 from ..models.bisenet import SegmentationModel
 from ..models.port import load_weights, save_checkpoint_dir
-from .wrappers import DDPM, LDM, SD, DiffusionWrapper
+from .wrappers import DDPM, LDM, SD, SDXL, SDXL_TIME_IDS, DiffusionWrapper, SDXLText
 
 
 def create_diffusion_model(
@@ -55,18 +57,22 @@ def create_diffusion_model(
     dtype: torch.dtype = torch.bfloat16,
     device=None,
 ) -> DiffusionWrapper:
-    """`create_diffusion_model("ddpm"|"ldm"|"sd")` with the modules in
+    """`create_diffusion_model("ddpm"|"ldm"|"sd"|"sdxl")` with the modules in
     `dtype` (bf16, the port's compute dtype, by default) on `device` (None =
     CUDA, raising without it). As in the JAX package, `sample_clipping` is
     read by "ddpm" and "ldm" only (True for synthetic generation, False for
-    real-image editing): SD never clips pred-x0."""
-    if name not in ("ddpm", "ldm", "sd"):
+    real-image editing): SD never clips pred-x0. "sdxl" (SDXL base 1.0 at
+    1024 px) has seeded random weights and a seeded random conditioning
+    (`SDXLText`) in place of its text encoders; it takes no checkpoint."""
+    if name not in ("ddpm", "ldm", "sd", "sdxl"):
         raise ValueError(f"Unknown model name: {name}")
     dev = resolve_device(device)
     sched = schedule_for_model(name, num_inference_steps,
                                sample_clipping if name in ("ddpm", "ldm") else None)
     if name in ("ddpm", "ldm"):
         return _unconditional(name, sched, checkpoint_dir, dtype, dev)
+    if name == "sdxl":
+        return _sdxl(sched, checkpoint_dir, dtype, dev)
     if checkpoint_dir is not None:
         unet = load_checkpoint_dir(os.path.join(checkpoint_dir, "unet"), "unet2d_cond", dev,
                                    dtype)
@@ -87,6 +93,25 @@ def create_diffusion_model(
         vae = AutoencoderKL(SD_VAE, device=dev, dtype=dtype)
         text = CLIPTextEncoder(CLIP_VIT_L_14_TEXT, device=dev, dtype=dtype)
     return SD(unet, vae, sched, text, None, device=dev)
+
+
+def _sdxl(sched, checkpoint_dir, dtype, dev) -> SDXL:
+    """SDXL from seeded random weights, with a seeded random conditioning of
+    the published shapes and the 1024 px time_ids."""
+    if checkpoint_dir is not None:
+        raise ValueError("sdxl loads no checkpoint: the port has neither its text encoders "
+                         "nor its config.json keys in the loader")
+    _warn_random_init()
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(0)
+        unet = UNet2DCondition(SDXL_UNET, device=dev, dtype=dtype)
+        vae = AutoencoderKL(SDXL_VAE, device=dev, dtype=dtype)
+        pooled = (SDXL_UNET.projection_class_embeddings_input_dim
+                  - len(SDXL_TIME_IDS) * SDXL_UNET.addition_time_embed_dim)  # 1280
+        text = SDXLText(torch.randn(2, 77, SDXL_UNET.cross_attention_dim, device=dev),
+                        torch.randn(2, pooled, device=dev),
+                        torch.tensor([SDXL_TIME_IDS] * 2, dtype=torch.float32, device=dev))
+    return SDXL(unet, vae, sched, text, device=dev)
 
 
 def _unconditional(name, sched, checkpoint_dir, dtype, dev) -> DiffusionWrapper:

@@ -1,13 +1,14 @@
 """Model-family wrappers: the port of `pipeline/wrappers.py`. A wrapper holds
 the UNet, the schedule and the codec on one device: the identity for DDPM
 (pixel space), the VQ autoencoder for LDM (latent scale 1.0), and the KL
-autoencoder with the 0.18215 latent scale plus CLIP prompts for SD; and
-the generation API."""
+autoencoder with the 0.18215 latent scale plus CLIP prompts for SD, the
+same at 1024 px with the 0.13025 scale and a given conditioning for SDXL;
+and the generation API."""
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -284,3 +285,56 @@ class SD(DiffusionWrapper):
             uncond = torch.as_tensor(self.tokenizer.encode(""), dtype=torch.long)
             ids = torch.stack([uncond, ids.cpu()])
         return self.encode_text_ids(ids)
+
+
+SDXL_TIME_IDS = (1024, 1024, 0, 0, 1024, 1024)  # original size, crop's top-left, target size
+
+
+class SDXLText(NamedTuple):
+    """SDXL's conditioning of a classifier-free guidance pair, each tensor
+    [uncond; cond] on the batch axis: `context`, the two text encoders'
+    hidden states concatenated (CLIP ViT-L's 768 and OpenCLIP bigG's 1280),
+    (2, L, 2048); `text_embeds`, bigG's pooled embedding, (2, 1280);
+    `time_ids`, the micro-conditioning (2, 6) (`SDXL_TIME_IDS` at 1024 px)."""
+
+    context: torch.Tensor
+    text_embeds: torch.Tensor
+    time_ids: torch.Tensor
+
+    def added_cond(self) -> dict:
+        return {"text_embeds": self.text_embeds, "time_ids": self.time_ids}
+
+    def to(self, device) -> "SDXLText":
+        return SDXLText(*(t.to(device) for t in self))
+
+
+class SDXL(SD):
+    """Stable Diffusion XL: the SDXL UNet (`SDXLUNetConfig`, `text_time`
+    added conditioning) and the KL VAE, whose config gives the latent scale
+    (0.13025). The port has neither of SDXL's text encoders, so the wrapper
+    is given its conditioning (`SDXLText`), which `prep_text()` returns;
+    prompt ids raise."""
+
+    family = "sdxl"
+
+    def __init__(self, unet: nn.Module, vae: nn.Module, sched: Schedule,
+                 text: Optional[SDXLText] = None, device=None):
+        super().__init__(unet, vae, sched, device=device)
+        self.text = None if text is None else text.to(self.device)
+
+    def prep_text(self, prompt_ids=None) -> Optional[SDXLText]:
+        if prompt_ids is not None:
+            raise ValueError("SDXL's prompts need CLIP ViT-L and OpenCLIP bigG text encoders, "
+                             "which the port does not have: give the wrapper its SDXLText")
+        return self.text
+
+    def eps_fn(self, text_emb: Optional[SDXLText] = None, cfg_scale: float = 5.0,
+               features: bool = False):
+        """The CFG denoiser with SDXL's conditioning `text_emb` (an
+        `SDXLText`); 5.0 is diffusers' SDXL pipeline's default scale."""
+        if text_emb is None:
+            raise ValueError("the SDXL UNet needs its conditioning: an SDXLText")
+        if self._mesh is not None:
+            raise ValueError("SDXL's added conditioning is not split over a mesh")
+        closure = CfgEpsFeatClosure if features else CfgEpsClosure
+        return closure(self.unet, text_emb.context, cfg_scale, text_emb.added_cond())

@@ -27,6 +27,10 @@ The last line of standard output is run.py's result object; with `--spans
 - `nudge_ms`, `loss_ms`, `vjp_ms`, `unet_ms`: device ms a profiled engine
   step launched in `die.guidance.nudge`, `die.guidance.loss`,
   `die.guidance.vjp` (any thread) and `die.models.unet`;
+- `xfmr_ms`: device ms a profiled UNet call (a `models.unet` span) launched
+  in its Transformer2D stacks (`die.models.unet.transformer`), and
+  `transformer_blocks_per_call`, the counter `models.unet.transformer_blocks`
+  over those calls;
 - `loss_batched_share`: of the samples whose guidance loss the profiled
   calls took per sample, the share that took one call for their chunk
   (the counters `guidance.loss_samples.batched` and `.looped`);
@@ -64,7 +68,8 @@ T_START = time.perf_counter()
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 AGREE = (("die.models.unet", "bench.unet"), ("die.guidance.nudge", "bench.nudge"),
-         ("die.ops.attention", "bench.attn"), ("die.ops.group_norm", "bench.gn"))
+         ("die.ops.attention", "bench.attn"), ("die.ops.group_norm", "bench.gn"),
+         ("die.models.unet.transformer", "bench.xfmr"))
 
 
 def p95(values: List[float]) -> Optional[float]:
@@ -135,8 +140,14 @@ def read_spans(spans: List[dict], window_calls: int, window_counts: Dict[str, in
         sum(s["host_syncs"] for s in traced.values()
             if "engine.step" in [s["name"]] + _ancestors(s, traced)) / traced_steps
         if traced_steps and "host_syncs" in traced_counts else None)
+    unet_calls = sum(1 for s in traced.values() if s["name"] == "models.unet")
+    blocks = traced_counts.get("models.unet.transformer_blocks", 0)
+    out["transformer_blocks_per_call"] = blocks / unet_calls if unet_calls and blocks else None
     if trace is None or not traced_steps:
         return out
+    out["xfmr_ms"] = (trace.range_device_s("die.models.unet.transformer") / unet_calls * 1e3
+                      if unet_calls and trace.range_count("die.models.unet.transformer")
+                      else None)
     for key, name in (("nudge_ms", "die.guidance.nudge"), ("loss_ms", "die.guidance.loss"),
                       ("vjp_ms", "die.guidance.vjp"), ("unet_ms", "die.models.unet")):
         out[key] = (trace.range_device_s(name) / traced_steps * 1e3

@@ -336,7 +336,8 @@ def test_a_traced_edit_has_a_span_at_every_layer_boundary(monkeypatch):
     assert {_ancestors(s, by_id)[0] for s in by["models.encode"]} == {"engine.invert"}
     assert [_ancestors(s, by_id) for s in by["models.decode"]] == [[]]  # the final decode
     under_unet = {s["name"] for s in spans if "models.unet" in _ancestors(s, by_id)}
-    assert under_unet == {"ops.attention", "ops.group_norm", "ops.conv3x3"}
+    assert under_unet == {"models.unet.transformer", "ops.attention", "ops.group_norm",
+                          "ops.conv3x3"}
     for s in by["ops.attention"]:
         assert len(s["shapes"]) == 2 and s["elem_bytes"] == 4
     bwd = by["ops.attention.bwd"]
